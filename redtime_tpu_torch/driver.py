@@ -1,0 +1,270 @@
+"""End-to-end solver driver: prepare -> evolve -> output tables.
+
+`run_batch` is the entry point: a batch of cosmologies is cut into chunks
+(the last one padded by repeating its first lane), each chunk is prepared
+and solved on `device` as one batch with one adaptive controller per lane,
+and the chunks are concatenated — the JAX package's chunked scheduler
+(redtime_tpu/driver.py:603-710) with the vmap written out as the leading
+batch dimension.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from redtime_tpu_torch import background as bg
+from redtime_tpu_torch import interp
+from redtime_tpu_torch import model as mdl
+from redtime_tpu_torch import trg
+from redtime_tpu_torch.config import H0H, CosmoParams, RunSettings, SolverConfig
+from redtime_tpu_torch.fastpt import engine_consts
+from redtime_tpu_torch.grids import make_grids
+from redtime_tpu_torch.io.camb import LinearData
+from redtime_tpu_torch.io.params import ParamsFile
+from redtime_tpu_torch.state import linear_from_numpy
+
+F64 = torch.float64
+
+prepare_model = mdl.prepare_model
+
+# Full-TRG chunk size on a GPU (the JAX package's accelerator default for
+# this mode, redtime_tpu/driver.py:532-539; not tuned for the H100 yet).
+DEFAULT_GPU_CHUNK_FULL = 16
+DEFAULT_GPU_CHUNK = 32
+
+
+class RunResult(NamedTuple):
+    """Tensors of a batched solver run (leading dimension B)."""
+
+    k: torch.Tensor          # [B, nk]
+    table: torch.Tensor      # [B, n_eta, nk, ncol] — printed column layout
+    eta: torch.Tensor        # [B, n_eta] header scalars
+    a: torch.Tensor
+    z: torch.Tensor
+    H: torch.Tensor          # H in h/Mpc units (reference prints H_H0*H0h)
+    sigma_v2: torch.Tensor   # [B, n_eta]
+    sigmaV2_z0: torch.Tensor  # [B]
+    eta_fin: torch.Tensor    # [B]
+
+
+def lane(res: RunResult, i: int) -> RunResult:
+    """One cosmology's result out of a batch (for io.writer)."""
+    return RunResult(*[x[i] for x in res])
+
+
+def n_columns(cfg: SolverConfig, settings: RunSettings) -> int:
+    n = 1
+    if settings.print_lin:
+        n += 6
+    n += 3
+    if cfg.print_a:
+        n += 14
+    if cfg.print_i:
+        n += 14
+    if settings.print_rsd and cfg.print_bias:
+        n += 22
+    if settings.print_rsd and not cfg.print_bias:
+        n += 7
+    if cfg.print_q:
+        n += 24
+    return n
+
+
+def _check_settings(settings: RunSettings,
+                    cfg: SolverConfig | None = None) -> None:
+    z = np.asarray(settings.z_out, dtype=float)
+    if z.size == 0:
+        raise ValueError("z_out is empty")
+    if np.any(np.diff(z) > 0):
+        raise ValueError(
+            f"z_out must be ordered from greatest to least (reference "
+            f"params convention); got {list(settings.z_out)}")
+    if z[0] > settings.z_in:
+        raise ValueError(
+            f"first output z={z[0]} precedes z_in={settings.z_in}")
+    if cfg is not None:
+        # growth-table range: the reference ABORTS on a outside
+        # [growth_a_min, growth_a_max] (AU_cosmological_parameters.h:
+        # 644-649); the table lookup would silently edge-extrapolate
+        a_lo = 1.0 / (1.0 + settings.z_in)
+        a_hi = 1.0 / (1.0 + float(z[-1]))
+        if a_lo < cfg.growth_a_min or a_hi > cfg.growth_a_max:
+            raise ValueError(
+                f"a range [{a_lo:.3e}, {a_hi:.3e}] (z_in={settings.z_in}, "
+                f"z_out min={z[-1]}) exceeds the growth table "
+                f"[{cfg.growth_a_min}, {cfg.growth_a_max}] — the "
+                f"reference aborts here; widen growth_a_min/max or "
+                f"adjust z_in/z_out")
+    trg._check_full_trg(settings)
+
+
+def _check_columns(cfg: SolverConfig, settings: RunSettings) -> None:
+    if cfg.print_a or cfg.print_i or cfg.print_q or cfg.print_bias \
+            or cfg.fill_pt_full_trg:
+        raise NotImplementedError(
+            "the PRINTA/PRINTI/PRINTQ/PRINTBIAS columns and "
+            "fill_pt_full_trg are not ported yet")
+
+
+def build_output_block(cfg: SolverConfig, settings: RunSettings,
+                       model: mdl.Model, y: torch.Tensor,
+                       z: float) -> torch.Tensor:
+    """One output block [B, nk, ncol] at redshift z from the states
+    y [B, 41, nk] (reference main output loop, redTime.cc:1646-1741).
+
+    Full-TRG mode leaves the PT columns at zero: the reference gates the
+    output-time mode-coupling recomputation on SWITCH_1LOOP
+    (redTime.cc:1646; redtime_tpu/driver.py:163-178), a documented output
+    caveat reproduced here."""
+    g = make_grids(cfg)
+    B = y.shape[0]
+    dev = y.device
+    k = torch.as_tensor(g.k, dtype=F64, device=dev)
+    a = 1.0 / (1.0 + z)
+    r = a / settings.a_in
+    r2, r3, r4 = r * r, r ** 3, r ** 4
+    cols = [k.expand(B, -1)]
+
+    if settings.print_lin:
+        D, dDda = mdl.growth_D_f(model, z)
+        f = a * dDda / D
+        _, Pcb, Pnu = mdl.plin_all(cfg, model, z)
+        beta = mdl.beta_P_solver(model, a)
+        b1 = mdl.beta_P_solver(model, 1.0)
+        aL, aR = a * 0.999, min(1.0, a * 1.001)
+        dlnB_num = (mdl.beta_P_solver(model, aR)
+                    - mdl.beta_P_solver(model, aL)) / (aR - aL)
+        dlnB = torch.where(model.f_nu[:, None] < 1e-10,
+                           torch.zeros_like(dlnB_num),
+                           (a / beta) * dlnB_num)
+        cols += [D, f, Pcb, beta / (b1 + 1e-100), dlnB, Pnu]
+
+    P = torch.exp(y[:, 0:3])
+    cols += [P[:, 0] * r2, P[:, 1] * r2, P[:, 2] * r2]
+
+    if settings.print_rsd:
+        pb = trg.pbis_j(cfg, y) * r3                     # [B, 5, nk]
+        zero = torch.zeros((B, g.nk), dtype=F64, device=dev)
+        cols += [pb[:, 0] + pb[:, 1], pb[:, 2] + pb[:, 3], pb[:, 4]]
+        cols += [zero * r4] * 4
+    return torch.stack(cols, dim=2)
+
+
+def solve(cfg: SolverConfig, settings: RunSettings, model: mdl.Model,
+          ec=None) -> RunResult:
+    """Full evolution + output assembly for a prepared batch."""
+    _check_settings(settings, cfg)
+    _check_columns(cfg, settings)
+    if ec is None:
+        ec = engine_consts(cfg, model.norm.device)
+    ys = trg.evolve(cfg, settings, model, ec)
+    return _finalize(cfg, settings, model, ys)
+
+
+def _finalize(cfg: SolverConfig, settings: RunSettings, model: mdl.Model,
+              ys: torch.Tensor) -> RunResult:
+    """Output assembly from the evolved states [B, n_eta, 41, nk]."""
+    g = make_grids(cfg)
+    B = model.batch
+    dev = ys.device
+    z_arr = np.asarray(settings.z_out, dtype=np.float64)
+    a_arr = 1.0 / (1.0 + z_arr)
+    table = torch.stack(
+        [build_output_block(cfg, settings, model, ys[:, i], float(z))
+         for i, z in enumerate(z_arr)], dim=1)
+    # the reference evaluates sigma_v^2 at the HARDCODED k = 1e-3
+    # (AU_cosmological_parameters.h:963-970); on the default grid that is
+    # exactly the first solver column
+    wsv = (None if cfg.kmin == 1e-3 else torch.as_tensor(
+        interp.weight_matrix_np(
+            np.log(np.asarray(g.k)),
+            np.asarray([np.log(np.clip(1e-3, g.k[0], g.k[-1]))]))[0],
+        dtype=F64, device=dev))
+    svs = torch.stack([mdl.sigma_v2(model, float(z), wsv) for z in z_arr],
+                      dim=1)
+    t = lambda x: torch.as_tensor(x, dtype=F64, device=dev)
+    a_t = t(a_arr).expand(B, -1)
+    Hs = bg.H_H0(model.cosmo, a_t) * H0H
+    return RunResult(
+        k=t(g.k).expand(B, -1), table=table,
+        eta=t(settings.etasteps()).expand(B, -1), a=a_t,
+        z=t(z_arr).expand(B, -1), H=Hs, sigma_v2=svs,
+        sigmaV2_z0=model.sigmaV2_z0,
+        eta_fin=t(np.log(1.0 / settings.a_in)).expand(B))
+
+
+def finite_report(res: RunResult) -> np.ndarray:
+    """Indices of batch lanes with non-finite output (per-model fault
+    isolation).  Checks the header scalars too."""
+    ok = None
+    for x in (res.table, res.sigma_v2, res.H, res.sigmaV2_z0):
+        lane_ok = torch.isfinite(x.reshape(x.shape[0], -1)).all(dim=1)
+        ok = lane_ok if ok is None else ok & lane_ok
+    return np.nonzero(~ok.cpu().numpy())[0]
+
+
+def _batch_size(cs: CosmoParams) -> int:
+    return int(np.asarray(cs.n_s.cpu() if hasattr(cs.n_s, "cpu")
+                          else cs.n_s).shape[0])
+
+
+def _host(x) -> np.ndarray:
+    return np.array(x.cpu() if hasattr(x, "cpu") else x, dtype=np.float64)
+
+
+def _take(x: np.ndarray, i0: int, size: int) -> np.ndarray:
+    """Rows [i0, i0+size) of x, padded to `size` by repeating row i0."""
+    part = x[i0:i0 + size]
+    pad = size - part.shape[0]
+    if pad:
+        part = np.concatenate([part, np.repeat(part[:1], pad, axis=0)])
+    return part
+
+
+def run_batch(cfg: SolverConfig, settings: RunSettings, cs: CosmoParams,
+              lins: LinearData, device="cpu", max_chunk: int | None = None,
+              norm_override=None) -> RunResult:
+    """Batched pipeline on `device` (the chunked scheduler).
+
+    cs: CosmoParams with [B] fields; lins: LinearData with a leading batch
+    dimension (numpy or tensors); norm_override: optional [B] P_lin
+    normalization constants.  max_chunk: the largest batch prepared and
+    solved at once (default: the whole batch on the CPU, 16 lanes in
+    full-TRG mode on a GPU); chunks are padded to equal size by repeating
+    their first lane and the padding is dropped from the result."""
+    _check_settings(settings, cfg)
+    _check_columns(cfg, settings)
+    device = torch.device(device)
+    n = _batch_size(cs)
+    if max_chunk is None:
+        max_chunk = n if device.type == "cpu" else (
+            DEFAULT_GPU_CHUNK_FULL if settings.nonlinear
+            and not settings.one_loop else DEFAULT_GPU_CHUNK)
+    cs_np = [_host(x) for x in cs]
+    lin_np = [_host(x) for x in lins]
+    nrm_np = None if norm_override is None else _host(norm_override)
+    ec = engine_consts(cfg, device)
+    outs = []
+    size = min(max_chunk, n)
+    for i0 in range(0, n, size):
+        ccs = CosmoParams(*[torch.as_tensor(_take(x, i0, size), device=device)
+                            for x in cs_np])
+        clin = linear_from_numpy(
+            LinearData(*[_take(x, i0, size) for x in lin_np]), device)
+        cnrm = None if nrm_np is None else _take(nrm_np, i0, size)
+        m = mdl.prepare_model(cfg, ccs, clin, norm_override=cnrm)
+        outs.append(solve(cfg, settings, m, ec))
+    return RunResult(*[torch.cat(xs, dim=0)[:n] for xs in zip(*outs)])
+
+
+def settings_from_params(p: ParamsFile) -> tuple[RunSettings, CosmoParams]:
+    settings = RunSettings(
+        nonlinear=bool(p.switch_nonlinear), one_loop=bool(p.switch_1loop),
+        print_lin=bool(p.print_lin), print_rsd=bool(p.print_rsd),
+        z_in=p.z_in, z_out=tuple(p.z_out))
+    cosmo = CosmoParams.make(p.n_s, p.sigma_8, p.h, p.Omega_m, p.Omega_b,
+                             p.Omega_nu, p.T_cmb, p.w0, p.wa)
+    return settings, cosmo

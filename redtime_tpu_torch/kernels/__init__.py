@@ -1,0 +1,16 @@
+"""Hand-written Hopper kernels of the main path, each beside its plain
+PyTorch version:
+
+  * `out_leg`   — K1, CUDA C++ (csrc/out_leg.cu): the engine's per-family
+                  output leg, J = (tab_a * tab_b / 2np) @ G;
+  * `pz_leg`    — K2, CUDA C++ (csrc/pz_leg.cu): the Z-kernel Toeplitz
+                  contraction with its outer-factor epilogue;
+  * `rk_finish` — K3, Triton: the tail of one RK attempt with the GSL
+                  step controller.
+
+A wrapper takes the plain version only for tensors on the CPU; for CUDA
+tensors it launches its kernel or raises.  Each module holds its wrapper
+and plain version under the module's own name (out_leg.out_leg,
+out_leg.out_leg_plain, ...); `counts` holds the launch counters and
+`build` compiles the CUDA sources.
+"""

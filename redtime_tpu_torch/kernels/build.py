@@ -1,0 +1,104 @@
+"""Build and load the CUDA C++ kernels.
+
+The sources in `redtime_tpu_torch/csrc/` have a plain C interface and are
+compiled by `nvcc` for Hopper (`sm_90a`) into one shared library, loaded
+with ctypes.  The library is built at first use into
+`build/redtime_tpu_torch/` at the repository root, under a name that
+carries the hash of the sources and flags, so an edited source rebuilds
+and an unchanged one is reused.
+
+Every C entry point takes device pointers, sizes and the CUDA stream, and
+returns `cudaGetLastError()` after its launch; the Python wrappers raise
+when that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "redtime_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib: ctypes.CDLL | None = None
+BUILD_LOG: dict = {}
+
+
+def _sources() -> list[Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "source with the CUDA toolkit")
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libredtime_kernels_{source_hash()}.so"
+
+
+def build() -> Path:
+    """Compile the kernels if the current sources are not built yet;
+    returns the library path.  Raises with nvcc's output on failure."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_LOG.update(seconds=time.perf_counter() - t0,
+                     command=" ".join(cmd), output=proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{BUILD_LOG['output']}")
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        handle.rt_out_leg.argtypes = [p, p, p, i, i, i, i, p]
+        handle.rt_out_leg.restype = i
+        handle.rt_pz_leg.argtypes = [p, p, p, p, i, i, i, i, p]
+        handle.rt_pz_leg.restype = i
+        _lib = handle
+    return _lib
+
+
+def check(status: int, name: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error "
+                           f"{status}")

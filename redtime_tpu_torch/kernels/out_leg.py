@@ -1,0 +1,64 @@
+"""K1 out_leg: the engine's per-family output leg (csrc/out_leg.cu).
+
+    Jw[b, f, a, c, o] = sum_n (tab[b,0,f,a,n] tab[b,1,f,c,n] / 2np) G[f,n,o]
+
+tab [B, 2, nfam, 3, 2np] is the convolution backward leg's output
+(sab @ dft_bwd_half) and G [nfam, 2np, nk+1] the f64 composite output
+matrix (fastpt.composite_out_matrix).  Replaces the TPU's Ozaki output
+leg (redtime_tpu/fastpt.py:1232-1266 and the Pallas probe4.kernel,
+scripts/probe_pallas.py:145-199).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from redtime_tpu_torch.kernels import build, counts
+
+
+def out_leg_plain(tab: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version: materialize the pair products, then one
+    batched matmul per family."""
+    B, _, nfam, _, K = tab.shape
+    prod = tab[:, 0, :, :, None, :] * tab[:, 1, :, None, :, :] / K
+    J = torch.matmul(prod.reshape(B, nfam, 9, K), G)
+    return J.reshape(B, nfam, 3, 3, G.shape[-1])
+
+
+def _check(tab: torch.Tensor, G: torch.Tensor) -> None:
+    if tab.dim() != 5 or tab.shape[1] != 2 or tab.shape[3] != 3:
+        raise ValueError(f"out_leg: tab must be [B, 2, nfam, 3, K], got "
+                         f"{tuple(tab.shape)}")
+    B, _, nfam, _, K = tab.shape
+    if G.dim() != 3 or G.shape[0] != nfam or G.shape[1] != K:
+        raise ValueError(f"out_leg: G must be [{nfam}, {K}, O], got "
+                         f"{tuple(G.shape)}")
+    for name, x in (("tab", tab), ("G", G)):
+        if x.dtype != torch.float64:
+            raise TypeError(f"out_leg: {name} must be float64, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"out_leg: {name} must be contiguous")
+    if tab.device != G.device:
+        raise ValueError("out_leg: tab and G on different devices")
+
+
+def out_leg(tab: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
+    """Jw [B, nfam, 3, 3, O]: the hand kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    _check(tab, G)
+    if tab.device.type == "cpu":
+        return out_leg_plain(tab, G)
+    if tab.device.type != "cuda":
+        raise RuntimeError(f"out_leg: no kernel for device {tab.device}")
+    B, _, nfam, _, K = tab.shape
+    O = G.shape[-1]
+    out = torch.empty((B, nfam, 3, 3, O), dtype=torch.float64,
+                      device=tab.device)
+    with torch.cuda.device(tab.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = build.lib().rt_out_leg(tab.data_ptr(), G.data_ptr(),
+                                        out.data_ptr(), B, nfam, K, O,
+                                        stream)
+    build.check(status, "out_leg")
+    counts.LAUNCHES["out_leg"] += 1
+    return out

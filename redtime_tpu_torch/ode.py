@@ -1,0 +1,227 @@
+"""Adaptive embedded Runge-Kutta integration over a batch of lanes.
+
+Replaces the reference's GSL odeiv stack (`gsl_odeiv_evolve_apply` +
+`gsl_odeiv_control_y_new` + `gsl_odeiv_step_rkf45`, used at
+`src/redTime.cc:1589-1630` and `AU_cosmological_parameters.h:170-190`).
+The accept/reject/step-size logic is GSL's "standard controller":
+
+  D0_i = eps_abs + eps_rel * |y_i|          (a_y = 1, a_dydt = 0)
+  r    = max_i |yerr_i| / D0_i
+  r > 1.1  -> reject, h *= max(0.9 * r^(-1/ord), 0.2)
+  r < 0.5  -> accept, h *= clip(0.9 * r^(-1/(ord+1)), 1, 5)
+  else     -> accept, h unchanged
+
+with the step clipped to land exactly on t1 and the clipped step's
+adjusted size carried on as the next suggestion.
+
+Every lane of a batch runs its own controller (its own t, h, attempt
+count and error norm over its own state), exactly as the JAX package's
+vmapped `lax.while_loop` does; lanes that reached t1 stay frozen.  There
+is one controller attempt (`attempt`), shared by the growth tables and
+the eta evolution; its tail is the hand kernel K3
+(kernels.rk_finish).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from redtime_tpu_torch.kernels.rk_finish import controller_params, rk_finish
+
+# Attempts between two host checks for a still-running lane.  Each check
+# waits for the device; attempts on finished lanes are no-ops, so the
+# value changes the run time and never the result.  Not tuned.
+CHECK_EVERY = 4
+
+class Tableau(NamedTuple):
+    c: np.ndarray      # [s]    stage times
+    a: np.ndarray      # [s, s] stage coefficients (strictly lower triangular)
+    b: np.ndarray      # [s]    solution weights (higher order)
+    e: np.ndarray      # [s]    error weights (y_high - y_low)
+    order: int         # controller order (GSL step "order")
+
+
+def _frac(num, den):
+    return float(num) / float(den)
+
+
+# GSL's rkf45 tableau (gsl/ode-initval/rkf45.c); solution is the 5th-order
+# combination, error = y5 - y4.
+RKF45 = Tableau(
+    c=np.array([0.0, 0.25, 0.375, _frac(12, 13), 1.0, 0.5]),
+    a=np.array([
+        [0, 0, 0, 0, 0, 0],
+        [0.25, 0, 0, 0, 0, 0],
+        [_frac(3, 32), _frac(9, 32), 0, 0, 0, 0],
+        [_frac(1932, 2197), _frac(-7200, 2197), _frac(7296, 2197), 0, 0, 0],
+        [_frac(8341, 4104), _frac(-32832, 4104), _frac(29440, 4104),
+         _frac(-845, 4104), 0, 0],
+        [_frac(-6080, 20520), _frac(41040, 20520), _frac(-28352, 20520),
+         _frac(9295, 20520), _frac(-5643, 20520), 0],
+    ]),
+    b=np.array([_frac(902880, 7618050), 0.0, _frac(3953664, 7618050),
+                _frac(3855735, 7618050), _frac(-1371249, 7618050),
+                _frac(277020, 7618050)]),
+    e=np.array([_frac(1, 360), 0.0, _frac(-128, 4275), _frac(-2197, 75240),
+                _frac(1, 50), _frac(2, 55)]),
+    order=5,
+)
+
+# Dormand-Prince 5(4) (the growth table region).
+DOPRI5 = Tableau(
+    c=np.array([0.0, 0.2, 0.3, 0.8, _frac(8, 9), 1.0, 1.0]),
+    a=np.array([
+        [0, 0, 0, 0, 0, 0, 0],
+        [0.2, 0, 0, 0, 0, 0, 0],
+        [_frac(3, 40), _frac(9, 40), 0, 0, 0, 0, 0],
+        [_frac(44, 45), _frac(-56, 15), _frac(32, 9), 0, 0, 0, 0],
+        [_frac(19372, 6561), _frac(-25360, 2187), _frac(64448, 6561),
+         _frac(-212, 729), 0, 0, 0],
+        [_frac(9017, 3168), _frac(-355, 33), _frac(46732, 5247),
+         _frac(49, 176), _frac(-5103, 18656), 0, 0],
+        [_frac(35, 384), 0, _frac(500, 1113), _frac(125, 192),
+         _frac(-2187, 6784), _frac(11, 84), 0],
+    ]),
+    b=np.array([_frac(35, 384), 0, _frac(500, 1113), _frac(125, 192),
+                _frac(-2187, 6784), _frac(11, 84), 0]),
+    e=np.array([_frac(71, 57600), 0, _frac(-71, 16695), _frac(71, 1920),
+                _frac(-17253, 339200), _frac(22, 525), _frac(-1, 40)]),
+    order=5,
+)
+
+
+def _dop853_tableau() -> Tableau:
+    """Hairer's 8th-order Dormand-Prince DOP853, 12 stages, with the
+    5th-order embedded error weights, from scipy's published table (the
+    same public constants as Hairer's dopri853.f; redtime_tpu/ode.py:92-112).
+    Controller order 8 (GSL convention: the method order)."""
+    from scipy.integrate._ivp import dop853_coefficients as _d
+    s = int(_d.N_STAGES)     # 12; E5[12] == 0 so the FSAL stage is unused
+    return Tableau(c=np.array(_d.C[:s]), a=np.array(_d.A[:s, :s]),
+                   b=np.array(_d.B), e=np.array(_d.E5[:s]), order=8)
+
+
+DOP853 = _dop853_tableau()
+
+
+class _Consts(NamedTuple):
+    """A tableau's weights and the controller scalars on one device."""
+
+    b: torch.Tensor
+    e: torch.Tensor
+    prm: torch.Tensor
+
+
+def _consts(tab: Tableau, eps_abs: float, eps_rel: float,
+            device) -> _Consts:
+    t = lambda x: torch.as_tensor(np.asarray(x, dtype=np.float64),
+                                  device=device)
+    return _Consts(t(tab.b), t(tab.e),
+                   controller_params(eps_abs, eps_rel, tab.order, device))
+
+
+def rk_stages(rhs: Callable, t, h, y, tab: Tableau):
+    """The s stage derivatives of one embedded RK step, stacked [s, B, D].
+
+    y [B, D] flat; t, h [B].  rhs(t [B], y [B, D]) -> [B, D].  Stage i is
+    evaluated at t + c_i h on y + h sum_{j<i} a_ij k_j (the JAX package's
+    full-row tensordot adds only exact zeros beyond j < i)."""
+    s = len(tab.c)
+    ks = torch.empty((s,) + tuple(y.shape), dtype=y.dtype, device=y.device)
+    hy = h[:, None]
+    for i in range(s):
+        if i == 0:
+            yi = y
+        else:
+            acc = float(tab.a[i, 0]) * ks[0]
+            for j in range(1, i):
+                acc = acc + float(tab.a[i, j]) * ks[j]
+            yi = y + hy * acc
+        ks[i] = rhs(t + float(tab.c[i]) * h, yi)
+    return ks
+
+
+def rk_step(rhs: Callable, t, h, y, tab: Tableau):
+    """One embedded RK step on every lane: returns (y_new, yerr).
+
+    y [B, D]; t, h [B].  Sums stages in index order."""
+    ks = rk_stages(rhs, t, h, y, tab)
+    hy = h[:, None]
+    acc_b, acc_e = float(tab.b[0]) * ks[0], float(tab.e[0]) * ks[0]
+    for j in range(1, len(tab.c)):
+        acc_b = acc_b + float(tab.b[j]) * ks[j]
+        acc_e = acc_e + float(tab.e[j]) * ks[j]
+    return y + hy * acc_b, hy * acc_e
+
+
+def attempt(rhs: Callable, t, h, y, t1, n, active, tab: Tableau,
+            consts: _Consts):
+    """One controller attempt on every lane (frozen where not active).
+
+    The step is clipped to the interval end (final = h > t1 - t, the
+    chunked path's rule, redtime_tpu/ode.py:164); the stages run at the
+    clipped step and K3 finishes the attempt.  Returns (y, t, h, n, r)."""
+    dt = t1 - t
+    h_try = torch.where(h > dt, dt, h)
+    ks = rk_stages(rhs, t, h_try, y, tab)
+    return rk_finish(y, ks, t, h, t1, n, active, consts.b, consts.e,
+                     consts.prm)
+
+
+def lane_values(x, B: int, device) -> torch.Tensor:
+    """A float or [B] tensor as an f64 [B] tensor on device (a view when
+    x is a scalar: clone before writing to it)."""
+    v = torch.as_tensor(x, dtype=torch.float64, device=device)
+    return v.expand(B) if v.dim() == 0 else v
+
+
+def integrate_interval(rhs: Callable, t0, t1, y0: torch.Tensor, h0,
+                       eps_abs: float, eps_rel: float,
+                       tab: Tableau = RKF45,
+                       max_steps: int = 1_000_000,
+                       return_stats: bool = False):
+    """Integrate y' = rhs(t, y) from t0 to t1 (t1 >= t0) on every lane.
+
+    y0 [B, ...]; t0, t1, h0: floats or [B] tensors.  rhs(t [B], y) takes
+    and returns tensors shaped like y0.  Mirrors the reference's evolve
+    loop `while ((t1 - t)*h > 0) apply(...)` per lane (redTime.cc:
+    1614-1630) and the JAX package's vmapped `integrate_interval`.
+    Returns (y(t1), h_suggest [B]) and, with return_stats, the per-lane
+    attempt counts n [B] (accepted + rejected).
+
+    A lane still short of t1 at max_steps (or stalled with h -> 0) is
+    POISONED with NaN, so batch fault isolation (driver.finite_report)
+    names it.
+
+    The host checks whether any lane is still running once every
+    CHECK_EVERY attempts; attempts on lanes that have finished are
+    no-ops, so the result is the same as checking after every attempt."""
+    shape = y0.shape
+    B, dev = shape[0], y0.device
+    y = y0.reshape(B, -1).contiguous()
+    t = lane_values(t0, B, dev).contiguous()
+    t1v = lane_values(t1, B, dev).contiguous()
+    h = lane_values(h0, B, dev).contiguous()
+    n = torch.zeros(B, dtype=torch.int64, device=dev)
+    consts = _consts(tab, eps_abs, eps_rel, dev)
+
+    def flat_rhs(tt, yy):
+        return rhs(tt, yy.reshape(shape)).reshape(B, -1)
+
+    def running():
+        return (t < t1v) & (n < max_steps)
+
+    active = running()
+    while bool(active.any()):
+        for _ in range(CHECK_EVERY):
+            y, t, h, n, _ = attempt(flat_rhs, t, h, y, t1v, n, active, tab,
+                                    consts)
+            active = running()
+    y = torch.where((t >= t1v)[:, None], y, torch.full_like(y, np.nan))
+    y = y.reshape(shape)
+    if return_stats:
+        return y, h, n
+    return y, h

@@ -1,0 +1,218 @@
+"""Time-RG evolution: state layout, the full-TRG RHS, and the eta
+integration.
+
+State tensor y [B, nU=41, nk] (reference redTime.cc:150, 1418-1423):
+  rows 0..2   : ln P_00, ln P_01, ln P_11
+  rows 3..16  : the 14 unique I_{acd,bef} components (JU order)
+  rows 17..40 : 24 Q^ell_{abc} components, ell-major then (4a+2b+c)
+
+The RHS (reference derivatives(), :1416-1547) is whole-grid tensor algebra
+on every lane: the Omega x I / Omega x Q index contractions are the JAX
+package's bilinear forms (assembly.OMEGA_BILINEAR), and the mode-coupling
+A/R sources come from the full FAST-PT engine at every evaluation
+(full Time-RG, :740-1282).  The 1-loop mode is not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from redtime_tpu_torch import assembly, fastpt
+from redtime_tpu_torch import background as bg
+from redtime_tpu_torch import model as mdl
+from redtime_tpu_torch.config import RunSettings, SolverConfig
+from redtime_tpu_torch.grids import make_grids
+from redtime_tpu_torch.ode import DOP853, DOPRI5, RKF45, integrate_interval
+
+NUP, NUI, NELL, NUQ = 3, 14, 3, 24
+NU_STATE = NUP + NUI + NUQ  # 41
+
+# Finite-range guards (redtime_tpu/trg.py:34-51): an adaptive TRIAL step
+# can overshoot lnP far beyond any physical value.  The caps sit ~7
+# e-folds outside any physical trajectory, so accepted steps are
+# untouched; they bind only inside rejected trials — and so decide which
+# trials are rejected, which is why the port keeps them: the step
+# sequence follows the JAX package's.
+LNP_MIN, LNP_MAX = -80.0, 20.0
+DLNP_GUARD = 1e4
+
+F64 = torch.float64
+
+
+def omega_matrix(cfg: SolverConfig, model: mdl.Model, a: torch.Tensor):
+    """Omega(a, k) [B, 2, 2, nk] at per-lane a [B] (reference
+    :1383-1411)."""
+    nk = make_grids(cfg).nk
+    c = model.cosmo
+    d = bg.derived(c)
+    beta = mdl.beta_P_solver(model, a)                   # [B, nk]
+    B = beta.shape[0]
+    ones = torch.ones((B, nk), dtype=F64, device=beta.device)
+    o10 = (-1.5 * c.Omega_m[:, None] * (model.f_cb[:, None] + beta)
+           / (a ** 3 * bg.H2_H02(c, a, d))[:, None])
+    o11 = (3.0 + bg.dlnH_dlna(c, a, d))[:, None] * ones
+    return torch.stack([torch.stack([ones, -ones], dim=1),
+                        torch.stack([o10, o11], dim=1)], dim=1)
+
+
+def compute_mode_coupling_full(cfg: SolverConfig, lnP3: torch.Tensor, n_s,
+                               with_rsd: bool, k: torch.Tensor,
+                               ec: fastpt.EngineConsts):
+    """Full FAST-PT evaluation from the current spectra lnP3 [B, 3, nk];
+    returns (A_unique [B,14,nk], R [B,3,8,nk], PT [B,9,nk],
+    PMR [B,8,nk])."""
+    P_ext = fastpt.extend_power(cfg, lnP3, n_s, ec)
+    Jw, J_lo, PZw = fastpt.compute_J_PZ_windowed(cfg, P_ext, with_rsd, ec)
+    return assembly.assemble(Jw[:, :7], PZw, Jw[:, 7:], J_lo, k, with_rsd)
+
+
+def _check_full_trg(settings: RunSettings) -> None:
+    if settings.nonlinear and settings.one_loop:
+        raise NotImplementedError(
+            "1-loop mode (RunSettings(one_loop=True)) is not ported yet; "
+            "the port runs full Time-RG (one_loop=False) and the linear "
+            "mode (nonlinear=False)")
+
+
+def make_rhs(cfg: SolverConfig, settings: RunSettings, model: mdl.Model,
+             ec: fastpt.EngineConsts):
+    """The flattened-state RHS dy/deta (reference derivatives()):
+    rhs(eta [B], y [B, 41*nk]) -> [B, 41*nk]."""
+    _check_full_trg(settings)
+    g = make_grids(cfg)
+    nk = g.nk
+    dev = model.norm.device
+    k = torch.as_tensor(g.k, dtype=F64, device=dev)
+    a_in = settings.a_in
+    evolve_q = settings.print_rsd or cfg.print_q
+    nonlinear = settings.nonlinear
+    CI, CQ = (torch.as_tensor(m, dtype=F64, device=dev)
+              for m in assembly.OMEGA_BILINEAR)
+    TR14 = torch.as_tensor(assembly.OMEGA_MATS[2], dtype=F64, device=dev)
+
+    def rhs(eta, yflat):
+        B = yflat.shape[0]
+        y = yflat.reshape(B, NU_STATE, nk)
+        a = a_in * torch.exp(eta)
+        O = omega_matrix(cfg, model, a)                  # [B, 2, 2, nk]
+        e_eta = torch.exp(eta)[:, None]
+
+        lnP = torch.clamp(y[:, 0:3], LNP_MIN, LNP_MAX)
+        P = torch.exp(lnP)                               # P00, P01, P11
+
+        if nonlinear:
+            I14 = y[:, NUP:NUP + NUI]
+            A_u, R, _, _ = compute_mode_coupling_full(
+                cfg, lnP, model.cosmo.n_s, evolve_q, k, ec)
+            Of = O.reshape(B, 4, nk)                     # O[i, g] at 2i+g
+
+        # --- d ln P (reference :1449-1491)
+        dP0 = -2.0 * (O[:, 0, 0] * P[:, 0] + O[:, 0, 1] * P[:, 1])
+        dP1 = -(O[:, 0, 0] * P[:, 1] + O[:, 0, 1] * P[:, 2]) - \
+            (O[:, 1, 0] * P[:, 0] + O[:, 1, 1] * P[:, 1])
+        dP2 = -2.0 * (O[:, 1, 0] * P[:, 1] + O[:, 1, 1] * P[:, 2])
+        if nonlinear:
+            # I-coupling: sum_{c,d} I_{acd,bcd} + I_{bcd,acd}
+            Isum = (TR14 @ I14).reshape(B, 2, 2, nk)
+            coef = e_eta * 4.0 * np.pi / k
+            dP0 = dP0 + coef * (Isum[:, 0, 0] + Isum[:, 0, 0])
+            dP1 = dP1 + coef * (Isum[:, 1, 0] + Isum[:, 0, 1])
+            dP2 = dP2 + coef * (Isum[:, 1, 1] + Isum[:, 1, 1])
+        dlnP = torch.stack([dP0 / P[:, 0], dP1 / P[:, 1], dP2 / P[:, 2]],
+                           dim=1)
+        dlnP = torch.clamp(dlnP, -DLNP_GUARD, DLNP_GUARD)
+        # late-time P_11 -> 0 instability clamp (reference :1487-1491)
+        dlnP = torch.cat([dlnP[:, :2], torch.clamp(dlnP[:, 2:], -10.0, 10.0)],
+                         dim=1)
+
+        if not nonlinear:
+            return torch.cat([dlnP, dlnP.new_zeros((B, NUI + NUQ, nk))],
+                             dim=1).reshape(B, -1)
+
+        # --- dI (reference :1500-1513): one bilinear product against the
+        # (Of x I14) outer product
+        OI = (Of[:, :, None, :] * I14[:, None, :, :]).reshape(B, 4 * NUI, nk)
+        dI = 2.0 * e_eta[:, :, None] * A_u - CI @ OI
+
+        # --- dQ (reference :1516-1539)
+        if evolve_q:
+            Q24 = y[:, NUP + NUI:]
+            OQ = (Of[:, :, None, :] * Q24[:, None, :, :]).reshape(
+                B, 4 * NUQ, nk)
+            dQ = 2.0 * e_eta[:, :, None] * R.reshape(B, NUQ, nk) - CQ @ OQ
+        else:
+            dQ = dlnP.new_zeros((B, NUQ, nk))
+
+        return torch.cat([dlnP, dI, dQ], dim=1).reshape(B, -1)
+
+    return rhs
+
+
+def initial_state(cfg: SolverConfig, settings: RunSettings,
+                  model: mdl.Model) -> torch.Tensor:
+    """y(eta=0) [B, 41*nk] (reference :1570-1586): lnP rows from
+    P_lin_cb(z_in) with growth-rate f factors; I and Q start at zero."""
+    nk = make_grids(cfg).nk
+    D, dDda = mdl.growth_D_f(model, settings.z_in)
+    f_in = settings.a_in * dDda / D
+    _, Pcb, _ = mdl.plin_all(cfg, model, settings.z_in)
+    lnP = torch.stack([torch.log(Pcb), torch.log(Pcb * f_in),
+                       torch.log(Pcb * f_in * f_in)], dim=1)
+    B = lnP.shape[0]
+    return torch.cat([lnP, lnP.new_zeros((B, NUI + NUQ, nk))],
+                     dim=1).reshape(B, -1)
+
+
+def eta_tableau(cfg: SolverConfig):
+    """The embedded RK pair of the eta evolution ('rkf45' is the
+    reference's gsl rkf45, redTime.cc:1593)."""
+    return {"rkf45": RKF45, "dopri5": DOPRI5,
+            "dop853": DOP853}[cfg.eta_tableau]
+
+
+def evolve(cfg: SolverConfig, settings: RunSettings, model: mdl.Model,
+           ec: fastpt.EngineConsts, return_stats: bool = False):
+    """Integrate the Time-RG system through all output redshifts.
+
+    Returns ys [B, n_eta, 41, nk], the state at each output (and, with
+    return_stats, the per-lane controller attempts [B] summed over the
+    intervals).  Mirrors the reference main loop (:1589-1630): RKF45 with
+    control_y_new(eabs_P, erel_P), initial step 1e-2*(eta_fin - eta_in),
+    the step suggestion carried across output boundaries."""
+    nk = make_grids(cfg).nk
+    y = initial_state(cfg, settings, model)
+    rhs = make_rhs(cfg, settings, model, ec)
+    h = 1e-2 * float(np.log(1.0 / settings.a_in))
+    etasteps = settings.etasteps()
+    t0s = np.concatenate([[0.0], etasteps[:-1]])
+    outs = []
+    attempts = torch.zeros(y.shape[0], dtype=torch.int64, device=y.device)
+    for t0, t1 in zip(t0s, etasteps):
+        y, h, n = integrate_interval(rhs, float(t0), float(t1), y, h,
+                                     cfg.eabs_P, cfg.erel_P,
+                                     eta_tableau(cfg), return_stats=True)
+        attempts = attempts + n
+        outs.append(y)
+    ys = torch.stack(outs, dim=1).reshape(y.shape[0], len(etasteps),
+                                          NU_STATE, nk)
+    return (ys, attempts) if return_stats else ys
+
+
+def pbis_j(cfg: SolverConfig, ys: torch.Tensor) -> torch.Tensor:
+    """A(k, mu) columns from the evolved Q (reference Pbisj, :265-298).
+
+    ys: [B, 41, nk] states at one output.  Returns [B, 5, nk]: the
+    (j_mu, m_b) combos (2,2), (2,1), (4,1), (4,0), (6,0)."""
+    g = make_grids(cfg)
+    k = torch.as_tensor(g.k, dtype=ys.dtype, device=ys.device)
+    B = ys.shape[0]
+    Q = ys[:, NUP + NUI:].reshape(B, NELL, 2, 2, 2, g.nk)
+
+    p22 = -2.0 * Q[:, 0, 0, 1, 0] + (4.0 / 3.0) * Q[:, 1, 0, 1, 0]
+    p21 = (4.0 / 3.0) * Q[:, 1, 0, 1, 1] + (6.0 / 5.0) * Q[:, 2, 0, 1, 1]
+    p41 = (-2.0 * Q[:, 0, 1, 1, 0] + (4.0 / 3.0) * Q[:, 1, 1, 1, 0]
+           - 2.0 * Q[:, 0, 0, 1, 1] - 2.0 * Q[:, 2, 0, 1, 1])
+    p40 = (4.0 / 3.0) * Q[:, 1, 1, 1, 1] + (6.0 / 5.0) * Q[:, 2, 1, 1, 1]
+    p60 = -2.0 * Q[:, 0, 1, 1, 1] - 2.0 * Q[:, 2, 1, 1, 1]
+    return np.pi * k * torch.stack([p22, p21, p41, p40, p60], dim=1)

@@ -1,0 +1,178 @@
+"""Where the time goes in the PyTorch port's main path on one CUDA card.
+
+    python3 scripts/profile_torch_port.py [--out PATH]
+
+from the root of a checkout.  Runs the chip_smoke.py cell (16 design
+cosmologies, full Time-RG at SolverConfig() defaults, the bench's eight
+output redshifts) and measures:
+
+  * phases: prepare_model, evolve and _finalize, host clock with
+    torch.cuda.synchronize() around each, two repeats after one untimed
+    warm-up, with each phase's kernel launch counts and attempts per lane;
+  * one RHS evaluation at 16 lanes and its pieces (extend_power, the
+    windowed engine, assemble, omega_matrix): host clock over 20 calls and
+    CUDA events over 20 calls;
+  * torch.profiler over the first output interval of the evolution: the
+    count of device kernels, the device's busy time and its idle share of
+    the profiled wall, and the top device kernels.
+
+Prints each result and writes them all as JSON to PATH (default
+chiprun_out/profile_torch_port.json).  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402
+from redtime_tpu_torch import (assembly, driver, fastpt, model,  # noqa: E402
+                               state, trg)
+from redtime_tpu_torch.config import (CosmoParams, RunSettings,  # noqa: E402
+                                      SolverConfig)
+from redtime_tpu_torch.grids import make_grids  # noqa: E402
+from redtime_tpu_torch.io.camb import LinearData  # noqa: E402
+from redtime_tpu_torch.kernels import build, counts  # noqa: E402
+from redtime_tpu_torch.ode import integrate_interval  # noqa: E402
+
+B = chip_smoke.N_DESIGN
+
+
+def sync() -> None:
+    torch.cuda.synchronize()
+
+
+def host_ms(fn, n: int = 20) -> float:
+    """Mean host-clock time of fn() in ms over n calls, synchronized."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def phases(cfg, settings, cs, lins, ec, out: dict) -> tuple:
+    model.prepare_model(cfg, cs, lins)       # warm-up: Triton, allocator
+    sync()
+    for rep in range(2):
+        counts.reset()
+        t0 = time.perf_counter()
+        m = model.prepare_model(cfg, cs, lins)
+        sync()
+        t1 = time.perf_counter()
+        c_prep = counts.snapshot()
+        counts.reset()
+        ys, att = trg.evolve(cfg, settings, m, ec, return_stats=True)
+        sync()
+        t2 = time.perf_counter()
+        c_ev = counts.snapshot()
+        driver._finalize(cfg, settings, m, ys)
+        sync()
+        t3 = time.perf_counter()
+        out[f"phases_{rep}"] = dict(
+            prepare_s=t1 - t0, evolve_s=t2 - t1, finalize_s=t3 - t2,
+            prepare_launches=c_prep, evolve_launches=c_ev,
+            attempts=att.tolist())
+        print(out[f"phases_{rep}"])
+    return m, ys
+
+
+def rhs_pieces(cfg, settings, m, ys, cs, ec, out: dict) -> None:
+    dev = ys.device
+    rhs = trg.make_rhs(cfg, settings, m, ec)
+    y = ys[:, 3].reshape(B, -1).contiguous()
+    eta = torch.full((B,), 3.0, dtype=torch.float64, device=dev)
+    k = torch.as_tensor(np.asarray(make_grids(cfg).k), device=dev)
+    lnP = y.reshape(B, trg.NU_STATE, -1)[:, :3].contiguous()
+    P = fastpt.extend_power(cfg, lnP, cs.n_s, ec)
+    Jw, Jlo, PZw = fastpt.compute_J_PZ_windowed(cfg, P, True, ec)
+    pieces = {
+        "rhs": lambda: rhs(eta, y),
+        "extend_power": lambda: fastpt.extend_power(cfg, lnP, cs.n_s, ec),
+        "engine_windowed": lambda: fastpt.compute_J_PZ_windowed(
+            cfg, P, True, ec),
+        "assemble": lambda: assembly.assemble(Jw[:, :7], PZw, Jw[:, 7:],
+                                              Jlo, k, True),
+        "omega": lambda: trg.omega_matrix(cfg, m, 0.005 * torch.exp(eta)),
+    }
+    out["rhs_ms"] = {name: dict(host_ms=host_ms(fn),
+                                event_ms=chip_smoke.time_ms(fn))
+                     for name, fn in pieces.items()}
+    print(out["rhs_ms"])
+
+
+def profile_first_interval(cfg, settings, m, ec, out: dict) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    rhs = trg.make_rhs(cfg, settings, m, ec)
+    y0 = trg.initial_state(cfg, settings, m)
+    t1 = float(settings.etasteps()[0])
+    h0 = 1e-2 * float(np.log(1.0 / settings.a_in))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, n = integrate_interval(rhs, 0.0, t1, y0, h0, cfg.eabs_P,
+                                     cfg.erel_P, trg.eta_tableau(cfg),
+                                     return_stats=True)
+        sync()
+        wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    cuda = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in cuda) / 1e6
+    out["profile_first_interval"] = dict(
+        wall_s=wall, device_busy_s=busy, device_idle_share=1.0 - busy / wall,
+        device_kernel_count=sum(e.count for e in cuda),
+        attempts=n.tolist(),
+        top_kernels=[dict(name=e.key[:120], count=e.count,
+                          device_ms=e.self_device_time_total / 1e3)
+                     for e in sorted(cuda, key=lambda e:
+                                     -e.self_device_time_total)[:15]])
+    print({k: v for k, v in out["profile_first_interval"].items()
+           if k != "top_kernels"})
+    print(ka.table(sort_by="self_device_time_total", row_limit=20))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=os.path.join(
+        ROOT, "chiprun_out", "profile_torch_port.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_port: no CUDA device", file=sys.stderr)
+        return 2
+    out = {"card": chip_smoke.card_line()}
+    print(out["card"])
+    build.build()
+    dev = torch.device("cuda")
+    cfg = SolverConfig()
+    settings = RunSettings(one_loop=False, z_out=chip_smoke.Z_OUT)
+    params = chip_smoke.design_params()
+    lin = chip_smoke.example_linear()
+    cs = CosmoParams(*[torch.as_tensor(params[:B, i], device=dev)
+                       for i in range(9)])
+    lins = state.linear_from_numpy(
+        LinearData(*[np.stack([x] * B) for x in lin]), dev)
+    ec = fastpt.engine_consts(cfg, dev)
+
+    m, ys = phases(cfg, settings, cs, lins, ec, out)
+    rhs_pieces(cfg, settings, m, ys, cs, ec, out)
+    profile_first_interval(cfg, settings, m, ec, out)
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(out, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,200 @@
+"""The hand kernels' wrappers (K1 out_leg, K2 pz_leg, K3 rk_finish) and
+chip_smoke.py's inputs.  This file imports no JAX, so its `cuda` tests
+also run on a GPU machine that has none:
+
+    python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
+
+On the CPU every wrapper takes its plain version and counts no launch; a
+tensor on any other device never reaches the plain version.  On the card
+each kernel is held to its plain version: K1 and K2 within the f64
+dot-product forward-error bound (they sum in another order), K3 to 1e-13
+relative (its FMA contraction is off, so it rounds as the plain version
+does).
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from torch_port_util import cuda_device  # noqa: F401
+from redtime_tpu_torch import fastpt as tf
+from redtime_tpu_torch import ode as tode
+from redtime_tpu_torch.config import SolverConfig as TCfg
+from redtime_tpu_torch.kernels import counts
+from redtime_tpu_torch.kernels import out_leg as k1
+from redtime_tpu_torch.kernels import pz_leg as k2
+from redtime_tpu_torch.kernels import rk_finish as k3
+
+EPS = np.finfo(np.float64).eps
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_wrappers_validate_and_cpu_takes_plain():
+    rng = np.random.default_rng(5)
+    tab = torch.as_tensor(rng.standard_normal((2, 2, 3, 3, 16)))
+    G = torch.as_tensor(rng.standard_normal((3, 16, 5)))
+    before = counts.snapshot()
+    J = k1.out_leg(tab, G)
+    torch.testing.assert_close(J, k1.out_leg_plain(tab, G), rtol=0, atol=0)
+    assert J.shape == (2, 3, 3, 3, 5)
+    # direct check of the contraction on one element
+    ref = (tab[1, 0, 2, 1] * tab[1, 1, 2, 0] / 16) @ G[2, :, 4]
+    assert abs(float(J[1, 2, 1, 0, 4] - ref)) < 1e-14
+    with pytest.raises(TypeError):
+        k1.out_leg(tab.float(), G.float())
+    with pytest.raises(ValueError):
+        k1.out_leg(tab, G[:2])
+    with pytest.raises(ValueError):
+        k1.out_leg(tab.transpose(3, 4), G)
+    T = torch.as_tensor(rng.standard_normal((7, 4, 16)))
+    P = torch.as_tensor(rng.standard_normal((2, 3, 16)))
+    kf = torch.as_tensor(rng.standard_normal(4))
+    PZ = k2.pz_leg(T, P, kf, 6)
+    assert PZ.shape == (2, 7, 3, 3, 4)
+    ref = kf[1] * (T[5, 1] @ P[1, 2]) * P[1, 0, 7]
+    assert abs(float(PZ[1, 5, 2, 0, 1] - ref)) < 1e-14
+    with pytest.raises(ValueError):
+        k2.pz_leg(T, P[:, :2], kf, 6)
+    with pytest.raises(ValueError):
+        k2.pz_leg(T, P, kf, 13)
+    # the plain path on CPU tensors never counts as a kernel launch
+    assert counts.snapshot() == before
+
+
+def _rk_args(B, D, rng, device):
+    t_ = lambda x: torch.as_tensor(x, dtype=torch.float64, device=device)
+    tab = tode.RKF45
+    tt = t_(rng.uniform(0, 1, B))
+    return (t_(rng.standard_normal((B, D))),
+            t_(rng.standard_normal((len(tab.c), B, D))), tt,
+            t_(10.0 ** rng.uniform(-9, 0, B)), tt + 0.3,
+            torch.zeros(B, dtype=torch.int64, device=device),
+            torch.tensor([True] * (B - 1) + [False], device=device),
+            t_(tab.b), t_(tab.e),
+            k3.controller_params(1e-7, 1e-2, tab.order, device))
+
+
+def test_wrappers_raise_off_the_cpu_without_a_kernel():
+    """A tensor that is not on the CPU never reaches a plain version: on a
+    device with no kernel (here `meta`) every wrapper raises."""
+    meta = torch.device("meta")
+    f64 = dict(dtype=torch.float64, device=meta)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        k1.out_leg(torch.empty((1, 2, 3, 3, 8), **f64),
+                   torch.empty((3, 8, 4), **f64))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        k2.pz_leg(torch.empty((7, 4, 16), **f64),
+                  torch.empty((1, 3, 16), **f64), torch.empty(4, **f64), 6)
+    rng = np.random.default_rng(0)
+    args = [x.to(meta) for x in _rk_args(2, 8, rng, "cpu")]
+    with pytest.raises(RuntimeError, match="no kernel"):
+        k3.rk_finish(*args)
+
+
+def test_rk_finish_plain_controller_and_frozen_lanes():
+    """The GSL controller on hand-made lanes: reject (r > 1.1) shrinks h,
+    accept with r < 0.5 grows it, the final step lands on t1, and inactive
+    lanes keep their state."""
+    B, D = 4, 3
+    y = torch.ones((B, D), dtype=torch.float64)
+    ks = torch.zeros((6, B, D), dtype=torch.float64)
+    ks[0, 0] = 1e3           # lane 0: large error -> reject
+    ks[0, 1] = 1e-9          # lane 1: tiny error -> grow
+    ks[0, 2] = 1e-9          # lane 2: final step clipped to t1
+    ks[0, 3] = 1e3           # lane 3: inactive
+    t = torch.zeros(B, dtype=torch.float64)
+    h = torch.tensor([0.1, 0.1, 0.5, 0.1], dtype=torch.float64)
+    t1 = torch.tensor([1.0, 1.0, 0.2, 1.0], dtype=torch.float64)
+    n = torch.zeros(B, dtype=torch.int64)
+    active = torch.tensor([True, True, True, False])
+    tab = tode.RKF45
+    prm = k3.controller_params(1e-7, 1e-2, tab.order, "cpu")
+    before = counts.snapshot()
+    y2, t2, h2, n2, r = k3.rk_finish(
+        y, ks, t, h, t1, n, active, torch.tensor(tab.b), torch.tensor(tab.e),
+        prm)
+    assert counts.snapshot() == before
+    assert float(r[0]) > 1.1 and float(t2[0]) == 0.0
+    assert torch.equal(y2[0], y[0]) and float(h2[0]) < 0.1
+    assert float(r[1]) < 0.5 and float(t2[1]) == 0.1
+    assert 0.1 < float(h2[1]) <= 0.5
+    assert float(t2[2]) == 0.2                       # landed on t1
+    assert torch.equal(y2[3], y[3]) and float(t2[3]) == 0.0
+    assert float(h2[3]) == 0.1 and n2.tolist() == [1, 1, 1, 0]
+
+
+def test_chip_smoke_inputs_match_the_golden():
+    """chip_smoke.py's design lanes 0-1 and linear inputs are the ones the
+    JAX golden was written from, and the script imports no JAX."""
+    code = ("import sys, numpy as np, chip_smoke as s\n"
+            "from redtime_tpu_torch.io.camb import LinearData\n"
+            "g = np.load(s.GOLDEN)\n"
+            "assert np.array_equal(g['params'], s.design_params()[:2])\n"
+            "assert np.array_equal(g['z_out'], s.Z_OUT)\n"
+            "for name, x in zip(LinearData._fields, s.example_linear()):\n"
+            "    assert np.array_equal(g[name], x), name\n"
+            "assert g['table'].shape == (2, len(s.Z_OUT), 128, 17)\n"
+            "assert not [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'redtime_tpu')]\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_chip_smoke_fails_without_a_card():
+    """With no CUDA device the smoke exits non-zero and prints no result."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain(cuda_device):
+    """On the card: K1 and K2 against their plain versions at the main
+    path's shapes, within the dot-product forward-error bounds."""
+    cfg = TCfg()
+    ec = tf.engine_consts(cfg, cuda_device)
+    rng = np.random.default_rng(7)
+    tab = torch.as_tensor(rng.standard_normal((4, 2, tf.NFAM, 3,
+                                               2 * cfg.npts)),
+                          device=cuda_device)
+    K = tab.shape[-1]
+    before = counts.snapshot()
+    J, J_ref = k1.out_leg(tab, ec.G), k1.out_leg_plain(tab, ec.G)
+    prod = tab[:, 0, :, :, None, :] * tab[:, 1, :, None, :, :] / K
+    bound = 2 * K * EPS * torch.matmul(
+        prod.abs().reshape(4, tf.NFAM, 9, K), ec.G.abs()).reshape(J.shape)
+    assert bool(((J - J_ref).abs() <= bound).all())
+    lnP = torch.as_tensor(8.0 - 0.3 * rng.standard_normal((4, 3, cfg.nk)),
+                          device=cuda_device)
+    P = tf.extend_power(cfg, lnP, torch.full((4,), 0.96, dtype=torch.float64,
+                                             device=cuda_device), ec)
+    PZ = k2.pz_leg(ec.toeplitz_sl, P, ec.pz_kfac_sl, cfg.nshift)
+    PZ_ref = k2.pz_leg_plain(ec.toeplitz_sl, P, ec.pz_kfac_sl, cfg.nshift)
+    sl = slice(cfg.nshift, cfg.nshift + cfg.nk)
+    dot = torch.einsum("nim,bam->bnai", ec.toeplitz_sl.abs(), P.abs())
+    bound = (2 * cfg.npts * EPS * dot[:, :, :, None, :]
+             * (ec.pz_kfac_sl * P[:, None, None, :, sl]).abs())
+    assert bool(((PZ - PZ_ref).abs() <= bound).all())
+    after = counts.snapshot()
+    assert after["out_leg"] == before["out_leg"] + 1
+    assert after["pz_leg"] == before["pz_leg"] + 1
+
+
+@pytest.mark.cuda
+def test_cuda_rk_finish_matches_plain(cuda_device):
+    """On the card: the Triton kernel against the plain version."""
+    args = _rk_args(8, 41 * 32, np.random.default_rng(3), cuda_device)
+    before = counts.LAUNCHES["rk_finish"]
+    out, ref = k3.rk_finish(*args), k3.rk_finish_plain(*args)
+    assert counts.LAUNCHES["rk_finish"] == before + 1
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=1e-13, atol=0)
