@@ -13,17 +13,28 @@ triton.  It
      seeded numpy generator; K3 at each tableau and state size the main
      path runs it with), with the tolerances stated below, and times
      both;
-  4. runs the main path: driver.run_batch over 16 cosmologies of the
+  4. checks the probe kernels K4 affine, K5 int8_dot and K6 dd_mul
+     against their plain versions on the card, bit for bit, at the
+     probes' shapes, at one larger shape each and on ragged sizes, and
+     times both; then runs redtime_tpu_torch.probes probe1-probe4 on the
+     card, with the launch counters reset just before and read just
+     after, and checks that K4-K6 (and K1, probe4's port) were launched;
+  5. runs the main path: driver.run_batch over 16 cosmologies of the
      bench's Mira-Titan Latin-hypercube design, full Time-RG at
      SolverConfig() defaults, on the card, once untimed as set-up and
      once timed, with every launch counter reset just before the timed
-     run and read just after; checks that every table is
-     finite, that every kernel was launched, and that lanes 0-1 match the
-     JAX golden (tests/data/torch_port_golden_nk128.npz, written by
+     run and read just after; checks that every table is finite, that
+     K1-K3 were launched, and that lanes 0-1 match the JAX golden
+     (tests/data/torch_port_golden_nk128.npz, written by
      scripts/gen_torch_port_golden.py) within 3e-5 of column scale, the
      linear columns and the sigma_v^2 and H headers within 1e-10
      relative;
-  5. prints the kernels' JSON line, the card line and, last, the result.
+  6. runs 1-loop mode the same way (the bench's secondary workload):
+     32 design cosmologies (one GPU chunk), SolverConfig(print_bias=True),
+     the redshifts (5, 4, 3, 2, 1, 0.5, 0); the same checks against
+     tests/data/torch_port_golden_oneloop_nk128.npz (gen_torch_port_golden
+     --oneloop), and the PT and PMR columns must be populated;
+  7. prints the kernels' JSON line, the card line and, last, the result.
 
 Any failed phase raises, and the script exits non-zero without a result.
 It imports nothing of JAX.  Details go to chiprun_out/chip_smoke.json.
@@ -41,10 +52,15 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "data", "torch_port_golden_nk128.npz")
+GOLDEN_1L = os.path.join(HERE, "tests", "data",
+                         "torch_port_golden_oneloop_nk128.npz")
 DETAIL = os.path.join(HERE, "chiprun_out", "chip_smoke.json")
 Z_OUT = (2.02, 1.61, 1.01, 0.66, 0.43, 0.24, 0.10, 0.0)
-N_DESIGN, SEED, B_CHECK = 16, 42, 16
+Z_OUT_1L = (5.0, 4.0, 3.0, 2.0, 1.0, 0.5, 0.0)
+N_DESIGN, N_DESIGN_1L, SEED, B_CHECK = 16, 32, 42, 16
 EPS = float(np.finfo(np.float64).eps)
+MAIN_KERNELS = ("out_leg", "pz_leg", "rk_finish")
+PROBE_KERNELS = ("affine", "int8_dot", "dd_mul")
 
 
 def check(ok: bool, what: str) -> None:
@@ -257,39 +273,131 @@ def check_kernels(rng, detail: dict) -> list:
     return rows
 
 
-def run_main_path(detail: dict, card: str) -> dict:
-    """16 design cosmologies through run_batch on the card, once untimed
-    (set-up: Triton's compiles of each tableau's K3, cuBLAS and allocator
-    first use) and once timed; returns the launch counts of the timed
-    run."""
+def check_probe_kernels(rng, detail: dict) -> list:
+    """K4-K6 against their plain versions on the card, bit for bit: at
+    the probes' shapes (timed), at one larger shape each (timed) and on
+    ragged sizes."""
+    import torch
+
+    from redtime_tpu_torch import dd
+    from redtime_tpu_torch.kernels import probes as kp
+
+    dev = torch.device("cuda")
+
+    def f32(n):
+        return torch.as_tensor((rng.standard_normal(n) * np.exp(
+            rng.uniform(-8, 8, n))).astype(np.float32), device=dev)
+
+    def dd_args(n):
+        x = rng.standard_normal(n) * np.exp(rng.uniform(-8, 8, n))
+        y = rng.standard_normal(n) * np.exp(rng.uniform(-8, 8, n))
+        return (*dd.from_f64(torch.as_tensor(x, device=dev)),
+                *dd.from_f64(torch.as_tensor(y, device=dev)))
+
+    def int8(shape):
+        return torch.as_tensor(rng.integers(-128, 128, shape).astype(np.int8),
+                               device=dev)
+
+    def dot_args(m, k, n):
+        return int8((m, k)), int8((k, n))
+
+    # (kernel, plain, make args, probe size, large size, ragged sizes)
+    specs = [
+        ("affine", "scripts/probe_pallas.py:29", kp.affine, kp.affine_plain,
+         lambda n: (f32(n),), 8 * 128, 2 ** 20, [1, 1000, 2 ** 20 + 3]),
+        ("int8_dot", "scripts/probe_pallas.py:44", kp.int8_dot,
+         kp.int8_dot_plain, lambda s: dot_args(*s), (128, 512, 256),
+         (2016, 1024, 256), [(1, 1, 1), (67, 130, 33), (129, 1023, 257)]),
+        ("dd_mul", "scripts/probe_pallas.py:78", kp.dd_mul, kp.dd_mul_plain,
+         dd_args, 8 * 128, 2 ** 20, [1, 1000, 2 ** 20 + 7]),
+    ]
+    rows, cases = [], []
+    for name, replaces, kern, plain, make, probe, large, ragged in specs:
+        timed, err = {}, 0.0
+        for size in [probe, large] + ragged:
+            args = make(size)
+            out, ref = kern(*args), plain(*args)
+            out = out if isinstance(out, tuple) else (out,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            for o, r in zip(out, ref):
+                check(o.dtype == r.dtype and o.shape == r.shape,
+                      f"{name} at {size}: dtype or shape")
+                delta = float((o.double() - r.double()).abs().max())
+                err = max(err, delta)
+                check(bool(torch.equal(o, r)),
+                      f"{name} at {size}: not bit-equal to plain, max "
+                      f"|delta| {delta:.3g}")
+            if size in (probe, large):
+                timed[size] = (time_ms(lambda: kern(*args)),
+                               time_ms(lambda: plain(*args)))
+            cases.append(dict(kernel=name, size=str(size)))
+        print(f"kernel {name}: bit-equal to plain at {probe}, {large} and "
+              f"{ragged}; at {large}: {timed[large][0]:.4f} ms (plain "
+              f"{timed[large][1]:.4f} ms)")
+        rows.append(dict(
+            name=name, route="cuda",
+            source="redtime_tpu_torch/csrc/probes.cu", replaces=replaces,
+            max_abs_err=err, ms=timed[probe][0], plain_ms=timed[probe][1],
+            large_shape=str(large), large_ms=timed[large][0],
+            large_plain_ms=timed[large][1]))
+    detail["probe_kernel_cases"] = cases
+    return rows
+
+
+def run_probes(detail: dict) -> dict:
+    """redtime_tpu_torch.probes probe1-probe4 on the card; returns the
+    launch counts of that run."""
+    import torch
+
+    from redtime_tpu_torch import probes
+    from redtime_tpu_torch.kernels import counts
+
+    counts.reset()
+    out = {}
+    for p in probes.PROBES:
+        out[p.__name__] = p("cuda")
+    torch.cuda.synchronize()
+    launches = counts.snapshot()
+    for name in PROBE_KERNELS + ("out_leg",):
+        check(launches[name] > 0, f"kernel {name} was not launched by the "
+                                  "probes")
+    detail["probes"] = dict(results=out, launches=launches)
+    print(f"probes: probe1-probe4 OK on the card {out}; launches "
+          f"{launches}")
+    return launches
+
+
+def run_path(what: str, cfg, settings, n_design: int, golden: str,
+             detail: dict, card: str):
+    """n_design design cosmologies through run_batch on the card, once
+    untimed (set-up: Triton's compiles of each tableau's K3, cuBLAS and
+    allocator first use) and once timed; checks the timed run against
+    the JAX golden of lanes 0-1 and returns its launch counts."""
     import torch
 
     from redtime_tpu_torch import driver, fastpt
     from redtime_tpu_torch.kernels import counts
-    from redtime_tpu_torch.config import CosmoParams, RunSettings, \
-        SolverConfig
+    from redtime_tpu_torch.config import CosmoParams
     from redtime_tpu_torch.io.camb import LinearData
 
-    cfg = SolverConfig()
-    settings = RunSettings(one_loop=False, z_out=Z_OUT)
-    params = design_params()
+    params = design_params(n_design)
     lin = example_linear()
-    gold = np.load(GOLDEN)
+    gold = np.load(golden)
     check(np.array_equal(gold["params"], params[:2])
-          and np.array_equal(gold["z_out"], np.asarray(Z_OUT)),
-          "design lanes 0-1 or z_out differ from the golden's inputs")
+          and np.array_equal(gold["z_out"], np.asarray(settings.z_out)),
+          f"{what}: design lanes 0-1 or z_out differ from the golden's")
     for name, x in zip(LinearData._fields, lin):
         check(np.array_equal(gold[name], x),
-              f"linear input {name} differs from the golden's")
+              f"{what}: linear input {name} differs from the golden's")
     cs = CosmoParams(*[torch.as_tensor(params[:, i]) for i in range(9)])
-    lins = LinearData(*[np.stack([x] * N_DESIGN) for x in lin])
+    lins = LinearData(*[np.stack([x] * n_design) for x in lin])
     t0 = time.perf_counter()
     fastpt.engine_consts(cfg, "cuda")
     driver.run_batch(cfg, settings, cs, lins, device="cuda")
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
-    print(f"set-up: engine constants and one untimed run_batch of the same "
-          f"chunk {setup:.3f} s")
+    print(f"{what} set-up: engine constants and one untimed run_batch of "
+          f"the same chunk {setup:.3f} s")
 
     counts.reset()
     t0 = time.perf_counter()
@@ -299,37 +407,64 @@ def run_main_path(detail: dict, card: str) -> dict:
     launches = counts.snapshot()
 
     bad = driver.finite_report(res)
-    check(len(bad) == 0, f"non-finite lanes {list(bad)}")
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the main path")
+    check(len(bad) == 0, f"{what}: non-finite lanes {list(bad)}")
+    for name in MAIN_KERNELS:
+        check(launches[name] > 0,
+              f"{what}: kernel {name} was not launched")
     table = res.table[:2].cpu().numpy()
     ref = gold["table"]
-    check(table.shape == ref.shape, f"table shape {table.shape}")
+    check(table.shape == ref.shape, f"{what}: table shape {table.shape}")
     scale = np.max(np.abs(ref), axis=(0, 2), keepdims=True) + 1e-300
     dev_col = float(np.max(np.abs(table - ref) / scale))
     dev_lin = float(np.max(np.abs(table[..., :7] - ref[..., :7])
                            / (np.abs(ref[..., :7]) + 1e-300)))
-    check(dev_col <= 3e-5, f"lanes 0-1 vs golden {dev_col:.3g} of column "
-                           "scale (bound 3e-5)")
-    check(dev_lin <= 1e-10, f"linear columns vs golden {dev_lin:.3g} "
-                            "relative (bound 1e-10)")
-    check(bool(np.all(res.table[..., 13:17].cpu().numpy() == 0.0)),
-          "full-TRG PT columns must be zero")
+    check(dev_col <= 3e-5, f"{what}: lanes 0-1 vs golden {dev_col:.3g} of "
+                           "column scale (bound 3e-5)")
+    check(dev_lin <= 1e-10, f"{what}: linear columns vs golden "
+                            f"{dev_lin:.3g} relative (bound 1e-10)")
     for name in ("sigma_v2", "H", "sigmaV2_z0"):
         got = getattr(res, name)[:2].cpu().numpy()
         rel = float(np.max(np.abs(got - gold[name]) / np.abs(gold[name])))
-        check(rel <= 1e-10, f"{name} vs golden {rel:.3g} relative "
+        check(rel <= 1e-10, f"{what}: {name} vs golden {rel:.3g} relative "
                             "(bound 1e-10)")
-    per_min = N_DESIGN / wall * 60.0
-    detail.update(e2e=dict(setup_s=setup, wall_s=wall, cosmologies=N_DESIGN,
-                           cosmologies_per_min=per_min,
-                           golden_dev_col_scale=dev_col,
-                           golden_dev_linear_rel=dev_lin,
-                           launches=launches))
-    print(f"main path on {card}: {N_DESIGN} cosmologies, full TRG nk=128, "
+    per_min = n_design / wall * 60.0
+    detail[what] = dict(setup_s=setup, wall_s=wall, cosmologies=n_design,
+                        cosmologies_per_min=per_min,
+                        golden_dev_col_scale=dev_col,
+                        golden_dev_linear_rel=dev_lin, launches=launches)
+    print(f"{what} path on {card}: {n_design} cosmologies, nk={cfg.nk}, "
           f"{wall:.3f} s = {per_min:.2f} cosmologies/min; lanes 0-1 vs "
           f"JAX golden {dev_col:.3g} of column scale, linear "
           f"{dev_lin:.3g}; launches {launches}")
+    return res, launches
+
+
+def run_main_path(detail: dict, card: str) -> dict:
+    """Full Time-RG, the bench's headline workload: its PT columns print
+    zero (the reference's output caveat)."""
+    from redtime_tpu_torch.config import RunSettings, SolverConfig
+
+    res, launches = run_path(
+        "full_trg", SolverConfig(),
+        RunSettings(one_loop=False, z_out=Z_OUT), N_DESIGN, GOLDEN, detail,
+        card)
+    check(bool(np.all(res.table[..., 13:17].cpu().numpy() == 0.0)),
+          "full-TRG PT columns must be zero")
+    return launches
+
+
+def run_oneloop(detail: dict, card: str) -> dict:
+    """1-loop mode with the PRINTBIAS columns, the bench's secondary
+    workload: k | 6 lin | 3 P | 5 P_B | 9 PT | 8 PMR."""
+    from redtime_tpu_torch.config import RunSettings, SolverConfig
+
+    res, launches = run_path(
+        "oneloop", SolverConfig(print_bias=True),
+        RunSettings(one_loop=True, z_out=Z_OUT_1L), N_DESIGN_1L, GOLDEN_1L,
+        detail, card)
+    pt = res.table[..., 15:32].cpu().numpy()
+    check(bool(np.all(np.any(pt != 0.0, axis=2))),
+          "1-loop PT and PMR columns must be populated")
     return launches
 
 
@@ -361,12 +496,16 @@ def main() -> int:
     detail["build"] = dict(build.BUILD_LOG, wall_s=build_s)
 
     rows = check_kernels(np.random.default_rng(1234), detail)
+    rows += check_probe_kernels(np.random.default_rng(4321), detail)
     for r in rows:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.4f} ms), max |delta| {r['max_abs_err']:.3g}")
-    launches = run_main_path(detail, card)
+    # each path runs with the counters set to 0 just before it; a
+    # kernel's launches are the sum over the paths that ran it
+    phases = [run_probes(detail), run_main_path(detail, card),
+              run_oneloop(detail, card)]
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = sum(p[r["name"]] for p in phases)
     detail["kernels"] = rows
     os.makedirs(os.path.dirname(DETAIL), exist_ok=True)
     with open(DETAIL, "w") as f:

@@ -1,12 +1,13 @@
-"""Hand-written Hopper kernels of the main path, each beside its plain
-PyTorch version:
+"""Hand-written Hopper kernels, each beside its plain PyTorch version:
 
   * `out_leg`   — K1, CUDA C++ (csrc/out_leg.cu): the engine's per-family
                   output leg, J = (tab_a * tab_b / 2np) @ G;
   * `pz_leg`    — K2, CUDA C++ (csrc/pz_leg.cu): the Z-kernel Toeplitz
                   contraction with its outer-factor epilogue;
   * `rk_finish` — K3, Triton: the tail of one RK attempt with the GSL
-                  step controller.
+                  step controller;
+  * `probes`    — K4 `affine`, K5 `int8_dot`, K6 `dd_mul`, CUDA C++
+                  (csrc/probes.cu): the Pallas feasibility probes P1-P3.
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  Each module holds its wrapper

@@ -94,6 +94,13 @@ def lib() -> ctypes.CDLL:
         handle.rt_out_leg.restype = i
         handle.rt_pz_leg.argtypes = [p, p, p, p, i, i, i, i, p]
         handle.rt_pz_leg.restype = i
+        n = ctypes.c_longlong
+        handle.rt_affine.argtypes = [p, p, n, p]
+        handle.rt_affine.restype = i
+        handle.rt_int8_dot.argtypes = [p, p, p, i, i, i, p]
+        handle.rt_int8_dot.restype = i
+        handle.rt_dd_mul.argtypes = [p, p, p, p, p, p, n, p]
+        handle.rt_dd_mul.restype = i
         _lib = handle
     return _lib
 

@@ -7,7 +7,8 @@ count), so a run can show that the main path went through the kernels.
 
 from __future__ import annotations
 
-LAUNCHES = {"out_leg": 0, "pz_leg": 0, "rk_finish": 0}
+LAUNCHES = {"out_leg": 0, "pz_leg": 0, "rk_finish": 0, "affine": 0,
+            "int8_dot": 0, "dd_mul": 0}
 
 
 def reset() -> None:

@@ -10,10 +10,13 @@ The RHS (reference derivatives(), :1416-1547) is whole-grid tensor algebra
 on every lane: the Omega x I / Omega x Q index contractions are the JAX
 package's bilinear forms (assembly.OMEGA_BILINEAR), and the mode-coupling
 A/R sources come from the full FAST-PT engine at every evaluation
-(full Time-RG, :740-1282).  The 1-loop mode is not ported yet.
+(full Time-RG, :740-1282) or, in 1-loop mode, from the z1l cache
+rescaled by growth factors (:1287-1340).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -38,6 +41,26 @@ LNP_MIN, LNP_MAX = -80.0, 20.0
 DLNP_GUARD = 1e4
 
 F64 = torch.float64
+
+# fz exponents of the 1-loop rescale (reference :1322-1336), as indices
+# into fpow = (fz, fz^2, fz^3, fz^4).  The JAX package picks these rows
+# with one-hot matmuls (redtime_tpu/trg.py:59-70); a one-hot product of
+# finite f64 values is exact, so indexing gives the same bits.
+_BEF_IDX = [(j % 8) // 4 + ((j % 8) % 4) // 2 + (j % 8) % 2
+            for j in range(64)]
+_ABC_IDX = [(j // 4) + (j % 4) // 2 + (j % 2) for j in range(8)]
+_PT_IDX = [3 - m for m in assembly.M_N]
+
+
+class OneLoopCache(NamedTuple):
+    """Mode coupling evaluated once at z1l from the linear spectrum
+    (reference :1291-1313), per lane."""
+
+    A64: torch.Tensor     # [B, 64, nk]
+    R: torch.Tensor       # [B, 3, 8, nk]
+    PT: torch.Tensor      # [B, 9, nk]
+    PMR: torch.Tensor     # [B, 8, nk]
+    D_z1l: torch.Tensor   # [B, nk]
 
 
 def omega_matrix(cfg: SolverConfig, model: mdl.Model, a: torch.Tensor):
@@ -67,19 +90,61 @@ def compute_mode_coupling_full(cfg: SolverConfig, lnP3: torch.Tensor, n_s,
     return assembly.assemble(Jw[:, :7], PZw, Jw[:, 7:], J_lo, k, with_rsd)
 
 
-def _check_full_trg(settings: RunSettings) -> None:
-    if settings.nonlinear and settings.one_loop:
-        raise NotImplementedError(
-            "1-loop mode (RunSettings(one_loop=True)) is not ported yet; "
-            "the port runs full Time-RG (one_loop=False) and the linear "
-            "mode (nonlinear=False)")
+def build_oneloop_cache(cfg: SolverConfig, settings: RunSettings,
+                        model: mdl.Model,
+                        ec: fastpt.EngineConsts) -> OneLoopCache:
+    """Evaluate the mode coupling at z1l from the LINEAR cb spectrum
+    (reference :1295-1313: all three rows are ln P_lin_cb, no f factors)."""
+    g = make_grids(cfg)
+    _, Pcb, _ = mdl.plin_all(cfg, model, cfg.z1l)
+    lnP3 = torch.log(Pcb)[:, None, :].expand(-1, 3, -1)
+    engine_rsd = settings.print_rsd or cfg.print_q  # Q evolution needs R
+    k = torch.as_tensor(g.k, dtype=F64, device=Pcb.device)
+    A_u, R, PT, PMR = compute_mode_coupling_full(
+        cfg, lnP3, model.cosmo.n_s, engine_rsd, k, ec)
+    D_z1l, _ = mdl.growth_D_f(model, cfg.z1l)
+    return OneLoopCache(assembly.expand64(A_u), R, PT, PMR, D_z1l)
+
+
+def oneloop_rescale(cfg: SolverConfig, settings: RunSettings,
+                    model: mdl.Model, cache: OneLoopCache,
+                    eta: torch.Tensor):
+    """Rescale the z1l mode coupling to per-lane eta [B] (reference
+    :1316-1337); returns (A64 [B,64,nk], R [B,3,8,nk], PT [B,9,nk],
+    PMR [B,8,nk]).  The powers of fz are multiply chains, in the JAX
+    package's order."""
+    z = torch.exp(-eta) * (1.0 + settings.z_in) - 1.0   # [B]
+    D, dDda = mdl.growth_D_f(model, z)                   # [B, nk]
+    fz = dDda / (D * (1.0 + z)[:, None])
+    dr = D / cache.D_z1l
+    dr2 = dr * dr
+    pre = (dr2 * dr2 * torch.exp(-4.0 * eta)[:, None])[:, None]  # [B,1,nk]
+
+    f2 = fz * fz
+    fpow = torch.stack([fz, f2, f2 * fz, f2 * f2], dim=1)  # [B, 4, nk]
+    A64 = pre * fpow[:, _BEF_IDX] * cache.A64
+    R = pre[:, None] * fpow[:, _ABC_IDX][:, None] * cache.R
+    PT = pre * fpow[:, _PT_IDX] * cache.PT
+    PMR = pre * cache.PMR
+    return A64, R, PT, PMR
+
+
+def _collapse_pt(PT: torch.Tensor) -> torch.Tensor:
+    """PTjm [B, 9, nk] -> PT2/4/6/8 [B, 4, nk] (reference :1353-1357)."""
+    return torch.stack([PT[:, 0] + PT[:, 1] + PT[:, 2],
+                        PT[:, 3] + PT[:, 4] + PT[:, 5],
+                        PT[:, 6] + PT[:, 7], PT[:, 8]], dim=1)
 
 
 def make_rhs(cfg: SolverConfig, settings: RunSettings, model: mdl.Model,
-             ec: fastpt.EngineConsts):
+             ec: fastpt.EngineConsts, cache: OneLoopCache | None = None):
     """The flattened-state RHS dy/deta (reference derivatives()):
-    rhs(eta [B], y [B, 41*nk]) -> [B, 41*nk]."""
-    _check_full_trg(settings)
+    rhs(eta [B], y [B, 41*nk]) -> [B, 41*nk].  In 1-loop mode the
+    mode coupling comes from `cache` (build_oneloop_cache)."""
+    one_loop = settings.nonlinear and settings.one_loop
+    if one_loop and cache is None:
+        raise ValueError("1-loop mode needs the z1l cache "
+                         "(trg.build_oneloop_cache)")
     g = make_grids(cfg)
     nk = g.nk
     dev = model.norm.device
@@ -103,8 +168,13 @@ def make_rhs(cfg: SolverConfig, settings: RunSettings, model: mdl.Model,
 
         if nonlinear:
             I14 = y[:, NUP:NUP + NUI]
-            A_u, R, _, _ = compute_mode_coupling_full(
-                cfg, lnP, model.cosmo.n_s, evolve_q, k, ec)
+            if one_loop:
+                A64, R, _, _ = oneloop_rescale(cfg, settings, model, cache,
+                                               eta)
+                A_u = A64[:, assembly.JU]
+            else:
+                A_u, R, _, _ = compute_mode_coupling_full(
+                    cfg, lnP, model.cosmo.n_s, evolve_q, k, ec)
             Of = O.reshape(B, 4, nk)                     # O[i, g] at 2i+g
 
         # --- d ln P (reference :1449-1491)
@@ -181,8 +251,10 @@ def evolve(cfg: SolverConfig, settings: RunSettings, model: mdl.Model,
     control_y_new(eabs_P, erel_P), initial step 1e-2*(eta_fin - eta_in),
     the step suggestion carried across output boundaries."""
     nk = make_grids(cfg).nk
+    cache = (build_oneloop_cache(cfg, settings, model, ec)
+             if settings.nonlinear and settings.one_loop else None)
     y = initial_state(cfg, settings, model)
-    rhs = make_rhs(cfg, settings, model, ec)
+    rhs = make_rhs(cfg, settings, model, ec, cache)
     h = 1e-2 * float(np.log(1.0 / settings.a_in))
     etasteps = settings.etasteps()
     t0s = np.concatenate([[0.0], etasteps[:-1]])

@@ -1,23 +1,26 @@
 """Where the time goes in the PyTorch port's main path on one CUDA card.
 
-    python3 scripts/profile_torch_port.py [--out PATH]
+    python3 scripts/profile_torch_port.py [--oneloop] [--out PATH]
 
-from the root of a checkout.  Runs the chip_smoke.py cell (16 design
-cosmologies, full Time-RG at SolverConfig() defaults, the bench's eight
-output redshifts) and measures:
+from the root of a checkout.  Runs a chip_smoke.py cell: by default the
+full-TRG one (16 design cosmologies, SolverConfig() defaults, the bench's
+eight output redshifts), with --oneloop the 1-loop one (32 design
+cosmologies, SolverConfig(print_bias=True), the bench's secondary
+redshifts), and measures:
 
-  * phases: prepare_model, evolve and _finalize, host clock with
-    torch.cuda.synchronize() around each, two repeats after one untimed
-    warm-up, with each phase's kernel launch counts and attempts per lane;
-  * one RHS evaluation at 16 lanes and its pieces (extend_power, the
-    windowed engine, assemble, omega_matrix): host clock over 20 calls and
-    CUDA events over 20 calls;
+  * phases: prepare_model, evolve (in 1-loop mode the z1l cache build
+    included) and _finalize, host clock with torch.cuda.synchronize()
+    around each, two repeats after one untimed warm-up, with each phase's
+    kernel launch counts and attempts per lane;
+  * one RHS evaluation at the cell's lanes and its pieces (extend_power,
+    the windowed engine, assemble, omega_matrix): host clock over 20
+    calls and CUDA events over 20 calls;
   * torch.profiler over the first output interval of the evolution: the
     count of device kernels, the device's busy time and its idle share of
     the profiled wall, and the top device kernels.
 
 Prints each result and writes them all as JSON to PATH (default
-chiprun_out/profile_torch_port.json).  Imports nothing of JAX.
+chiprun_out/profile_torch_port[_oneloop].json).  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -43,8 +46,6 @@ from redtime_tpu_torch.grids import make_grids  # noqa: E402
 from redtime_tpu_torch.io.camb import LinearData  # noqa: E402
 from redtime_tpu_torch.kernels import build, counts  # noqa: E402
 from redtime_tpu_torch.ode import integrate_interval  # noqa: E402
-
-B = chip_smoke.N_DESIGN
 
 
 def sync() -> None:
@@ -77,7 +78,7 @@ def phases(cfg, settings, cs, lins, ec, out: dict) -> tuple:
         sync()
         t2 = time.perf_counter()
         c_ev = counts.snapshot()
-        driver._finalize(cfg, settings, m, ys)
+        driver._finalize(cfg, settings, m, ys, ec)
         sync()
         t3 = time.perf_counter()
         out[f"phases_{rep}"] = dict(
@@ -88,9 +89,16 @@ def phases(cfg, settings, cs, lins, ec, out: dict) -> tuple:
     return m, ys
 
 
+def _rhs(cfg, settings, m, ec):
+    cache = (trg.build_oneloop_cache(cfg, settings, m, ec)
+             if settings.one_loop else None)
+    return trg.make_rhs(cfg, settings, m, ec, cache)
+
+
 def rhs_pieces(cfg, settings, m, ys, cs, ec, out: dict) -> None:
     dev = ys.device
-    rhs = trg.make_rhs(cfg, settings, m, ec)
+    B = ys.shape[0]
+    rhs = _rhs(cfg, settings, m, ec)
     y = ys[:, 3].reshape(B, -1).contiguous()
     eta = torch.full((B,), 3.0, dtype=torch.float64, device=dev)
     k = torch.as_tensor(np.asarray(make_grids(cfg).k), device=dev)
@@ -115,7 +123,7 @@ def rhs_pieces(cfg, settings, m, ys, cs, ec, out: dict) -> None:
 def profile_first_interval(cfg, settings, m, ec, out: dict) -> None:
     from torch.profiler import ProfilerActivity, profile
 
-    rhs = trg.make_rhs(cfg, settings, m, ec)
+    rhs = _rhs(cfg, settings, m, ec)
     y0 = trg.initial_state(cfg, settings, m)
     t1 = float(settings.etasteps()[0])
     h0 = 1e-2 * float(np.log(1.0 / settings.a_in))
@@ -145,9 +153,13 @@ def profile_first_interval(cfg, settings, m, ec, out: dict) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default=os.path.join(
-        ROOT, "chiprun_out", "profile_torch_port.json"))
+    ap.add_argument("--oneloop", action="store_true",
+                    help="the 1-loop cell instead of the full-TRG one")
+    ap.add_argument("--out")
     args = ap.parse_args()
+    out_path = args.out or os.path.join(
+        ROOT, "chiprun_out", "profile_torch_port"
+        + ("_oneloop" if args.oneloop else "") + ".json")
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
         return 2
@@ -155,9 +167,15 @@ def main() -> int:
     print(out["card"])
     build.build()
     dev = torch.device("cuda")
-    cfg = SolverConfig()
-    settings = RunSettings(one_loop=False, z_out=chip_smoke.Z_OUT)
-    params = chip_smoke.design_params()
+    if args.oneloop:
+        B = chip_smoke.N_DESIGN_1L
+        cfg = SolverConfig(print_bias=True)
+        settings = RunSettings(one_loop=True, z_out=chip_smoke.Z_OUT_1L)
+    else:
+        B = chip_smoke.N_DESIGN
+        cfg = SolverConfig()
+        settings = RunSettings(one_loop=False, z_out=chip_smoke.Z_OUT)
+    params = chip_smoke.design_params(B)
     lin = chip_smoke.example_linear()
     cs = CosmoParams(*[torch.as_tensor(params[:B, i], device=dev)
                        for i in range(9)])
@@ -168,8 +186,8 @@ def main() -> int:
     m, ys = phases(cfg, settings, cs, lins, ec, out)
     rhs_pieces(cfg, settings, m, ys, cs, ec, out)
     profile_first_interval(cfg, settings, m, ec, out)
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    with open(out_path, "w") as f:
         json.dump(out, f, indent=1)
     return 0
 

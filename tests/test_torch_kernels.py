@@ -1,6 +1,7 @@
-"""The hand kernels' wrappers (K1 out_leg, K2 pz_leg, K3 rk_finish) and
-chip_smoke.py's inputs.  This file imports no JAX, so its `cuda` tests
-also run on a GPU machine that has none:
+"""The hand kernels' wrappers (K1 out_leg, K2 pz_leg, K3 rk_finish, K4
+affine, K5 int8_dot, K6 dd_mul) and chip_smoke.py's inputs.  This file
+imports no JAX, so its `cuda` tests also run on a GPU machine that has
+none:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
 
@@ -9,7 +10,7 @@ tensor on any other device never reaches the plain version.  On the card
 each kernel is held to its plain version: K1 and K2 within the f64
 dot-product forward-error bound (they sum in another order), K3 to 1e-13
 relative (its FMA contraction is off, so it rounds as the plain version
-does).
+does), K4-K6 bit for bit.
 """
 
 import os
@@ -25,7 +26,9 @@ from redtime_tpu_torch import fastpt as tf
 from redtime_tpu_torch import ode as tode
 from redtime_tpu_torch.config import SolverConfig as TCfg
 from redtime_tpu_torch.kernels import counts
+from redtime_tpu_torch import probes
 from redtime_tpu_torch.kernels import out_leg as k1
+from redtime_tpu_torch.kernels import probes as kp
 from redtime_tpu_torch.kernels import pz_leg as k2
 from redtime_tpu_torch.kernels import rk_finish as k3
 
@@ -63,6 +66,50 @@ def test_wrappers_validate_and_cpu_takes_plain():
         k2.pz_leg(T, P, kf, 13)
     # the plain path on CPU tensors never counts as a kernel launch
     assert counts.snapshot() == before
+
+
+def test_probe_wrappers_validate_and_cpu_takes_plain():
+    f = torch.zeros(8, dtype=torch.float32)
+    i8 = torch.zeros((4, 4), dtype=torch.int8)
+    before = counts.snapshot()
+    assert torch.equal(kp.affine(f), kp.affine_plain(f))
+    assert torch.equal(kp.int8_dot(i8, i8), kp.int8_dot_plain(i8, i8))
+    for x, y in zip(kp.dd_mul(f, f, f, f), kp.dd_mul_plain(f, f, f, f)):
+        assert torch.equal(x, y)
+    assert counts.snapshot() == before
+    with pytest.raises(TypeError):
+        kp.affine(f.double())
+    with pytest.raises(ValueError):
+        kp.affine(torch.zeros((4, 4), dtype=torch.float32).t())
+    with pytest.raises(TypeError):
+        kp.int8_dot(i8.int(), i8)
+    with pytest.raises(ValueError):
+        kp.int8_dot(i8, torch.zeros((3, 4), dtype=torch.int8))
+    with pytest.raises(ValueError):
+        kp.int8_dot(torch.zeros((2, 8), dtype=torch.int8).t(), i8[:2])
+    with pytest.raises(ValueError, match="empty"):
+        kp.int8_dot(torch.zeros((0, 4), dtype=torch.int8), i8)
+    with pytest.raises(ValueError, match="overflow"):
+        kp.int8_dot(torch.zeros((1, 2 ** 17), dtype=torch.int8),
+                    torch.zeros((2 ** 17, 1), dtype=torch.int8))
+    kp.int8_dot(torch.zeros((1, 2 ** 17 - 1), dtype=torch.int8),
+                torch.zeros((2 ** 17 - 1, 1), dtype=torch.int8))
+    with pytest.raises(TypeError):
+        kp.dd_mul(f, f, f, f.double())
+    with pytest.raises(ValueError):
+        kp.dd_mul(f, f, f, f[:4])
+
+
+def test_probe_wrappers_raise_off_the_cpu_without_a_kernel():
+    meta = torch.device("meta")
+    f = torch.empty(8, dtype=torch.float32, device=meta)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        kp.affine(f)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        kp.int8_dot(torch.empty((2, 4), dtype=torch.int8, device=meta),
+                    torch.empty((4, 2), dtype=torch.int8, device=meta))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        kp.dd_mul(f, f, f, f)
 
 
 def _rk_args(B, D, rng, device):
@@ -128,8 +175,9 @@ def test_rk_finish_plain_controller_and_frozen_lanes():
 
 
 def test_chip_smoke_inputs_match_the_golden():
-    """chip_smoke.py's design lanes 0-1 and linear inputs are the ones the
-    JAX golden was written from, and the script imports no JAX."""
+    """chip_smoke.py's design lanes 0-1, redshifts and linear inputs are
+    the ones each JAX golden (full TRG, 1-loop) was written from, and the
+    script imports no JAX."""
     code = ("import sys, numpy as np, chip_smoke as s\n"
             "from redtime_tpu_torch.io.camb import LinearData\n"
             "g = np.load(s.GOLDEN)\n"
@@ -138,6 +186,13 @@ def test_chip_smoke_inputs_match_the_golden():
             "for name, x in zip(LinearData._fields, s.example_linear()):\n"
             "    assert np.array_equal(g[name], x), name\n"
             "assert g['table'].shape == (2, len(s.Z_OUT), 128, 17)\n"
+            "g = np.load(s.GOLDEN_1L)\n"
+            "assert np.array_equal(g['params'], "
+            "s.design_params(s.N_DESIGN_1L)[:2])\n"
+            "assert np.array_equal(g['z_out'], s.Z_OUT_1L)\n"
+            "for name, x in zip(LinearData._fields, s.example_linear()):\n"
+            "    assert np.array_equal(g[name], x), name\n"
+            "assert g['table'].shape == (2, len(s.Z_OUT_1L), 128, 32)\n"
             "assert not [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'redtime_tpu')]\n"
             "print('ok')\n")
@@ -154,6 +209,17 @@ def test_chip_smoke_fails_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_probes_entry_point_fails_without_a_card():
+    """python -m redtime_tpu_torch.probes on a machine with no CUDA device
+    exits non-zero and reports no probe."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-m", "redtime_tpu_torch.probes"],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert "OK" not in out.stdout
 
 
 @pytest.mark.cuda
@@ -198,3 +264,55 @@ def test_cuda_rk_finish_matches_plain(cuda_device):
     assert counts.LAUNCHES["rk_finish"] == before + 1
     for a, b in zip(out, ref):
         torch.testing.assert_close(a, b, rtol=1e-13, atol=0)
+
+
+PROBE_SIZES = [1, 8 * 128, 1000, 2 ** 20 + 3]
+DOT_SHAPES = [(128, 512, 256), (1, 1, 1), (67, 130, 33), (129, 1023, 257),
+              (2016, 1024, 256)]
+
+
+@pytest.mark.cuda
+def test_cuda_probe_kernels_equal_plain(cuda_device):
+    """On the card: K4, K5 and K6 bit for bit against their plain
+    versions, at the probes' shapes, larger and ragged ones; one launch
+    counted per call."""
+    rng = np.random.default_rng(8)
+
+    def f32(n):
+        return torch.as_tensor((rng.standard_normal(n) * np.exp(
+            rng.uniform(-8, 8, n))).astype(np.float32), device=cuda_device)
+
+    before = counts.snapshot()
+    for n in PROBE_SIZES:
+        x = f32(n)
+        assert torch.equal(kp.affine(x), kp.affine_plain(x))
+        args = [f32(n) for _ in range(4)]
+        for got, ref in zip(kp.dd_mul(*args), kp.dd_mul_plain(*args)):
+            assert torch.equal(got, ref)
+    for M, K, N in DOT_SHAPES:
+        a = torch.as_tensor(rng.integers(-128, 128, (M, K)).astype(np.int8),
+                            device=cuda_device)
+        b = torch.as_tensor(rng.integers(-128, 128, (K, N)).astype(np.int8),
+                            device=cuda_device)
+        assert torch.equal(kp.int8_dot(a, b), kp.int8_dot_plain(a, b))
+    after = counts.snapshot()
+    assert after["affine"] == before["affine"] + len(PROBE_SIZES)
+    assert after["dd_mul"] == before["dd_mul"] + len(PROBE_SIZES)
+    assert after["int8_dot"] == before["int8_dot"] + len(DOT_SHAPES)
+    with pytest.raises(ValueError, match="devices"):
+        kp.int8_dot(a, b.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_probes_entry_point(cuda_device):
+    """python -m redtime_tpu_torch.probes runs probe1-probe4 on the card
+    and prints one line per probe."""
+    for p in probes.PROBES:
+        p(cuda_device)
+    out = subprocess.run([sys.executable, "-m", "redtime_tpu_torch.probes"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    for p in probes.PROBES:
+        assert any(line.startswith(f"{p.__name__}: OK") for line in lines)

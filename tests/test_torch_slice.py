@@ -100,8 +100,8 @@ def test_finite_report_names_a_poisoned_lane():
     (dict(z_out=()), {}, ValueError),
     (dict(z_out=(300.0,)), {}, ValueError),
     (dict(z_out=(1.0,), z_in=2000.0), {}, ValueError),
-    (dict(one_loop=True), {}, NotImplementedError),
-    (dict(one_loop=False), dict(print_a=True), NotImplementedError),
+    (dict(one_loop=True), dict(dtype="float32"), ValueError),
+    (dict(one_loop=False), dict(out_leg="ozaki"), ValueError),
 ])
 def test_run_batch_checks_settings(kw, cfg_kw, exc):
     _, _, (cs, lins) = _runs()

@@ -101,10 +101,3 @@ def test_initial_state_omega_and_pbis_match_jax():
         np.testing.assert_allclose(
             pb[b], np.asarray(jt.pbis_j(jc, jnp.asarray(ys[b]).reshape(
                 41, NK))), rtol=1e-13, atol=1e-300)
-
-
-def test_one_loop_mode_is_not_ported_yet():
-    mt = state.model_from_numpy(_models())
-    tc = TCfg(nk=NK)
-    with pytest.raises(NotImplementedError):
-        tt.make_rhs(tc, TSet(one_loop=True), mt, tf.engine_consts(tc))
