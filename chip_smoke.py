@@ -7,12 +7,18 @@ triton.  It
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the CUDA kernels from redtime_tpu_torch/csrc with nvcc
-     (sm_90a) and compiles the Triton kernel;
+     (sm_90a), checks that K1's and K2's SASS holds FP64 tensor-core
+     instructions (DMMA, by cuobjdump), and compiles the Triton kernel;
   3. checks each hand kernel against its plain PyTorch version on the card
      at the main path's shapes (nk=128, np=512, 16 lanes, inputs from a
      seeded numpy generator; K3 at each tableau and state size the main
      path runs it with), with the tolerances stated below, and times
-     both;
+     it, its plain version and (where one exists) one PyTorch library
+     call for the same function in turns: eager, and on the device alone
+     (CUDA-graph replay); each row also carries the least time the card
+     could take (bound_ms, by bytes or operations); then K1 and K2 at
+     every shape the port uses (check_leg_shapes), and two calls of each
+     must give the same bits;
   4. checks the probe kernels K4 affine, K5 int8_dot and K6 dd_mul
      against their plain versions on the card, bit for bit, at the
      probes' shapes, at one larger shape each and on ragged sizes, and
@@ -59,6 +65,11 @@ Z_OUT = (2.02, 1.61, 1.01, 0.66, 0.43, 0.24, 0.10, 0.0)
 Z_OUT_1L = (5.0, 4.0, 3.0, 2.0, 1.0, 0.5, 0.0)
 N_DESIGN, N_DESIGN_1L, SEED, B_CHECK = 16, 32, 42, 16
 EPS = float(np.finfo(np.float64).eps)
+# H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s; FP64 on the
+# tensor cores, FP64 and FP32 outside them, int8 on the tensor cores
+HBM_BYTES_S = 3.35e12
+PEAK_FP64_TC, PEAK_FP64, PEAK_FP32, PEAK_INT8_TC = 67e12, 34e12, 67e12, \
+    1979e12
 MAIN_KERNELS = ("out_leg", "pz_leg", "rk_finish")
 PROBE_KERNELS = ("affine", "int8_dot", "dd_mul")
 
@@ -100,7 +111,9 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() in ms, by CUDA events over `iters` calls."""
+    """Eager time of fn() in ms: CUDA events over `iters` back-to-back
+    calls, so the wrapper's host path (checks, allocation, launch) is in
+    it."""
     import torch
     for _ in range(warmup):
         fn()
@@ -113,6 +126,67 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time of fn() in ms, without the host path: `calls` calls
+    captured in one CUDA graph, replayed `replays` times between CUDA
+    events.  The warm-up runs before the capture, on a side stream, so
+    builds, compiles and cuBLAS's workspace happen outside it; the
+    wrappers launch on the current stream, which is the capture stream."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def measure(kernel, plain, library=None, rounds: int = 3) -> tuple:
+    """The kernel, its plain version and the library call timed in turns
+    (kernel, plain, library; `rounds` times), each eager (time_ms) and
+    on the device (graph_ms).  Returns the medians as row fields and the
+    readings of every round.  The inputs stay where the caller made them,
+    so constants (G, T_sl) are warm in L2 as on the main path."""
+    fns = dict(kernel=kernel, plain=plain)
+    if library is not None:
+        fns["library"] = library
+    runs = {f"{k}_{how}": [] for k in fns for how in ("ms", "device_ms")}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            runs[f"{k}_ms"].append(time_ms(fn))
+            runs[f"{k}_device_ms"].append(graph_ms(fn))
+    med = {k: float(np.median(v)) for k, v in runs.items()}
+    return dict(ms=med["kernel_ms"], device_ms=med["kernel_device_ms"],
+                plain_ms=med["plain_ms"],
+                plain_device_ms=med["plain_device_ms"],
+                library_ms=med.get("library_device_ms"),
+                library_eager_ms=med.get("library_ms")), runs
+
+
+def least_time(nbytes: float, ops: float, peak: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the operations over `peak` (one of PEAK_*)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / peak
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=nbytes, bound_ops=ops)
 
 
 def rk_cases(cfg) -> list:
@@ -212,15 +286,26 @@ def check_kernels(rng, detail: dict) -> list:
             J.shape)
     err = (J - J_ref).abs()
     check(bool(torch.isfinite(J).all()), "out_leg: non-finite output")
+    check(bool(torch.equal(J, k1.out_leg(tab, ec.G))),
+          "out_leg: two calls on the same inputs differ")
     check(bool((err <= bound).all()),
           f"out_leg: max |delta|/bound {float((err / bound).max()):.3g}")
+    nfam, O = fastpt.NFAM, ec.G.shape[-1]
+    # the library yardstick: one batched DGEMM on the pair product,
+    # materialized outside the timed region
+    prod_mat = prod.permute(1, 0, 2, 3, 4).reshape(nfam, 9 * B, K) \
+        .contiguous()
+    t_k1, runs = measure(lambda: k1.out_leg(tab, ec.G),
+                         lambda: k1.out_leg_plain(tab, ec.G),
+                         lambda: torch.bmm(prod_mat, ec.G))
+    detail["out_leg_timing"] = runs
     rows.append(dict(
         name="out_leg", route="cuda",
         source="redtime_tpu_torch/csrc/out_leg.cu",
         replaces="scripts/probe_pallas.py:145",
-        max_abs_err=float(err.max()),
-        ms=time_ms(lambda: k1.out_leg(tab, ec.G)),
-        plain_ms=time_ms(lambda: k1.out_leg_plain(tab, ec.G))))
+        max_abs_err=float(err.max()), **t_k1,
+        **least_time(8.0 * (tab.numel() + nfam * K * O + J.numel()),
+                2.0 * nfam * 9 * B * K * O, PEAK_FP64_TC)))
 
     # K2 on engine-shaped spectra: |delta| <= 2np eps (|T_sl| @ |P_e|)
     # |kfac P_e| (the dot product's forward-error bound; a max-relative
@@ -238,27 +323,43 @@ def check_kernels(rng, detail: dict) -> list:
              * (ec.pz_kfac_sl * P_e[:, None, None, :, sl]).abs())
     err = (PZ - PZ_ref).abs()
     check(bool(torch.isfinite(PZ).all()), "pz_leg: non-finite output")
+    check(bool(torch.equal(PZ, k2.pz_leg(ec.toeplitz_sl, P_e, ec.pz_kfac_sl,
+                                         cfg.nshift))),
+          "pz_leg: two calls on the same inputs differ")
     check(bool((err <= bound).all()),
           "pz_leg: max |delta|/bound "
           f"{float((err / bound.clamp(min=1e-300)).max()):.3g}")
+    T2, P2 = ec.toeplitz_sl.view(7 * nk, npts), P_e.view(3 * B, npts)
+    t_k2, runs = measure(
+        lambda: k2.pz_leg(ec.toeplitz_sl, P_e, ec.pz_kfac_sl, cfg.nshift),
+        lambda: k2.pz_leg_plain(ec.toeplitz_sl, P_e, ec.pz_kfac_sl,
+                                cfg.nshift),
+        lambda: torch.matmul(T2, P2.T))
+    detail["pz_leg_timing"] = runs
     rows.append(dict(
         name="pz_leg", route="cuda",
         source="redtime_tpu_torch/csrc/pz_leg.cu",
         replaces="redtime_tpu/fastpt.py:1310",
-        max_abs_err=float(err.max()),
-        ms=time_ms(lambda: k2.pz_leg(ec.toeplitz_sl, P_e,
-                                          ec.pz_kfac_sl, cfg.nshift)),
-        plain_ms=time_ms(lambda: k2.pz_leg_plain(
-            ec.toeplitz_sl, P_e, ec.pz_kfac_sl, cfg.nshift))))
+        max_abs_err=float(err.max()), **t_k2,
+        **least_time(8.0 * (T2.numel() + P2.numel() + nk + PZ.numel()),
+                2.0 * 7 * nk * 3 * B * npts, PEAK_FP64_TC)))
 
-    # K3 at each tableau the main path runs it with (rk_cases)
+    # K3 at each tableau the main path runs it with (rk_cases); its row
+    # is the eta case, the one the evolution runs
     k3_cases = check_rk_finish(np.random.default_rng(5678), cfg, dev)
     for c in k3_cases:
-        c["ms"] = time_ms(lambda: k3.rk_finish(*c["args"]))
-        c["plain_ms"] = time_ms(lambda: k3.rk_finish_plain(*c["args"]))
+        args = c.pop("args")
+        c.update(measure(lambda: k3.rk_finish(*args),
+                         lambda: k3.rk_finish_plain(*args))[0])
+        y, ks = args[0], args[1]
+        s, (Bc, D) = ks.shape[0], y.shape
+        # y, ks, t, h, t1, n, active, b, e, prm in; y, t, h, n, r out
+        c.update(least_time(8.0 * (2 * Bc * D + s * Bc * D + 8 * Bc + 2 * s + 9)
+                       + Bc, 2.0 * Bc * D * (2 * s + 4), PEAK_FP64))
         print(f"rk_finish {c['case']} ({c['tableau']}, D={c['D']}): "
-              f"{c['ms']:.4f} ms (plain {c['plain_ms']:.4f} ms), max "
-              f"|delta| {c['max_abs_err']:.3g}, {c['rejected']}/{B} "
+              f"{c['ms']:.4f} ms eager, {c['device_ms']:.4f} ms device "
+              f"(plain {c['plain_ms']:.4f} / {c['plain_device_ms']:.4f}), "
+              f"max |delta| {c['max_abs_err']:.3g}, {c['rejected']}/{B} "
               "lanes rejected")
     eta = k3_cases[-1]
     rows.append(dict(
@@ -266,11 +367,90 @@ def check_kernels(rng, detail: dict) -> list:
         source="redtime_tpu_torch/kernels/rk_finish.py",
         replaces="redtime_tpu/ode.py:161",
         max_abs_err=max(c["max_abs_err"] for c in k3_cases),
-        ms=eta["ms"], plain_ms=eta["plain_ms"]))
-    for c in k3_cases:
-        del c["args"]
+        **{k: eta[k] for k in ("ms", "device_ms", "plain_ms",
+                               "plain_device_ms", "library_ms", "bound_ms",
+                               "bound_by", "bound_bytes", "bound_ops")}))
     detail["rk_finish_cases"] = k3_cases
     return rows
+
+
+def check_tensor_cores(lib, detail: dict) -> None:
+    """K1 and K2 run on the FP64 tensor cores: their SASS (cuobjdump
+    -sass of the built library) holds DMMA instructions."""
+    from redtime_tpu_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        for kernel in ("out_leg_kernel", "pz_leg_kernel"):
+            if kernel in name:
+                counts[kernel] = counts.get(kernel, 0) + part.count("DMMA")
+    for kernel in ("out_leg_kernel", "pz_leg_kernel"):
+        check(counts.get(kernel, 0) > 0, f"{kernel}: no DMMA in its SASS")
+    print(f"tensor cores: DMMA instructions in the SASS {counts}")
+    detail["dmma_in_sass"] = counts
+
+
+def check_leg_shapes(rng, detail: dict) -> None:
+    """K1 and K2 against their plain versions at every shape the port
+    uses, within the forward-error bounds of check_kernels, and bit-equal
+    over two calls: K1 at B in (1, 3, 16, 33), 7 and 14 families, 2np in
+    (1024, 4096) and O in (129, 257, 513), G padded as engine_consts pads
+    it; K2 at the same B on the default, v0.1 and HIGH_ACCURACY grids
+    (nk, np) = (128, 512), (256, 2048), (512, 2048)."""
+    import torch
+
+    from redtime_tpu_torch.kernels import out_leg as k1
+    from redtime_tpu_torch.kernels import pz_leg as k2
+
+    t = lambda x: torch.as_tensor(x, dtype=torch.float64, device="cuda")
+    cases = []
+    for B in (1, 3, 16, 33):
+        for nfam in (7, 14):
+            for K in (1024, 4096):
+                for O in (129, 257, 513):
+                    tab = t(rng.standard_normal((B, 2, nfam, 3, K)))
+                    G = k1.padded(t(rng.standard_normal((nfam, K, O))))
+                    J = k1.out_leg(tab, G)
+                    prod = tab[:, 0, :, :, None, :] \
+                        * tab[:, 1, :, None, :, :] / K
+                    bound = 2 * K * EPS * torch.matmul(
+                        prod.abs().reshape(B, nfam, 9, K), G.abs())
+                    ratio = float(((J - k1.out_leg_plain(tab, G)).abs()
+                                   .reshape(bound.shape) / bound).max())
+                    what = f"out_leg at B={B} nfam={nfam} K={K} O={O}"
+                    check(ratio <= 1.0, f"{what}: |delta|/bound {ratio:.3g}")
+                    check(bool(torch.equal(J, k1.out_leg(tab, G))),
+                          f"{what}: two calls differ")
+                    cases.append(dict(kernel="out_leg", B=B, nfam=nfam, K=K,
+                                      O=O, err_over_bound=ratio))
+        for nk, npts in ((128, 512), (256, 2048), (512, 2048)):
+            T = t(rng.standard_normal((7, nk, npts)))
+            P = t(np.exp(rng.standard_normal((B, 3, npts))))
+            kfac = t(rng.standard_normal(nk))
+            nshift = (npts - nk) // 2
+            PZ = k2.pz_leg(T, P, kfac, nshift)
+            dot = torch.einsum("nim,bam->bnai", T.abs(), P.abs())
+            bound = (2 * npts * EPS * dot[:, :, :, None, :]
+                     * (kfac * P[:, None, None, :, nshift:nshift + nk]).abs())
+            ratio = float(((PZ - k2.pz_leg_plain(T, P, kfac, nshift)).abs()
+                           / bound.clamp(min=1e-300)).max())
+            what = f"pz_leg at B={B} nk={nk} np={npts}"
+            check(ratio <= 1.0, f"{what}: |delta|/bound {ratio:.3g}")
+            check(bool(torch.equal(PZ, k2.pz_leg(T, P, kfac, nshift))),
+                  f"{what}: two calls differ")
+            cases.append(dict(kernel="pz_leg", B=B, nk=nk, np=npts,
+                              err_over_bound=ratio))
+    worst = {k: max(c["err_over_bound"] for c in cases if c["kernel"] == k)
+             for k in ("out_leg", "pz_leg")}
+    print(f"kernel shapes: out_leg at {sum(c['kernel'] == 'out_leg' for c in cases)}"
+          f" shapes and pz_leg at {sum(c['kernel'] == 'pz_leg' for c in cases)}"
+          f" within their bounds (worst |delta|/bound {worst}) and "
+          "bit-equal over two calls")
+    detail["leg_shape_cases"] = cases
 
 
 def check_probe_kernels(rng, detail: dict) -> list:
@@ -301,18 +481,37 @@ def check_probe_kernels(rng, detail: dict) -> list:
     def dot_args(m, k, n):
         return int8((m, k)), int8((k, n))
 
-    # (kernel, plain, make args, probe size, large size, ragged sizes)
+    def cost_affine(n):
+        return 8.0 * n, 2.0 * n, PEAK_FP32
+
+    def cost_dot(s):
+        m, k, n = s
+        return float(m * k + k * n + 4 * m * n), 2.0 * m * k * n, PEAK_INT8_TC
+
+    def cost_dd(n):
+        # 4 f32 in, 2 out; dd.mul is 24 f32 operations an element
+        return 24.0 * n, 24.0 * n, PEAK_FP32
+
+    def lib_affine(x):
+        ones = torch.ones_like(x)
+        return lambda: torch.add(ones, x, alpha=2)
+
+    # (kernel, plain, library call or None, make args, cost, probe size,
+    # large size, ragged sizes)
     specs = [
         ("affine", "scripts/probe_pallas.py:29", kp.affine, kp.affine_plain,
-         lambda n: (f32(n),), 8 * 128, 2 ** 20, [1, 1000, 2 ** 20 + 3]),
+         lib_affine, lambda n: (f32(n),), cost_affine, 8 * 128, 2 ** 20,
+         [1, 1000, 2 ** 20 + 3]),
         ("int8_dot", "scripts/probe_pallas.py:44", kp.int8_dot,
-         kp.int8_dot_plain, lambda s: dot_args(*s), (128, 512, 256),
+         kp.int8_dot_plain, lambda a, b: lambda: torch._int_mm(a, b),
+         lambda s: dot_args(*s), cost_dot, (128, 512, 256),
          (2016, 1024, 256), [(1, 1, 1), (67, 130, 33), (129, 1023, 257)]),
         ("dd_mul", "scripts/probe_pallas.py:78", kp.dd_mul, kp.dd_mul_plain,
-         dd_args, 8 * 128, 2 ** 20, [1, 1000, 2 ** 20 + 7]),
+         None, dd_args, cost_dd, 8 * 128, 2 ** 20, [1, 1000, 2 ** 20 + 7]),
     ]
     rows, cases = [], []
-    for name, replaces, kern, plain, make, probe, large, ragged in specs:
+    for (name, replaces, kern, plain, lib, make, cost, probe, large,
+         ragged) in specs:
         timed, err = {}, 0.0
         for size in [probe, large] + ragged:
             args = make(size)
@@ -328,18 +527,21 @@ def check_probe_kernels(rng, detail: dict) -> list:
                       f"{name} at {size}: not bit-equal to plain, max "
                       f"|delta| {delta:.3g}")
             if size in (probe, large):
-                timed[size] = (time_ms(lambda: kern(*args)),
-                               time_ms(lambda: plain(*args)))
+                t, runs = measure(lambda: kern(*args), lambda: plain(*args),
+                                  lib(*args) if lib else None)
+                timed[size] = dict(t, **least_time(*cost(size)))
+                detail[f"{name}_timing_{size}"] = runs
             cases.append(dict(kernel=name, size=str(size)))
+        big = timed[large]
         print(f"kernel {name}: bit-equal to plain at {probe}, {large} and "
-              f"{ragged}; at {large}: {timed[large][0]:.4f} ms (plain "
-              f"{timed[large][1]:.4f} ms)")
+              f"{ragged}; at {large}: {big['ms']:.4f} ms eager, "
+              f"{big['device_ms']:.4f} ms device (plain {big['plain_ms']:.4f}"
+              f" / {big['plain_device_ms']:.4f} ms)")
         rows.append(dict(
             name=name, route="cuda",
             source="redtime_tpu_torch/csrc/probes.cu", replaces=replaces,
-            max_abs_err=err, ms=timed[probe][0], plain_ms=timed[probe][1],
-            large_shape=str(large), large_ms=timed[large][0],
-            large_plain_ms=timed[large][1]))
+            max_abs_err=err, **timed[probe], large_shape=str(large),
+            **{f"large_{k}": v for k, v in big.items()}))
     detail["probe_kernel_cases"] = cases
     return rows
 
@@ -494,18 +696,27 @@ def main() -> int:
     print(f"build: nvcc {build_s:.3f} s ({lib.name}); triton import "
           f"{time.perf_counter() - t0:.3f} s")
     detail["build"] = dict(build.BUILD_LOG, wall_s=build_s)
+    check_tensor_cores(lib, detail)
 
     rows = check_kernels(np.random.default_rng(1234), detail)
+    check_leg_shapes(np.random.default_rng(2468), detail)
     rows += check_probe_kernels(np.random.default_rng(4321), detail)
     for r in rows:
-        print(f"kernel {r['name']}: {r['ms']:.4f} ms (plain "
-              f"{r['plain_ms']:.4f} ms), max |delta| {r['max_abs_err']:.3g}")
+        lib_ms = r["library_ms"]
+        print(f"kernel {r['name']}: {r['ms']:.4f} ms eager, "
+              f"{r['device_ms']:.4f} ms device (plain {r['plain_ms']:.4f} / "
+              f"{r['plain_device_ms']:.4f} ms; library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; bound "
+              f"{r['bound_ms']:.5f} ms by {r['bound_by']}), max |delta| "
+              f"{r['max_abs_err']:.3g}")
     # each path runs with the counters set to 0 just before it; a
     # kernel's launches are the sum over the paths that ran it
-    phases = [run_probes(detail), run_main_path(detail, card),
-              run_oneloop(detail, card)]
+    phases = dict(probes=run_probes(detail),
+                  full_trg=run_main_path(detail, card),
+                  oneloop=run_oneloop(detail, card))
     for r in rows:
-        r["launches"] = sum(p[r["name"]] for p in phases)
+        r["launches_by_path"] = {k: p[r["name"]] for k, p in phases.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
     detail["kernels"] = rows
     os.makedirs(os.path.dirname(DETAIL), exist_ok=True)
     with open(DETAIL, "w") as f:

@@ -20,7 +20,7 @@ from redtime_tpu_torch import interp
 from redtime_tpu_torch import model as mdl
 from redtime_tpu_torch import trg
 from redtime_tpu_torch.config import H0H, CosmoParams, RunSettings, SolverConfig
-from redtime_tpu_torch.fastpt import engine_consts
+from redtime_tpu_torch.fastpt import device_of, engine_consts
 from redtime_tpu_torch.grids import make_grids
 from redtime_tpu_torch.io.camb import LinearData
 from redtime_tpu_torch.io.params import ParamsFile
@@ -242,9 +242,11 @@ def _take(x: np.ndarray, i0: int, size: int) -> np.ndarray:
 
 
 def run_batch(cfg: SolverConfig, settings: RunSettings, cs: CosmoParams,
-              lins: LinearData, device="cpu", max_chunk: int | None = None,
+              lins: LinearData, device="cuda", max_chunk: int | None = None,
               norm_override=None) -> RunResult:
-    """Batched pipeline on `device` (the chunked scheduler).
+    """Batched pipeline on `device` (the chunked scheduler): the card
+    unless the caller asks for the CPU (device="cpu"); with no card a
+    call without `device` raises.
 
     cs: CosmoParams with [B] fields; lins: LinearData with a leading batch
     dimension (numpy or tensors); norm_override: optional [B] P_lin
@@ -254,7 +256,7 @@ def run_batch(cfg: SolverConfig, settings: RunSettings, cs: CosmoParams,
     size by repeating their first lane and the padding is dropped from
     the result."""
     _check_settings(settings, cfg)
-    device = torch.device(device)
+    device = device_of(device)
     n = _batch_size(cs)
     if max_chunk is None:
         max_chunk = n if device.type == "cpu" else (

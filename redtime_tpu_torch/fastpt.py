@@ -35,7 +35,7 @@ from scipy.special import loggamma
 from redtime_tpu_torch import fourier
 from redtime_tpu_torch.config import SolverConfig
 from redtime_tpu_torch.grids import make_grids, pab_extension_matrix
-from redtime_tpu_torch.kernels.out_leg import out_leg
+from redtime_tpu_torch.kernels.out_leg import out_leg, padded
 from redtime_tpu_torch.kernels.pz_leg import pz_leg
 
 # transform-family tables (reference redTime.cc:731-738)
@@ -342,24 +342,37 @@ class EngineConsts(NamedTuple):
     gb_re: torch.Tensor
     gb_im: torch.Tensor
     dft_bwd_half: torch.Tensor  # [2*half, 2np] = [bc[:half]; bs[:half]]
-    G: torch.Tensor             # [NFAM, 2np, nk+1] composite output matrix
+    G: torch.Tensor             # [NFAM, 2np, nk+1] composite output matrix,
+                                # rows padded to 8 ceil((nk+1)/8) (padded)
     toeplitz_sl: torch.Tensor   # [7, nk, np] Toeplitz rows in the window
     pz_kfac_sl: torch.Tensor    # [nk]
+
+
+def device_of(device) -> torch.device:
+    """`device` as a torch.device.  Raises when it names a CUDA card and
+    none is present: the port never falls back to the CPU, which runs
+    only when the caller asks for it (device="cpu")."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r}: no CUDA card is "
+                           "available; pass device='cpu' to run on the CPU")
+    return dev
 
 
 @functools.lru_cache(maxsize=8)
 def _engine_consts(cfg: SolverConfig, device: str) -> EngineConsts:
     arrs = engine_consts_np(cfg)
-    return EngineConsts(**{
+    ec = EngineConsts(**{
         k: torch.as_tensor(np.ascontiguousarray(v), dtype=torch.float64,
                            device=device)
         for k, v in arrs.items()})
+    return ec._replace(G=padded(ec.G))
 
 
-def engine_consts(cfg: SolverConfig, device="cpu") -> EngineConsts:
+def engine_consts(cfg: SolverConfig, device="cuda") -> EngineConsts:
     """The engine constant pack on `device` (built once per config and
-    device, then cached)."""
-    return _engine_consts(cfg, str(torch.device(device)))
+    device, then cached); the card unless the caller asks for the CPU."""
+    return _engine_consts(cfg, str(device_of(device)))
 
 
 def extend_power(cfg: SolverConfig, lnP3: torch.Tensor, n_s: torch.Tensor,

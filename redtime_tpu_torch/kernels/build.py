@@ -90,10 +90,14 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         handle = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        handle.rt_out_leg.argtypes = [p, p, p, i, i, i, i, p]
+        handle.rt_out_leg.argtypes = [p, p, p, i, i, i, i, ctypes.c_longlong,
+                                       i, p]
         handle.rt_out_leg.restype = i
         handle.rt_pz_leg.argtypes = [p, p, p, p, i, i, i, i, p]
         handle.rt_pz_leg.restype = i
+        for name in ("rt_out_leg_k_step", "rt_pz_leg_k_step"):
+            getattr(handle, name).argtypes = []
+            getattr(handle, name).restype = i
         n = ctypes.c_longlong
         handle.rt_affine.argtypes = [p, p, n, p]
         handle.rt_affine.restype = i

@@ -4,9 +4,11 @@
 
 tab [B, 2, nfam, 3, 2np] is the convolution backward leg's output
 (sab @ dft_bwd_half) and G [nfam, 2np, nk+1] the f64 composite output
-matrix (fastpt.composite_out_matrix).  Replaces the TPU's Ozaki output
-leg (redtime_tpu/fastpt.py:1232-1266 and the Pallas probe4.kernel,
-scripts/probe_pallas.py:145-199).
+matrix (fastpt.composite_out_matrix).  The kernel reads G's rows in
+16-byte copies: on the card G must have unit stride along O and even row
+and family strides, which `padded` gives it (engine_consts builds G so).  Replaces
+the TPU's Ozaki output leg (redtime_tpu/fastpt.py:1232-1266 and the
+Pallas probe4.kernel, scripts/probe_pallas.py:145-199).
 """
 
 from __future__ import annotations
@@ -25,6 +27,17 @@ def out_leg_plain(tab: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
     return J.reshape(B, nfam, 3, 3, G.shape[-1])
 
 
+def padded(G: torch.Tensor) -> torch.Tensor:
+    """G [nfam, K, O] as a view of a zero-padded [nfam, K, 8 ceil(O/8)]
+    buffer: unit stride along O and a row pitch that is a multiple of 64
+    bytes, so the kernel reads G's rows in 16-byte copies.  The values
+    are G's; out_leg_plain gives the same bits on either layout."""
+    nfam, K, O = G.shape
+    buf = G.new_zeros((nfam, K, 8 * -(-O // 8)))
+    buf[..., :O] = G
+    return buf[..., :O]
+
+
 def _check(tab: torch.Tensor, G: torch.Tensor) -> None:
     if tab.dim() != 5 or tab.shape[1] != 2 or tab.shape[3] != 3:
         raise ValueError(f"out_leg: tab must be [B, 2, nfam, 3, K], got "
@@ -36,10 +49,34 @@ def _check(tab: torch.Tensor, G: torch.Tensor) -> None:
     for name, x in (("tab", tab), ("G", G)):
         if x.dtype != torch.float64:
             raise TypeError(f"out_leg: {name} must be float64, got {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"out_leg: {name} must be contiguous")
+    if not tab.is_contiguous():
+        raise ValueError("out_leg: tab must be contiguous")
     if tab.device != G.device:
         raise ValueError("out_leg: tab and G on different devices")
+
+
+def _check_kernel_shape(tab: torch.Tensor, G: torch.Tensor) -> None:
+    """What the CUDA kernel takes beyond _check (the plain version takes
+    any layout of G)."""
+    B, _, nfam, _, K = tab.shape
+    O = G.shape[2]
+    if (G.stride(2) != 1 or G.stride(1) % 2 or G.stride(1) < O
+            or G.stride(0) % 2):
+        raise ValueError(f"out_leg: the kernel needs G with unit stride "
+                         f"along O and even row and family strides (16-byte "
+                         f"rows), got strides {G.stride()}; see "
+                         f"out_leg.padded")
+    step = build.lib().rt_out_leg_k_step()  # K split x K-step of its ring
+    if K % step or K & (K - 1):
+        raise ValueError(f"out_leg: the kernel takes K = 2np a power of two "
+                         f"and a multiple of {step}, got {K}")
+    if nfam > 65535 // 8 or B > 16 * 65535:  # grid z: nfam x K split <= 8
+        raise ValueError(f"out_leg: grid too large for B={B}, nfam={nfam}")
+    if tab.numel() >= 2**31:
+        raise ValueError("out_leg: tab too large for the kernel's 32-bit "
+                         "offsets")
+    if tab.data_ptr() % 16 or G.data_ptr() % 16:
+        raise ValueError("out_leg: tab and G must be 16-byte aligned")
 
 
 def out_leg(tab: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
@@ -50,6 +87,7 @@ def out_leg(tab: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
         return out_leg_plain(tab, G)
     if tab.device.type != "cuda":
         raise RuntimeError(f"out_leg: no kernel for device {tab.device}")
+    _check_kernel_shape(tab, G)
     B, _, nfam, _, K = tab.shape
     O = G.shape[-1]
     out = torch.empty((B, nfam, 3, 3, O), dtype=torch.float64,
@@ -58,7 +96,7 @@ def out_leg(tab: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         status = build.lib().rt_out_leg(tab.data_ptr(), G.data_ptr(),
                                         out.data_ptr(), B, nfam, K, O,
-                                        stream)
+                                        G.stride(0), G.stride(1), stream)
     build.check(status, "out_leg")
     counts.LAUNCHES["out_leg"] += 1
     return out

@@ -59,7 +59,7 @@ def test_engine_consts_bit_identical(nk):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(tf._out_columns(g), jf._out_columns(g))
     # the device pack holds exactly these arrays
-    ec = tf.engine_consts(tc)
+    ec = tf.engine_consts(tc, "cpu")
     for name in ref:
         np.testing.assert_array_equal(getattr(ec, name).numpy(), got[name])
 
@@ -109,7 +109,7 @@ def test_engine_matches_jax(nk, mode):
     jc = JCfg(nk=nk, **(DOT if mode == "matmul" else {}))
     tc = TCfg(nk=nk)
     lnP, ns = _spectra(nk)
-    ec_t = tf.engine_consts(tc)
+    ec_t = tf.engine_consts(tc, "cpu")
     P_t = tf.extend_power(tc, torch.tensor(lnP), torch.tensor(ns),
                           ec_t)
     Jw, J_lo, PZw = tf.compute_J_PZ_windowed(tc, P_t, True, ec_t)
@@ -138,7 +138,7 @@ def test_engine_matches_jax(nk, mode):
 def test_engine_without_rsd_zeroes_the_rsd_families():
     tc = TCfg(nk=32)
     lnP, ns = _spectra(32)
-    ec = tf.engine_consts(tc)
+    ec = tf.engine_consts(tc, "cpu")
     P = tf.extend_power(tc, torch.tensor(lnP), torch.tensor(ns), ec)
     J7, lo7, PZ7 = tf.compute_J_PZ_windowed(tc, P, False, ec)
     J14, lo14, PZ14 = tf.compute_J_PZ_windowed(tc, P, True, ec)
@@ -152,7 +152,7 @@ def test_extend_power_clips_the_extrapolated_log():
     """The clip(-80, 20) of the extended log spectrum binds on rejected
     trial states and decides which of them stay finite."""
     tc = TCfg(nk=32)
-    ec = tf.engine_consts(tc)
+    ec = tf.engine_consts(tc, "cpu")
     wild = torch.full((1, 3, 32), 400.0, dtype=torch.float64)
     P = tf.extend_power(tc, wild, torch.tensor([0.96], dtype=torch.float64),
                         ec)

@@ -68,6 +68,32 @@ def test_wrappers_validate_and_cpu_takes_plain():
     assert counts.snapshot() == before
 
 
+def test_engine_G_is_padded_and_plain_ignores_the_pitch():
+    """engine_consts builds G as a view of a zero-padded buffer whose row
+    pitch is a multiple of 8 f64, so the kernel reads G's rows in 16-byte
+    copies.  out_leg_plain gives the same bits on it as on a contiguous
+    copy; on the CPU the wrapper takes either, and its kernel check raises
+    on a G whose rows the kernel cannot read so: an odd row pitch (O =
+    nk+1 contiguous) or a stride along O."""
+    cfg = TCfg(nk=16)
+    G = tf.engine_consts(cfg, "cpu").G
+    K, O = 2 * cfg.npts, cfg.nk + 1
+    assert G.shape == (tf.NFAM, K, O)
+    assert G.stride() == (K * 24, 24, 1)
+    assert torch.equal(G, torch.as_tensor(tf.composite_out_matrix(cfg)))
+    assert not G.as_strided((tf.NFAM, K, 24), G.stride())[..., O:].any()
+    Gc = G.contiguous()
+    tab = torch.as_tensor(np.random.default_rng(9).standard_normal(
+        (3, 2, tf.NFAM, 3, K)))
+    ref = k1.out_leg_plain(tab, Gc)
+    assert torch.equal(k1.out_leg_plain(tab, G), ref)
+    assert torch.equal(k1.out_leg(tab, G), ref)
+    assert torch.equal(k1.out_leg(tab, Gc), ref)
+    for bad in (Gc, k1.padded(Gc[..., ::2].contiguous())[..., ::2]):
+        with pytest.raises(ValueError, match="stride"):
+            k1._check_kernel_shape(tab, bad)
+
+
 def test_probe_wrappers_validate_and_cpu_takes_plain():
     f = torch.zeros(8, dtype=torch.float32)
     i8 = torch.zeros((4, 4), dtype=torch.int8)
@@ -222,37 +248,97 @@ def test_probes_entry_point_fails_without_a_card():
     assert "OK" not in out.stdout
 
 
+# (B, nfam, 2np, O): ragged and full chunks, 1-loop's 7 families and
+# full TRG's 14, the default, v0.1 and HIGH_ACCURACY output grids
+K1_SHAPES = [(B, nfam, K, O) for B in (1, 3, 16, 33) for nfam in (7, 14)
+             for K in (1024, 4096) for O in (129, 257, 513)]
+# (B, nk, np): the default, v0.1 and HIGH_ACCURACY grids
+K2_SHAPES = [(B, nk, npts) for B in (1, 3, 16, 33)
+             for nk, npts in ((128, 512), (256, 2048), (512, 2048))]
+
+
+def _k1_bound(tab, G):
+    """2K eps (|prod| @ |G|): the forward-error bound of a K-term f64 dot
+    product, with margin 2, for any order of summation."""
+    B, _, nfam, _, K = tab.shape
+    prod = tab[:, 0, :, :, None, :] * tab[:, 1, :, None, :, :] / K
+    return 2 * K * EPS * torch.matmul(
+        prod.abs().reshape(B, nfam, 9, K), G.abs()).reshape(
+            B, nfam, 3, 3, G.shape[-1])
+
+
+def _k2_bound(T, P, kfac, nshift):
+    """2np eps (|T| @ |P|) |kfac P|: the dot product's forward-error bound
+    (the contraction cancels ~1e8 per element, so no relative bound)."""
+    nk, npts = T.shape[1:]
+    dot = torch.einsum("nim,bam->bnai", T.abs(), P.abs())
+    return (2 * npts * EPS * dot[:, :, :, None, :]
+            * (kfac * P[:, None, None, :, nshift:nshift + nk]).abs())
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain(cuda_device):
     """On the card: K1 and K2 against their plain versions at the main
-    path's shapes, within the dot-product forward-error bounds."""
+    path's shapes, within the dot-product forward-error bounds, and the
+    same bits from two calls."""
     cfg = TCfg()
     ec = tf.engine_consts(cfg, cuda_device)
     rng = np.random.default_rng(7)
     tab = torch.as_tensor(rng.standard_normal((4, 2, tf.NFAM, 3,
                                                2 * cfg.npts)),
                           device=cuda_device)
-    K = tab.shape[-1]
     before = counts.snapshot()
     J, J_ref = k1.out_leg(tab, ec.G), k1.out_leg_plain(tab, ec.G)
-    prod = tab[:, 0, :, :, None, :] * tab[:, 1, :, None, :, :] / K
-    bound = 2 * K * EPS * torch.matmul(
-        prod.abs().reshape(4, tf.NFAM, 9, K), ec.G.abs()).reshape(J.shape)
-    assert bool(((J - J_ref).abs() <= bound).all())
+    assert bool(((J - J_ref).abs() <= _k1_bound(tab, ec.G)).all())
+    assert torch.equal(J, k1.out_leg(tab, ec.G))
     lnP = torch.as_tensor(8.0 - 0.3 * rng.standard_normal((4, 3, cfg.nk)),
                           device=cuda_device)
     P = tf.extend_power(cfg, lnP, torch.full((4,), 0.96, dtype=torch.float64,
                                              device=cuda_device), ec)
-    PZ = k2.pz_leg(ec.toeplitz_sl, P, ec.pz_kfac_sl, cfg.nshift)
-    PZ_ref = k2.pz_leg_plain(ec.toeplitz_sl, P, ec.pz_kfac_sl, cfg.nshift)
-    sl = slice(cfg.nshift, cfg.nshift + cfg.nk)
-    dot = torch.einsum("nim,bam->bnai", ec.toeplitz_sl.abs(), P.abs())
-    bound = (2 * cfg.npts * EPS * dot[:, :, :, None, :]
-             * (ec.pz_kfac_sl * P[:, None, None, :, sl]).abs())
-    assert bool(((PZ - PZ_ref).abs() <= bound).all())
+    args = (ec.toeplitz_sl, P, ec.pz_kfac_sl, cfg.nshift)
+    PZ, PZ_ref = k2.pz_leg(*args), k2.pz_leg_plain(*args)
+    assert bool(((PZ - PZ_ref).abs() <= _k2_bound(*args)).all())
+    assert torch.equal(PZ, k2.pz_leg(*args))
     after = counts.snapshot()
-    assert after["out_leg"] == before["out_leg"] + 1
-    assert after["pz_leg"] == before["pz_leg"] + 1
+    assert after["out_leg"] == before["out_leg"] + 2
+    assert after["pz_leg"] == before["pz_leg"] + 2
+
+
+@pytest.mark.cuda
+def test_cuda_out_leg_shapes(cuda_device):
+    """On the card: K1 against its plain version at every shape the port
+    uses (K1_SHAPES, G padded as engine_consts pads it), bit-equal over
+    two calls; the wrapper raises on a K the kernel does not take."""
+    rng = np.random.default_rng(11)
+    for B, nfam, K, O in K1_SHAPES:
+        tab = torch.as_tensor(rng.standard_normal((B, 2, nfam, 3, K)),
+                              device=cuda_device)
+        G = k1.padded(torch.as_tensor(rng.standard_normal((nfam, K, O)),
+                                      device=cuda_device))
+        J = k1.out_leg(tab, G)
+        err = (J - k1.out_leg_plain(tab, G)).abs()
+        assert bool((err <= _k1_bound(tab, G)).all()), (B, nfam, K, O)
+        assert torch.equal(J, k1.out_leg(tab, G)), (B, nfam, K, O)
+    with pytest.raises(ValueError, match="power of two"):
+        k1.out_leg(tab[..., :768].contiguous(), G[:, :768])
+
+
+@pytest.mark.cuda
+def test_cuda_pz_leg_shapes(cuda_device):
+    """On the card: K2 against its plain version at every grid the port
+    uses (K2_SHAPES), bit-equal over two calls."""
+    rng = np.random.default_rng(12)
+    for B, nk, npts in K2_SHAPES:
+        T = torch.as_tensor(rng.standard_normal((7, nk, npts)),
+                            device=cuda_device)
+        P = torch.as_tensor(np.exp(rng.standard_normal((B, 3, npts))),
+                            device=cuda_device)
+        kfac = torch.as_tensor(rng.standard_normal(nk), device=cuda_device)
+        args = (T, P, kfac, (npts - nk) // 2)
+        PZ = k2.pz_leg(*args)
+        err = (PZ - k2.pz_leg_plain(*args)).abs()
+        assert bool((err <= _k2_bound(*args)).all()), (B, nk, npts)
+        assert torch.equal(PZ, k2.pz_leg(*args)), (B, nk, npts)
 
 
 @pytest.mark.cuda

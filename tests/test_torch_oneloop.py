@@ -77,7 +77,7 @@ def test_oneloop_cache_matches_jax(settings_kw):
     tc = TCfg(nk=NK)
     mt = state.model_from_numpy(_models())
     got = tt.build_oneloop_cache(tc, TSet(**settings_kw), mt,
-                                 tf.engine_consts(tc))
+                                 tf.engine_consts(tc, "cpu"))
     ref = _jax_caches(settings_kw.get("print_rsd", True))
     for name, g, r in zip(tt.OneLoopCache._fields, got, ref):
         g = g.numpy()
@@ -137,7 +137,7 @@ def test_oneloop_rhs_matches_jax(settings_kw):
     cache_np = _jax_caches(settings_kw.get("print_rsd", True))
     rhs_t = tt.make_rhs(tc, TSet(**settings_kw),
                         state.model_from_numpy(_models()),
-                        tf.engine_consts(tc), _port_cache(cache_np))
+                        tf.engine_consts(tc, "cpu"), _port_cache(cache_np))
     got = rhs_t(torch.full((2,), eta, dtype=torch.float64),
                 torch.tensor(ys)).numpy().reshape(2, 41, NK)
     ec = jf.engine_consts(jc, "fft")
@@ -154,7 +154,7 @@ def test_oneloop_rhs_needs_the_cache():
     tc = TCfg(nk=NK)
     with pytest.raises(ValueError, match="cache"):
         tt.make_rhs(tc, TSet(**ONE_LOOP), state.model_from_numpy(_models()),
-                    tf.engine_consts(tc))
+                    tf.engine_consts(tc, "cpu"))
 
 
 PRINT_ALL = dict(print_a=True, print_i=True, print_q=True, print_bias=True)
@@ -166,7 +166,8 @@ def _runs(print_all: bool):
     cosmos, lins = jax_batch(3, jc)
     rj = jd.run_batch(jc, JSet(**ONE_LOOP), cosmos, lins, mode="fft")
     cs, lt = port_inputs(cosmos, lins)
-    rt = td.run_batch(TCfg(nk=NK, **cfg_kw), TSet(**ONE_LOOP), cs, lt)
+    rt = td.run_batch(TCfg(nk=NK, **cfg_kw), TSet(**ONE_LOOP), cs, lt,
+                      device="cpu")
     return rj, rt
 
 

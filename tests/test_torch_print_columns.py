@@ -71,7 +71,7 @@ def _block(cfg_kw: dict, settings_kw: dict, i_eta: int) -> np.ndarray:
     b = td.build_output_block(tc, TSet(**settings_kw),
                               state.model_from_numpy(model),
                               torch.tensor(ys[i_eta])[None],
-                              Z_OUT[i_eta], engine_consts(tc))
+                              Z_OUT[i_eta], engine_consts(tc, "cpu"))
     return b[0].numpy()
 
 
@@ -104,7 +104,7 @@ def test_extended_columns_oracle(i_eta):
     A_u, _, PTjm, PMR = (x[0].numpy() for x in tt.compute_mode_coupling_full(
         tc, torch.tensor(y[0:3])[None],
         state.model_from_numpy(model).cosmo.n_s, True, torch.tensor(k),
-        engine_consts(tc)))
+        engine_consts(tc, "cpu")))
     np.testing.assert_allclose(block[:, c:c + 14], A_u.T, rtol=1e-12,
                                atol=1e-300)
     c += 14
@@ -192,7 +192,7 @@ def test_output_tables_match_jax(cfg_kw, settings_kw):
     model, ys = _evolved()
     tc = TCfg(**cfg_kw)
     got = td._finalize(tc, TSet(**settings_kw), state.model_from_numpy(model),
-                       torch.tensor(ys)[None], engine_consts(tc))
+                       torch.tensor(ys)[None], engine_consts(tc, "cpu"))
     ref = _jax_finalize(cfg_kw, settings_kw)
     tj, tt_ = np.asarray(ref.table), got.table[0].numpy()
     assert tt_.shape == tj.shape
@@ -226,7 +226,7 @@ def test_run_batch_prints_every_column():
     tc = TCfg(**CFG)
     cs = state.cosmo_from_numpy(model.cosmo)
     lin = state.linear_from_numpy(_example_inputs(JCfg(**CFG)))
-    res = td.run_batch(tc, TSet(**ONE_LOOP), cs, lin)
+    res = td.run_batch(tc, TSet(**ONE_LOOP), cs, lin, device="cpu")
     assert res.table.shape == (1, len(Z_OUT), NK, 84)
     assert len(td.finite_report(res)) == 0
     t = res.table[0].numpy()

@@ -10,6 +10,7 @@ bypass the integrator and are held to 1e-10 relative.
 """
 
 import functools
+import inspect
 import io
 
 import numpy as np
@@ -22,6 +23,7 @@ from redtime_tpu.config import RunSettings as JSet
 from redtime_tpu.config import SolverConfig as JCfg
 from redtime_tpu.io import writer as jw
 from redtime_tpu_torch import driver as td
+from redtime_tpu_torch import fastpt as tf
 from redtime_tpu_torch.config import RunSettings as TSet
 from redtime_tpu_torch.config import SolverConfig as TCfg
 from redtime_tpu_torch.io import writer as tw
@@ -37,7 +39,7 @@ def _runs():
     rj = jd.run_batch(jc, JSet(**SETTINGS), cosmos, lins, mode="fft")
     cs, _ = port_inputs(cosmos, lins)
     rt = td.run_batch(TCfg(nk=NK), TSet(**SETTINGS), cs,
-                      jax_tree_numpy(lins))
+                      jax_tree_numpy(lins), device="cpu")
     return rj, rt, (cs, jax_tree_numpy(lins))
 
 
@@ -82,10 +84,25 @@ def test_chunked_run_matches_one_batch():
     its first lane and the padding dropped.  Each lane runs its own
     controller, so chunking leaves every lane's trajectory unchanged."""
     _, rt, (cs, lins) = _runs()
-    rc = td.run_batch(TCfg(nk=NK), TSet(**SETTINGS), cs, lins, max_chunk=2)
+    rc = td.run_batch(TCfg(nk=NK), TSet(**SETTINGS), cs, lins, max_chunk=2,
+                      device="cpu")
     assert rc.table.shape == rt.table.shape
     np.testing.assert_allclose(rc.table.numpy(), rt.table.numpy(),
                                rtol=1e-12, atol=0)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """run_batch and engine_consts run on the card unless the caller asks
+    for the CPU: on a machine with no card, a call without `device`
+    raises; it never runs on the CPU."""
+    for fn in (td.run_batch, tf.engine_consts):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    _, _, (cs, lins) = _runs()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        td.run_batch(TCfg(nk=NK), TSet(**SETTINGS), cs, lins)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        tf.engine_consts(TCfg(nk=NK))
 
 
 def test_finite_report_names_a_poisoned_lane():
@@ -106,4 +123,5 @@ def test_finite_report_names_a_poisoned_lane():
 def test_run_batch_checks_settings(kw, cfg_kw, exc):
     _, _, (cs, lins) = _runs()
     with pytest.raises(exc):
-        td.run_batch(TCfg(nk=NK, **cfg_kw), TSet(**kw), cs, lins)
+        td.run_batch(TCfg(nk=NK, **cfg_kw), TSet(**kw), cs, lins,
+                     device="cpu")

@@ -69,7 +69,7 @@ def test_rhs_matches_jax(settings_kw):
     jc, tc = JCfg(nk=NK), TCfg(nk=NK)
     ys, eta = _state(settings_kw)
     mt = state.model_from_numpy(mj)
-    rhs_t = tt.make_rhs(tc, TSet(**settings_kw), mt, tf.engine_consts(tc))
+    rhs_t = tt.make_rhs(tc, TSet(**settings_kw), mt, tf.engine_consts(tc, "cpu"))
     got = rhs_t(torch.full((2,), eta, dtype=torch.float64),
                 torch.tensor(ys)).numpy().reshape(2, 41, NK)
     ec = jf.engine_consts(jc, "fft")
