@@ -2,17 +2,18 @@
 
     python3 chip_smoke.py
 
-from the root of a checkout, on a machine with a CUDA card, nvcc and
-triton.  It
+from the root of a checkout, on a machine with a CUDA card and nvcc.  It
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the CUDA kernels from redtime_tpu_torch/csrc with nvcc
-     (sm_90a), checks that K1's and K2's SASS holds FP64 tensor-core
-     instructions (DMMA, by cuobjdump), and compiles the Triton kernel;
+     (sm_90a) and checks that K1's and K2's SASS holds FP64 tensor-core
+     instructions (DMMA, by cuobjdump);
   3. checks each hand kernel against its plain PyTorch version on the card
      at the main path's shapes (nk=128, np=512, 16 lanes, inputs from a
-     seeded numpy generator; K3 at each tableau and state size the main
-     path runs it with), with the tolerances stated below, and times
+     seeded numpy generator; K3's rk_finish and rk_stage at each tableau
+     and state size the main path runs them with, bit for bit, and on
+     odd and ragged state sizes, a NaN lane, all lanes frozen and twice
+     on the same inputs), with the tolerances stated below, and times
      it, its plain version and (where one exists) one PyTorch library
      call for the same function in turns: eager, and on the device alone
      (CUDA-graph replay); each row also carries the least time the card
@@ -22,15 +23,18 @@ triton.  It
   4. checks the probe kernels K4 affine, K5 int8_dot and K6 dd_mul
      against their plain versions on the card, bit for bit, at the
      probes' shapes, at one larger shape each and on ragged sizes, and
-     times both; then runs redtime_tpu_torch.probes probe1-probe4 on the
-     card, with the launch counters reset just before and read just
-     after, and checks that K4-K6 (and K1, probe4's port) were launched;
+     times both, and an empty kernel beside them (the launch floor under
+     the probes' small shapes); then runs redtime_tpu_torch.probes
+     probe1-probe4 on the card, with the launch counters reset just
+     before and read just after, and checks that K4-K6 (and K1, probe4's
+     port) were launched;
   5. runs the main path: driver.run_batch over 16 cosmologies of the
      bench's Mira-Titan Latin-hypercube design, full Time-RG at
      SolverConfig() defaults, on the card, once untimed as set-up and
      once timed, with every launch counter reset just before the timed
-     run and read just after; checks that every table is finite, that
-     K1-K3 were launched, and that lanes 0-1 match the JAX golden
+     run and read just after (K3's split into prepare and solve);
+     checks that every table is finite, that K1-K3 (rk_stage and
+     rk_finish) were launched, and that lanes 0-1 match the JAX golden
      (tests/data/torch_port_golden_nk128.npz, written by
      scripts/gen_torch_port_golden.py) within 3e-5 of column scale, the
      linear columns and the sigma_v^2 and H headers within 1e-10
@@ -70,7 +74,7 @@ EPS = float(np.finfo(np.float64).eps)
 HBM_BYTES_S = 3.35e12
 PEAK_FP64_TC, PEAK_FP64, PEAK_FP32, PEAK_INT8_TC = 67e12, 34e12, 67e12, \
     1979e12
-MAIN_KERNELS = ("out_leg", "pz_leg", "rk_finish")
+MAIN_KERNELS = ("out_leg", "pz_leg", "rk_stage", "rk_finish")
 PROBE_KERNELS = ("affine", "int8_dot", "dd_mul")
 
 
@@ -203,58 +207,138 @@ def rk_cases(cfg) -> list:
             ("eta", "RKF45", 41 * cfg.nk, cfg.eabs_P, cfg.erel_P)]
 
 
+def rk_inputs(rng, tab, B: int, D: int, eabs: float, dev) -> list:
+    """One attempt's (y, ks, t, h, t1, n, active) from the generator."""
+    import torch
+
+    t = lambda x: torch.as_tensor(x, dtype=torch.float64, device=dev)
+    # eabs 0 divides by erel |y_new|: keep the state away from 0, as the
+    # growth state (D a_early / a, dD/da a_early) is
+    y = t(rng.standard_normal((B, D)) if eabs > 0
+          else rng.uniform(0.5, 2.0, (B, D)))
+    ks = t(rng.standard_normal((len(tab.c), B, D)))
+    tt = t(rng.uniform(0.0, 1.0, B))
+    t1 = tt + t(rng.uniform(0.05, 0.5, B))
+    # h spans rejection (large), acceptance and the final clip to t1
+    h = t(10.0 ** rng.uniform(-9.0, 0.0, B))
+    n = torch.arange(B, dtype=torch.int64, device=dev)
+    active = torch.as_tensor(rng.uniform(size=B) < 0.8, device=dev)
+    return [y, ks, tt, h, t1, n, active]
+
+
+def same_bits(a, b) -> bool:
+    """torch.equal, with NaNs in the same places counted as equal."""
+    return a.shape == b.shape and bool(
+        ((a == b) | (a.isnan() & b.isnan())).all())
+
+
 def check_rk_finish(rng, cfg, dev) -> list:
-    """K3 against its plain version on one attempt of each rk_cases entry:
-    |dy| <= 8 eps sum_j |h b_j k_j| + eps |y_out| (stage sums plus the
-    final rounding of y + h sum), r, t and h within 1e-13 relative,
-    identical accept/reject masks and attempt counts.  Each case must
-    reject some lanes and accept others."""
+    """K3's rk_finish against its plain version on one attempt of each
+    rk_cases entry, of an odd D (8-byte accesses, eight a thread) and of
+    a D whose blocks end ragged: y, t, h, n, r and the accept/reject
+    masks bit for bit (the kernel rounds every operation alone, as the
+    plain version does, and CUDA's pow, which r and h go through, is the
+    routine torch.pow runs).  Each case must reject some lanes and accept
+    others; then the same inputs a second time (the same bits), with a
+    NaN in one lane's stages (r is NaN there, as torch.amax gives it, the
+    other lanes untouched) and with every lane frozen (the state comes
+    back as it went in)."""
     import torch
 
     from redtime_tpu_torch import ode
     from redtime_tpu_torch.kernels import rk_finish as k3
 
-    t = lambda x: torch.as_tensor(x, dtype=torch.float64, device=dev)
     B = B_CHECK
+    cases = rk_cases(cfg) + [
+        ("odd D", "DOP853", 41 * cfg.nk - 1, cfg.eabs_P, cfg.erel_P),
+        ("ragged D", "DOPRI5", 3000, cfg.eabs_P, cfg.erel_P)]
     out_cases = []
-    for case, tname, D, eabs, erel in rk_cases(cfg):
+    for case, tname, D, eabs, erel in cases:
         tab = getattr(ode, tname)
-        # eabs 0 divides by erel |y_new|: keep the state away from 0, as
-        # the growth state (D a_early / a, dD/da a_early) is
-        y = t(rng.standard_normal((B, D)) if eabs > 0
-              else rng.uniform(0.5, 2.0, (B, D)))
-        ks = t(rng.standard_normal((len(tab.c), B, D)))
-        tt = t(rng.uniform(0.0, 1.0, B))
-        t1 = tt + t(rng.uniform(0.05, 0.5, B))
-        # h spans rejection (large), acceptance and the final clip to t1
-        h = t(10.0 ** rng.uniform(-9.0, 0.0, B))
-        n = torch.arange(B, dtype=torch.int64, device=dev)
-        active = torch.as_tensor(rng.uniform(size=B) < 0.8, device=dev)
-        b, e = t(tab.b), t(tab.e)
-        prm = k3.controller_params(eabs, erel, tab.order, dev)
-        args = (y, ks, tt, h, t1, n, active, b, e, prm)
-        out = k3.rk_finish(*args)
-        ref = k3.rk_finish_plain(*args)
+        consts = k3.attempt_consts(tab, eabs, erel, dev)
+        args = rk_inputs(rng, tab, B, D, eabs, dev)
+        plain = lambda a: k3.rk_finish_plain(*a, consts.b, consts.e,
+                                             consts.prm)
+        out, ref = k3.rk_finish(*args, consts), plain(args)
         what = f"rk_finish {case}"
-        h_try = torch.where(h > t1 - tt, t1 - tt, h)
-        bound = (8 * EPS * (h_try[None, :, None] * b[:, None, None] * ks)
-                 .abs().sum(0) + EPS * ref[0].abs())
-        err_y = (out[0] - ref[0]).abs()
-        check(bool((err_y <= bound).all()),
-              f"{what}: y |delta|/bound {float((err_y / bound).max()):.3g}")
-        for i, name in ((4, "r"), (1, "t"), (2, "h")):
-            rel = ((out[i] - ref[i]).abs() / ref[i].abs()).max()
-            check(float(rel) <= 1e-13, f"{what}: {name} relative {rel:.3g}")
+        for x, want, name in zip(out, ref, "ythnr"):
+            check(bool(torch.equal(x, want)),
+                  f"{what}: {name} not bit-equal to plain")
         rej = ref[4] > k3.REJECT_ABOVE
         check(bool(torch.equal(out[4] > k3.REJECT_ABOVE, rej)),
               f"{what}: accept/reject masks differ")
         check(0 < int(rej.sum()) < B,
               f"{what}: inputs must both accept and reject lanes")
-        check(bool(torch.equal(out[3], ref[3])), f"{what}: attempt counts")
-        out_cases.append(dict(case=case, tableau=tname, D=D, eabs=eabs,
-                              erel=erel, max_abs_err=float(err_y.max()),
-                              rejected=int(rej.sum()), args=args))
+        for x, again in zip(out, k3.rk_finish(*args, consts)):
+            check(bool(torch.equal(x, again)),
+                  f"{what}: two calls on the same inputs differ")
+        poisoned = list(args)
+        poisoned[1] = args[1].clone()
+        poisoned[1][len(tab.c) // 2, 1, D // 2] = float("nan")
+        got, want = k3.rk_finish(*poisoned, consts), plain(poisoned)
+        check(bool(got[4][1].isnan()) and bool(want[4][1].isnan()),
+              f"{what}: a NaN stage must give a NaN r")
+        frozen = args[:6] + [torch.zeros_like(args[6])]
+        still = k3.rk_finish(*frozen, consts)
+        for x, a, b in zip(got + still, want + plain(frozen),
+                           "ythnr" * 2):
+            check(same_bits(x, a), f"{what}: {b} differs from plain with a "
+                                   "NaN lane or with every lane frozen")
+        for i, j in ((0, 0), (1, 2), (2, 3), (3, 5)):
+            check(bool(torch.equal(still[i], args[j])),
+                  f"{what}: a frozen lane moved")
+        cl, vec = k3.cluster_plan(D, True)
+        out_cases.append(dict(
+            case=case, tableau=tname, D=D, eabs=eabs, erel=erel,
+            cluster=cl, bytes_per_access=16 if vec else 8,
+            max_abs_err=float((out[0] - ref[0]).abs().max()),
+            rejected=int(rej.sum()), args=args, consts=consts))
     return out_cases
+
+
+def check_rk_stage(rng, cfg, dev, detail: dict) -> dict:
+    """K3's rk_stage against its plain version, bit for bit, at every
+    stage index of the three tableaux and every state size of rk_cases
+    plus an odd one; timed at the eta case's stage 5 (RKF45's last).
+    Returns its row for the kernels' line."""
+    import torch
+
+    from redtime_tpu_torch import ode
+    from redtime_tpu_torch.kernels import rk_finish as k3
+
+    B = B_CHECK
+    sizes = [D for _, _, D, _, _ in rk_cases(cfg)] + [41 * cfg.nk - 1]
+    n_checked, err = 0, 0.0
+    for tname in ("RKF45", "DOPRI5", "DOP853"):
+        tab = getattr(ode, tname)
+        consts = k3.attempt_consts(tab, 0.0, 0.0, dev)
+        for D in sizes:
+            y, ks, _, h = rk_inputs(rng, tab, B, D, 1.0, dev)[:4]
+            for i in range(1, len(tab.c)):
+                out = k3.rk_stage(y, ks, h, consts, i)
+                ref = k3.rk_stage_plain(y, ks, h, consts.a[i], i)
+                err = max(err, float((out - ref).abs().max()))
+                check(bool(torch.equal(out, ref)),
+                      f"rk_stage {tname} D={D} stage {i}: not bit-equal to "
+                      "plain")
+                n_checked += 1
+    i, D = 5, sizes[2]
+    consts = k3.attempt_consts(ode.RKF45, 0.0, 0.0, dev)
+    y, ks, _, h = rk_inputs(rng, ode.RKF45, B, D, 1.0, dev)[:4]
+    a_row = consts.a[i]
+    timing, runs = measure(lambda: k3.rk_stage(y, ks, h, consts, i),
+                           lambda: k3.rk_stage_plain(y, ks, h, a_row, i))
+    detail["rk_stage_timing"] = runs
+    print(f"rk_stage: bit-equal to plain at {n_checked} (tableau, D, stage) "
+          f"cases; RKF45 stage {i} at D={D}: {timing['ms']:.4f} ms eager, "
+          f"{timing['device_ms']:.4f} ms device")
+    # y, the i rows, h and a's row in; the stage input out
+    return dict(
+        name="rk_stage", route="cuda",
+        source="redtime_tpu_torch/csrc/rk_attempt.cu",
+        replaces="redtime_tpu/ode.py:130", max_abs_err=err, **timing,
+        **least_time(8.0 * ((i + 2) * B * D + B + i),
+                     (2.0 * i + 1.0) * B * D, PEAK_FP64))
 
 
 def check_kernels(rng, detail: dict) -> list:
@@ -344,33 +428,50 @@ def check_kernels(rng, detail: dict) -> list:
         **least_time(8.0 * (T2.numel() + P2.numel() + nk + PZ.numel()),
                 2.0 * 7 * nk * 3 * B * npts, PEAK_FP64_TC)))
 
-    # K3 at each tableau the main path runs it with (rk_cases); its row
-    # is the eta case, the one the evolution runs
+    # K3 rk_finish at each tableau the main path runs it with (rk_cases);
+    # its row is the eta case, the one the evolution runs
     k3_cases = check_rk_finish(np.random.default_rng(5678), cfg, dev)
+    main_cases = {case for case, *_ in rk_cases(cfg)}
+    calls = {}
     for c in k3_cases:
-        args = c.pop("args")
-        c.update(measure(lambda: k3.rk_finish(*args),
-                         lambda: k3.rk_finish_plain(*args))[0])
+        args, consts = c.pop("args"), c.pop("consts")
+        if c["case"] not in main_cases:
+            continue
+        calls[c["case"]] = (*args, consts)
+        c.update(measure(
+            lambda: k3.rk_finish(*args, consts),
+            lambda: k3.rk_finish_plain(*args, consts.b, consts.e,
+                                       consts.prm))[0])
         y, ks = args[0], args[1]
         s, (Bc, D) = ks.shape[0], y.shape
         # y, ks, t, h, t1, n, active, b, e, prm in; y, t, h, n, r out
         c.update(least_time(8.0 * (2 * Bc * D + s * Bc * D + 8 * Bc + 2 * s + 9)
                        + Bc, 2.0 * Bc * D * (2 * s + 4), PEAK_FP64))
-        print(f"rk_finish {c['case']} ({c['tableau']}, D={c['D']}): "
+        print(f"rk_finish {c['case']} ({c['tableau']}, D={c['D']}, "
+              f"{c['cluster']} blocks a lane): "
               f"{c['ms']:.4f} ms eager, {c['device_ms']:.4f} ms device "
               f"(plain {c['plain_ms']:.4f} / {c['plain_device_ms']:.4f}), "
-              f"max |delta| {c['max_abs_err']:.3g}, {c['rejected']}/{B} "
-              "lanes rejected")
-    eta = k3_cases[-1]
+              f"y, t, h, n and r bit-equal to plain, {c['rejected']}/{B} lanes "
+              "rejected")
+    eta = next(c for c in k3_cases if c["case"] == "eta")
+    # the eta case with the lane split over fewer blocks than the wrapper
+    # chooses (one block cannot hold a lane of 41 nk)
+    eta["device_ms_by_cluster"] = {
+        cl: graph_ms(lambda: k3._launch_finish(*calls["eta"], cl, True))
+        for cl in (2, 4, 8)}
+    print(f"rk_finish eta by blocks a lane: {eta['device_ms_by_cluster']} "
+          "ms device")
     rows.append(dict(
-        name="rk_finish", route="triton",
-        source="redtime_tpu_torch/kernels/rk_finish.py",
+        name="rk_finish", route="cuda",
+        source="redtime_tpu_torch/csrc/rk_attempt.cu",
         replaces="redtime_tpu/ode.py:161",
         max_abs_err=max(c["max_abs_err"] for c in k3_cases),
         **{k: eta[k] for k in ("ms", "device_ms", "plain_ms",
                                "plain_device_ms", "library_ms", "bound_ms",
                                "bound_by", "bound_bytes", "bound_ops")}))
     detail["rk_finish_cases"] = k3_cases
+    rows.append(check_rk_stage(np.random.default_rng(8765), cfg, dev,
+                               detail))
     return rows
 
 
@@ -460,6 +561,7 @@ def check_probe_kernels(rng, detail: dict) -> list:
     import torch
 
     from redtime_tpu_torch import dd
+    from redtime_tpu_torch.kernels import build
     from redtime_tpu_torch.kernels import probes as kp
 
     dev = torch.device("cuda")
@@ -509,6 +611,15 @@ def check_probe_kernels(rng, detail: dict) -> list:
         ("dd_mul", "scripts/probe_pallas.py:78", kp.dd_mul, kp.dd_mul_plain,
          None, dd_args, cost_dd, 8 * 128, 2 ** 20, [1, 1000, 2 ** 20 + 7]),
     ]
+    # an empty kernel under the same protocol: what a launch costs on the
+    # card, the floor under the probes' [8, 128] shapes
+    stream = torch.cuda.current_stream
+    floor = float(np.median([graph_ms(lambda: build.check(
+        build.lib().rt_launch_floor(stream().cuda_stream), "launch_floor"))
+        for _ in range(3)]))
+    detail["launch_floor_ms"] = floor
+    print(f"launch floor: an empty kernel takes {floor:.5f} ms on the "
+          "device")
     rows, cases = [], []
     for (name, replaces, kern, plain, lib, make, cost, probe, large,
          ragged) in specs:
@@ -540,7 +651,8 @@ def check_probe_kernels(rng, detail: dict) -> list:
         rows.append(dict(
             name=name, route="cuda",
             source="redtime_tpu_torch/csrc/probes.cu", replaces=replaces,
-            max_abs_err=err, **timed[probe], large_shape=str(large),
+            max_abs_err=err, **timed[probe], launch_floor_ms=floor,
+            large_shape=str(large),
             **{f"large_{k}": v for k, v in big.items()}))
     detail["probe_kernel_cases"] = cases
     return rows
@@ -572,9 +684,10 @@ def run_probes(detail: dict) -> dict:
 def run_path(what: str, cfg, settings, n_design: int, golden: str,
              detail: dict, card: str):
     """n_design design cosmologies through run_batch on the card, once
-    untimed (set-up: Triton's compiles of each tableau's K3, cuBLAS and
-    allocator first use) and once timed; checks the timed run against
-    the JAX golden of lanes 0-1 and returns its launch counts."""
+    untimed (set-up: cuBLAS and allocator first use) and once timed;
+    checks the timed run against the JAX golden of lanes 0-1 and returns
+    its launch counts, with their split into run_batch's phases
+    (prepare, solve) under "by_phase"."""
     import torch
 
     from redtime_tpu_torch import driver, fastpt
@@ -607,6 +720,10 @@ def run_path(what: str, cfg, settings, n_design: int, golden: str,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts.snapshot()
+    by_phase = counts.phases()
+    for name, total in launches.items():
+        check(sum(p[name] for p in by_phase.values()) == total,
+              f"{what}: {name}'s launches by phase do not add up")
 
     bad = driver.finite_report(res)
     check(len(bad) == 0, f"{what}: non-finite lanes {list(bad)}")
@@ -633,12 +750,13 @@ def run_path(what: str, cfg, settings, n_design: int, golden: str,
     detail[what] = dict(setup_s=setup, wall_s=wall, cosmologies=n_design,
                         cosmologies_per_min=per_min,
                         golden_dev_col_scale=dev_col,
-                        golden_dev_linear_rel=dev_lin, launches=launches)
+                        golden_dev_linear_rel=dev_lin, launches=launches,
+                        launches_by_phase=by_phase)
     print(f"{what} path on {card}: {n_design} cosmologies, nk={cfg.nk}, "
           f"{wall:.3f} s = {per_min:.2f} cosmologies/min; lanes 0-1 vs "
           f"JAX golden {dev_col:.3g} of column scale, linear "
-          f"{dev_lin:.3g}; launches {launches}")
-    return res, launches
+          f"{dev_lin:.3g}; launches {launches}; by phase {by_phase}")
+    return res, dict(launches, by_phase=by_phase)
 
 
 def run_main_path(detail: dict, card: str) -> dict:
@@ -678,7 +796,7 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from redtime_tpu_torch.kernels import build, rk_finish as k3
+    from redtime_tpu_torch.kernels import build
 
     card = card_line()
     print(f"card: {card}")
@@ -691,10 +809,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = build.build()
     build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    k3._kernel()
-    print(f"build: nvcc {build_s:.3f} s ({lib.name}); triton import "
-          f"{time.perf_counter() - t0:.3f} s")
+    print(f"build: nvcc {build_s:.3f} s ({lib.name})")
     detail["build"] = dict(build.BUILD_LOG, wall_s=build_s)
     check_tensor_cores(lib, detail)
 
@@ -717,6 +832,9 @@ def main() -> int:
     for r in rows:
         r["launches_by_path"] = {k: p[r["name"]] for k, p in phases.items()}
         r["launches"] = sum(r["launches_by_path"].values())
+        r["launches_by_phase"] = {
+            k: {ph: n[r["name"]] for ph, n in p["by_phase"].items()}
+            for k, p in phases.items() if "by_phase" in p}
     detail["kernels"] = rows
     os.makedirs(os.path.dirname(DETAIL), exist_ok=True)
     with open(DETAIL, "w") as f:

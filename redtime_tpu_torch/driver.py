@@ -24,6 +24,7 @@ from redtime_tpu_torch.fastpt import device_of, engine_consts
 from redtime_tpu_torch.grids import make_grids
 from redtime_tpu_torch.io.camb import LinearData
 from redtime_tpu_torch.io.params import ParamsFile
+from redtime_tpu_torch.kernels import counts
 from redtime_tpu_torch.state import linear_from_numpy
 
 F64 = torch.float64
@@ -275,7 +276,9 @@ def run_batch(cfg: SolverConfig, settings: RunSettings, cs: CosmoParams,
             LinearData(*[_take(x, i0, size) for x in lin_np]), device)
         cnrm = None if nrm_np is None else _take(nrm_np, i0, size)
         m = mdl.prepare_model(cfg, ccs, clin, norm_override=cnrm)
+        counts.mark("prepare")
         outs.append(solve(cfg, settings, m, ec))
+        counts.mark("solve")
     return RunResult(*[torch.cat(xs, dim=0)[:n] for xs in zip(*outs)])
 
 

@@ -4,8 +4,9 @@
                   output leg, J = (tab_a * tab_b / 2np) @ G;
   * `pz_leg`    — K2, CUDA C++ (csrc/pz_leg.cu): the Z-kernel Toeplitz
                   contraction with its outer-factor epilogue;
-  * `rk_finish` — K3, Triton: the tail of one RK attempt with the GSL
-                  step controller;
+  * `rk_finish` — K3, CUDA C++ (csrc/rk_attempt.cu): `rk_stage`, one
+                  stage input of an RK attempt, and `rk_finish`, the
+                  attempt's tail with the GSL step controller;
   * `probes`    — K4 `affine`, K5 `int8_dot`, K6 `dd_mul`, CUDA C++
                   (csrc/probes.cu): the Pallas feasibility probes P1-P3.
 

@@ -1,8 +1,9 @@
 """Build and load the CUDA C++ kernels.
 
 The sources in `redtime_tpu_torch/csrc/` have a plain C interface and are
-compiled by `nvcc` for Hopper (`sm_90a`) into one shared library, loaded
-with ctypes.  The library is built at first use into
+compiled by `nvcc` for Hopper (`sm_90a`), one `nvcc` per source and all
+of them at once, then linked into one shared library, loaded with
+ctypes.  The library is built at first use into
 `build/redtime_tpu_torch/` at the repository root, under a name that
 carries the hash of the sources and flags, so an edited source rebuilds
 and an unchanged one is reused.
@@ -27,7 +28,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "redtime_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib: ctypes.CDLL | None = None
 BUILD_LOG: dict = {}
@@ -68,19 +69,37 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG.update(seconds=time.perf_counter() - t0,
-                     command=" ".join(cmd), output=proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{BUILD_LOG['output']}")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [(p, os.path.join(tmp, p.stem + ".o"))
+                for p in _sources() if p.suffix == ".cu"]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(p), "-o", o]
+                for p, o in objs]
+        # nvcc's output goes to files: a full pipe would block one nvcc
+        # while another is waited for
+        procs = []
+        for c, (_, o) in zip(cmds, objs):
+            with open(o + ".log", "w") as log:
+                procs.append(subprocess.Popen(c, stdout=log,
+                                              stderr=subprocess.STDOUT))
+        for proc in procs:
+            proc.wait()
+        logs = [Path(o + ".log").read_text() for _, o in objs]
+        lib_tmp = os.path.join(tmp, "lib.so")
+        cmds.append([nvcc, "-shared", "-o", lib_tmp, *[o for _, o in objs]])
+        failed = [proc.returncode for proc in procs if proc.returncode]
+        if not failed:
+            link = subprocess.run(cmds[-1], capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            failed = [link.returncode] if link.returncode else []
+        BUILD_LOG.update(seconds=time.perf_counter() - t0,
+                         command="\n".join(" ".join(c) for c in cmds),
+                         output="".join(logs))
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n"
+                               f"{BUILD_LOG['output']}")
+        os.replace(lib_tmp, out)
     return out
 
 
@@ -105,6 +124,12 @@ def lib() -> ctypes.CDLL:
         handle.rt_int8_dot.restype = i
         handle.rt_dd_mul.argtypes = [p, p, p, p, p, p, n, p]
         handle.rt_dd_mul.restype = i
+        handle.rt_launch_floor.argtypes = [p]
+        handle.rt_launch_floor.restype = i
+        handle.rt_rk_finish.argtypes = [p] * 13 + [i] * 6 + [p]
+        handle.rt_rk_finish.restype = i
+        handle.rt_rk_stage.argtypes = [p] * 5 + [i] * 5 + [p]
+        handle.rt_rk_stage.restype = i
         _lib = handle
     return _lib
 

@@ -18,8 +18,9 @@ Every lane of a batch runs its own controller (its own t, h, attempt
 count and error norm over its own state), exactly as the JAX package's
 vmapped `lax.while_loop` does; lanes that reached t1 stay frozen.  There
 is one controller attempt (`attempt`), shared by the growth tables and
-the eta evolution; its tail is the hand kernel K3
-(kernels.rk_finish).
+the eta evolution; the hand kernel K3 (kernels.rk_finish) forms each stage
+input (`rk_stage`) and finishes the attempt (`rk_finish`), so an attempt's
+own arithmetic is one launch per stage and one for its tail.
 """
 
 from __future__ import annotations
@@ -29,7 +30,9 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from redtime_tpu_torch.kernels.rk_finish import controller_params, rk_finish
+from redtime_tpu_torch.kernels.rk_finish import (AttemptConsts,
+                                                 attempt_consts, rk_finish,
+                                                 rk_stage)
 
 # Attempts between two host checks for a still-running lane.  Each check
 # waits for the device; attempts on finished lanes are no-ops, so the
@@ -107,40 +110,19 @@ def _dop853_tableau() -> Tableau:
 DOP853 = _dop853_tableau()
 
 
-class _Consts(NamedTuple):
-    """A tableau's weights and the controller scalars on one device."""
-
-    b: torch.Tensor
-    e: torch.Tensor
-    prm: torch.Tensor
-
-
-def _consts(tab: Tableau, eps_abs: float, eps_rel: float,
-            device) -> _Consts:
-    t = lambda x: torch.as_tensor(np.asarray(x, dtype=np.float64),
-                                  device=device)
-    return _Consts(t(tab.b), t(tab.e),
-                   controller_params(eps_abs, eps_rel, tab.order, device))
-
-
-def rk_stages(rhs: Callable, t, h, y, tab: Tableau):
+def rk_stages(rhs: Callable, t, h, y, consts: AttemptConsts):
     """The s stage derivatives of one embedded RK step, stacked [s, B, D].
 
     y [B, D] flat; t, h [B].  rhs(t [B], y [B, D]) -> [B, D].  Stage i is
     evaluated at t + c_i h on y + h sum_{j<i} a_ij k_j (the JAX package's
-    full-row tensordot adds only exact zeros beyond j < i)."""
-    s = len(tab.c)
+    full-row tensordot adds only exact zeros beyond j < i); K3's rk_stage
+    forms that input in one launch."""
+    s = consts.s
     ks = torch.empty((s,) + tuple(y.shape), dtype=y.dtype, device=y.device)
-    hy = h[:, None]
+    ts = t + consts.c * h                      # [s, B]: every stage time
     for i in range(s):
-        if i == 0:
-            yi = y
-        else:
-            acc = float(tab.a[i, 0]) * ks[0]
-            for j in range(1, i):
-                acc = acc + float(tab.a[i, j]) * ks[j]
-            yi = y + hy * acc
-        ks[i] = rhs(t + float(tab.c[i]) * h, yi)
+        yi = y if i == 0 else rk_stage(y, ks, h, consts, i)
+        ks[i] = rhs(ts[i], yi)
     return ks
 
 
@@ -148,7 +130,7 @@ def rk_step(rhs: Callable, t, h, y, tab: Tableau):
     """One embedded RK step on every lane: returns (y_new, yerr).
 
     y [B, D]; t, h [B].  Sums stages in index order."""
-    ks = rk_stages(rhs, t, h, y, tab)
+    ks = rk_stages(rhs, t, h, y, attempt_consts(tab, 0.0, 0.0, y.device))
     hy = h[:, None]
     acc_b, acc_e = float(tab.b[0]) * ks[0], float(tab.e[0]) * ks[0]
     for j in range(1, len(tab.c)):
@@ -157,8 +139,7 @@ def rk_step(rhs: Callable, t, h, y, tab: Tableau):
     return y + hy * acc_b, hy * acc_e
 
 
-def attempt(rhs: Callable, t, h, y, t1, n, active, tab: Tableau,
-            consts: _Consts):
+def attempt(rhs: Callable, t, h, y, t1, n, active, consts: AttemptConsts):
     """One controller attempt on every lane (frozen where not active).
 
     The step is clipped to the interval end (final = h > t1 - t, the
@@ -166,9 +147,8 @@ def attempt(rhs: Callable, t, h, y, t1, n, active, tab: Tableau,
     clipped step and K3 finishes the attempt.  Returns (y, t, h, n, r)."""
     dt = t1 - t
     h_try = torch.where(h > dt, dt, h)
-    ks = rk_stages(rhs, t, h_try, y, tab)
-    return rk_finish(y, ks, t, h, t1, n, active, consts.b, consts.e,
-                     consts.prm)
+    ks = rk_stages(rhs, t, h_try, y, consts)
+    return rk_finish(y, ks, t, h, t1, n, active, consts)
 
 
 def lane_values(x, B: int, device) -> torch.Tensor:
@@ -206,7 +186,8 @@ def integrate_interval(rhs: Callable, t0, t1, y0: torch.Tensor, h0,
     t1v = lane_values(t1, B, dev).contiguous()
     h = lane_values(h0, B, dev).contiguous()
     n = torch.zeros(B, dtype=torch.int64, device=dev)
-    consts = _consts(tab, eps_abs, eps_rel, dev)
+    # validated once here, trusted by every attempt below
+    consts = attempt_consts(tab, eps_abs, eps_rel, dev)
 
     def flat_rhs(tt, yy):
         return rhs(tt, yy.reshape(shape)).reshape(B, -1)
@@ -217,7 +198,7 @@ def integrate_interval(rhs: Callable, t0, t1, y0: torch.Tensor, h0,
     active = running()
     while bool(active.any()):
         for _ in range(CHECK_EVERY):
-            y, t, h, n, _ = attempt(flat_rhs, t, h, y, t1v, n, active, tab,
+            y, t, h, n, _ = attempt(flat_rhs, t, h, y, t1v, n, active,
                                     consts)
             active = running()
     y = torch.where((t >= t1v)[:, None], y, torch.full_like(y, np.nan))

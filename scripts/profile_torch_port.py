@@ -15,9 +15,12 @@ redshifts), and measures:
   * one RHS evaluation at the cell's lanes and its pieces (extend_power,
     the windowed engine, assemble, omega_matrix): host clock over 20
     calls and CUDA events over 20 calls;
-  * torch.profiler over the first output interval of the evolution: the
-    count of device kernels, the device's busy time and its idle share of
-    the profiled wall, and the top device kernels.
+  * torch.profiler over one RHS evaluation and over one controller
+    attempt: the device kernels of each, and so the kernels an attempt
+    launches outside its RHS evaluations;
+  * torch.profiler over prepare_model and over the first output interval
+    of the evolution: the count of device kernels, the device's busy time
+    and its idle share of the profiled wall, and the top device kernels.
 
 Prints each result and writes them all as JSON to PATH (default
 chiprun_out/profile_torch_port[_oneloop].json).  Imports nothing of JAX.
@@ -45,7 +48,8 @@ from redtime_tpu_torch.config import (CosmoParams, RunSettings,  # noqa: E402
 from redtime_tpu_torch.grids import make_grids  # noqa: E402
 from redtime_tpu_torch.io.camb import LinearData  # noqa: E402
 from redtime_tpu_torch.kernels import build, counts  # noqa: E402
-from redtime_tpu_torch.ode import integrate_interval  # noqa: E402
+from redtime_tpu_torch.kernels.rk_finish import attempt_consts  # noqa: E402
+from redtime_tpu_torch.ode import attempt, integrate_interval  # noqa: E402
 
 
 def sync() -> None:
@@ -64,7 +68,7 @@ def host_ms(fn, n: int = 20) -> float:
 
 
 def phases(cfg, settings, cs, lins, ec, out: dict) -> tuple:
-    model.prepare_model(cfg, cs, lins)       # warm-up: Triton, allocator
+    model.prepare_model(cfg, cs, lins)       # warm-up: cuBLAS, allocator
     sync()
     for rep in range(2):
         counts.reset()
@@ -120,35 +124,74 @@ def rhs_pieces(cfg, settings, m, ys, cs, ec, out: dict) -> None:
     print(out["rhs_ms"])
 
 
-def profile_first_interval(cfg, settings, m, ec, out: dict) -> None:
+def device_profile(fn) -> dict:
+    """torch.profiler over fn(): wall, the device's busy time and idle
+    share, the count of device kernels and the 15 largest."""
     from torch.profiler import ProfilerActivity, profile
 
-    rhs = _rhs(cfg, settings, m, ec)
-    y0 = trg.initial_state(cfg, settings, m)
-    t1 = float(settings.etasteps()[0])
-    h0 = 1e-2 * float(np.log(1.0 / settings.a_in))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: prepare alone launches ~700,000 kernels, and
+    # a record of every host operator beside them takes minutes to sum
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, _, n = integrate_interval(rhs, 0.0, t1, y0, h0, cfg.eabs_P,
-                                     cfg.erel_P, trg.eta_tableau(cfg),
-                                     return_stats=True)
+        fn()
         sync()
         wall = time.perf_counter() - t0
-    ka = prof.key_averages()
-    cuda = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+    cuda = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in cuda) / 1e6
-    out["profile_first_interval"] = dict(
+    return dict(
         wall_s=wall, device_busy_s=busy, device_idle_share=1.0 - busy / wall,
         device_kernel_count=sum(e.count for e in cuda),
-        attempts=n.tolist(),
         top_kernels=[dict(name=e.key[:120], count=e.count,
                           device_ms=e.self_device_time_total / 1e3)
                      for e in sorted(cuda, key=lambda e:
                                      -e.self_device_time_total)[:15]])
-    print({k: v for k, v in out["profile_first_interval"].items()
-           if k != "top_kernels"})
-    print(ka.table(sort_by="self_device_time_total", row_limit=20))
+
+
+def _show(name: str, prof: dict) -> None:
+    print(name, {k: v for k, v in prof.items() if k != "top_kernels"})
+    for k in prof["top_kernels"][:8]:
+        print(f"    {k['device_ms']:10.3f} ms {k['count']:8d}  {k['name']}")
+
+
+def profile_attempt(cfg, settings, m, ys, ec, out: dict) -> None:
+    """Device kernels of one RHS evaluation and of one controller attempt
+    of the evolution; the difference to s evaluations is what the attempt
+    launches outside its RHS (stage inputs, stage times, the tail)."""
+    dev = ys.device
+    B = ys.shape[0]
+    rhs = _rhs(cfg, settings, m, ec)
+    y = ys[:, 3].reshape(B, -1).contiguous()
+    tab = trg.eta_tableau(cfg)
+    consts = attempt_consts(tab, cfg.eabs_P, cfg.erel_P, dev)
+    f64 = dict(dtype=torch.float64, device=dev)
+    t, h, t1 = (torch.full((B,), v, **f64) for v in (3.0, 1e-2, 3.5))
+    n = torch.zeros(B, dtype=torch.int64, device=dev)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    one = lambda: attempt(rhs, t, h, y, t1, n, active, consts)
+    one()
+    per_rhs = device_profile(lambda: rhs(t, y))["device_kernel_count"]
+    per_attempt = device_profile(one)["device_kernel_count"]
+    out["kernels"] = dict(
+        per_rhs=per_rhs, per_attempt=per_attempt, stages=consts.s,
+        per_attempt_outside_rhs=per_attempt - consts.s * per_rhs)
+    print("device kernels", out["kernels"])
+
+
+def profile_phases(cfg, settings, m, cs, lins, ec, out: dict) -> None:
+    out["profile_prepare"] = device_profile(
+        lambda: model.prepare_model(cfg, cs, lins))
+    _show("prepare", out["profile_prepare"])
+    rhs = _rhs(cfg, settings, m, ec)
+    y0 = trg.initial_state(cfg, settings, m)
+    t1 = float(settings.etasteps()[0])
+    h0 = 1e-2 * float(np.log(1.0 / settings.a_in))
+    attempts = []
+    prof = device_profile(lambda: attempts.append(integrate_interval(
+        rhs, 0.0, t1, y0, h0, cfg.eabs_P, cfg.erel_P, trg.eta_tableau(cfg),
+        return_stats=True)[2].tolist()))
+    out["profile_first_interval"] = dict(prof, attempts=attempts[0])
+    _show("first interval", out["profile_first_interval"])
 
 
 def main() -> int:
@@ -185,7 +228,8 @@ def main() -> int:
 
     m, ys = phases(cfg, settings, cs, lins, ec, out)
     rhs_pieces(cfg, settings, m, ys, cs, ec, out)
-    profile_first_interval(cfg, settings, m, ec, out)
+    profile_attempt(cfg, settings, m, ys, ec, out)
+    profile_phases(cfg, settings, m, cs, lins, ec, out)
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(out, f, indent=1)

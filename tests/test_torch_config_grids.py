@@ -81,15 +81,22 @@ def test_config_rejects_what_the_port_does_not_run(kw):
 
 
 def test_import_leaves_jax_out():
-    """The port never imports JAX, directly or through the JAX package."""
-    code = ("import sys, pkgutil, importlib, redtime_tpu_torch\n"
+    """The port never imports JAX, directly or through the JAX package,
+    nor Triton (every hand kernel is CUDA C++), and no source of the
+    package has an import of either."""
+    code = ("import sys, pkgutil, importlib, pathlib, re, redtime_tpu_torch\n"
             "for m in pkgutil.walk_packages(redtime_tpu_torch.__path__,"
             " 'redtime_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
-            "bad = [m for m in sys.modules if m == 'jax'"
-            " or m.startswith(('jax.', 'redtime_tpu.'))"
-            " or m == 'redtime_tpu']\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in"
+            " ('jax', 'jaxlib', 'triton', 'redtime_tpu')]\n"
             "assert not bad, bad\n"
+            "pat = re.compile(r'^\\s*(import|from)\\s+(jax|triton|"
+            "redtime_tpu)\\b', re.M)\n"
+            "root = pathlib.Path(redtime_tpu_torch.__path__[0])\n"
+            "hits = [str(p) for p in root.rglob('*.py')"
+            " if pat.search(p.read_text())]\n"
+            "assert not hits, hits\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)

@@ -8,9 +8,10 @@ none:
 On the CPU every wrapper takes its plain version and counts no launch; a
 tensor on any other device never reaches the plain version.  On the card
 each kernel is held to its plain version: K1 and K2 within the f64
-dot-product forward-error bound (they sum in another order), K3 to 1e-13
-relative (its FMA contraction is off, so it rounds as the plain version
-does), K4-K6 bit for bit.
+dot-product forward-error bound (they sum in another order), K3
+(rk_finish and rk_stage, which round every operation alone as their plain
+versions do; CUDA's pow is the routine torch.pow runs) and K4-K6 bit for
+bit.
 """
 
 import os
@@ -138,17 +139,16 @@ def test_probe_wrappers_raise_off_the_cpu_without_a_kernel():
         kp.dd_mul(f, f, f, f)
 
 
-def _rk_args(B, D, rng, device):
+def _rk_args(B, D, rng, device, tab=tode.RKF45):
+    """One attempt's (y, ks, t, h, t1, n, active) and its constants."""
     t_ = lambda x: torch.as_tensor(x, dtype=torch.float64, device=device)
-    tab = tode.RKF45
     tt = t_(rng.uniform(0, 1, B))
-    return (t_(rng.standard_normal((B, D))),
+    return [t_(rng.standard_normal((B, D))),
             t_(rng.standard_normal((len(tab.c), B, D))), tt,
             t_(10.0 ** rng.uniform(-9, 0, B)), tt + 0.3,
             torch.zeros(B, dtype=torch.int64, device=device),
-            torch.tensor([True] * (B - 1) + [False], device=device),
-            t_(tab.b), t_(tab.e),
-            k3.controller_params(1e-7, 1e-2, tab.order, device))
+            torch.tensor([True] * (B - 1) + [False], device=device)], \
+        k3.attempt_consts(tab, 1e-7, 1e-2, device)
 
 
 def test_wrappers_raise_off_the_cpu_without_a_kernel():
@@ -163,9 +163,127 @@ def test_wrappers_raise_off_the_cpu_without_a_kernel():
         k2.pz_leg(torch.empty((7, 4, 16), **f64),
                   torch.empty((1, 3, 16), **f64), torch.empty(4, **f64), 6)
     rng = np.random.default_rng(0)
-    args = [x.to(meta) for x in _rk_args(2, 8, rng, "cpu")]
+    args = [x.to(meta) for x in _rk_args(2, 8, rng, "cpu")[0]]
+    consts = k3.attempt_consts(tode.RKF45, 1e-7, 1e-2, meta)
     with pytest.raises(RuntimeError, match="no kernel"):
-        k3.rk_finish(*args)
+        k3.rk_finish(*args, consts)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        k3.rk_stage(args[0], args[1], args[3], consts, 3)
+
+
+def test_rk_wrappers_validate_and_cpu_takes_plain():
+    """rk_finish and rk_stage check the tensors a call hands them (shape,
+    dtype, layout, device against the constants') and take their plain
+    versions on the CPU without counting a launch; the constants are
+    validated where they are made."""
+    args, consts = _rk_args(3, 8, np.random.default_rng(1), "cpu")
+    y, ks, t, h, t1, n, active = args
+    before = counts.snapshot()
+    for got, ref in zip(k3.rk_finish(*args, consts),
+                        k3.rk_finish_plain(*args, consts.b, consts.e,
+                                           consts.prm)):
+        assert torch.equal(got, ref)
+    assert torch.equal(k3.rk_stage(y, ks, h, consts, 4),
+                       k3.rk_stage_plain(y, ks, h, consts.a[4], 4))
+    assert counts.snapshot() == before
+    bad_finish = [
+        (ValueError, dict(y=y[:, :4])), (ValueError, dict(ks=ks[:5])),
+        (ValueError, dict(y=y.t().contiguous().t())),
+        (TypeError, dict(y=y.float())), (TypeError, dict(h=h.float())),
+        (ValueError, dict(t1=t1[:2])), (TypeError, dict(n=n.int())),
+        (TypeError, dict(active=active.to(torch.uint8))),
+        (ValueError, dict(y=y[0]))]
+    names = ("y", "ks", "t", "h", "t1", "n", "active")
+    for err, change in bad_finish:
+        with pytest.raises(err):
+            k3.rk_finish(*[change.get(k, x) for k, x in zip(names, args)],
+                         consts)
+    with pytest.raises(TypeError, match="attempt_consts"):
+        k3.rk_finish(*args, (consts.b, consts.e, consts.prm))
+    for i in (0, 6, -1):
+        with pytest.raises(ValueError, match="stage index"):
+            k3.rk_stage(y, ks, h, consts, i)
+    with pytest.raises(ValueError):
+        k3.rk_stage(y, ks[:, :2], h, consts, 2)
+    with pytest.raises(TypeError):
+        k3.rk_stage(y, ks, h.float(), consts, 2)
+    # the kernels take the solver's three stage counts only
+    four = tode.Tableau(c=np.zeros(4), a=np.tril(np.ones((4, 4)), -1),
+                        b=np.ones(4), e=np.ones(4), order=4)
+    with pytest.raises(ValueError, match="stages"):
+        k3._check_kernel_shape("rk_finish", y,
+                               k3.attempt_consts(four, 0.0, 1e-3, "cpu"))
+    with pytest.raises(ValueError, match="lower triangular"):
+        k3.attempt_consts(four._replace(a=np.ones((4, 4))), 0.0, 1e-3, "cpu")
+    with pytest.raises(ValueError):
+        k3.attempt_consts(four._replace(e=np.ones(3)), 0.0, 1e-3, "cpu")
+
+
+@pytest.mark.parametrize("tab", ["RKF45", "DOPRI5", "DOP853"])
+def test_attempt_consts_hold_the_tableau(tab):
+    """One upload carries a, b, e, c and the controller's scalars, each
+    bit-equal to its source."""
+    tab = getattr(tode, tab)
+    consts = k3.attempt_consts(tab, 1e-7, 1e-2, "cpu")
+    s = len(tab.c)
+    assert consts.s == s and consts.device == torch.device("cpu")
+    for got, ref in ((consts.a, tab.a), (consts.b, tab.b), (consts.e, tab.e),
+                     (consts.c, tab.c[:, None])):
+        assert got.is_contiguous() and got.dtype == torch.float64
+        np.testing.assert_array_equal(got.numpy(), ref)
+    assert torch.equal(consts.prm,
+                       k3.controller_params(1e-7, 1e-2, tab.order, "cpu"))
+    np.testing.assert_array_equal(
+        consts.host, np.concatenate([tab.b, tab.e, consts.prm.numpy()]))
+    assert consts.host_ptr == consts.host.ctypes.data
+    with pytest.raises(AttributeError):
+        consts.s = 3
+
+
+# (D, rows 16-byte aligned) -> (blocks a lane, 16-byte accesses): the
+# growth states stay in one block, the nk=128 eta state takes eight
+CLUSTER_PLANS = [(2, True, 1, True), (102, True, 1, True),
+                 (1024, True, 1, True), (1026, True, 2, True),
+                 (3000, True, 4, True), (5248, True, 8, True),
+                 (5248, False, 8, False), (5247, True, 8, False),
+                 (41 * 512, True, 8, True), (511, True, 1, False)]
+
+
+@pytest.mark.parametrize("D,aligned,cl,vec", CLUSTER_PLANS)
+def test_cluster_plan(D, aligned, cl, vec):
+    assert k3.cluster_plan(D, aligned) == (cl, vec)
+    assert cl in k3.CLUSTER_SIZES
+
+
+def test_cluster_plan_refuses_what_a_cluster_cannot_hold():
+    k3.cluster_plan(2 * 8 * 2048, True)
+    with pytest.raises(ValueError, match="blocks"):
+        k3.cluster_plan(2 * 8 * 2048 + 2, True)
+    with pytest.raises(ValueError, match="blocks"):
+        k3.cluster_plan(8 * 2048 + 1, False)
+
+
+def test_launch_counts_by_phase():
+    """counts.mark books the launches since the last mark to a phase;
+    reset clears the phases too."""
+    counts.reset()
+    try:
+        counts.LAUNCHES["rk_finish"] += 3
+        counts.mark("prepare")
+        counts.LAUNCHES["rk_finish"] += 2
+        counts.LAUNCHES["out_leg"] += 1
+        counts.mark("solve")
+        counts.LAUNCHES["rk_finish"] += 1
+        counts.mark("prepare")
+        by_phase = counts.phases()
+        assert by_phase["prepare"]["rk_finish"] == 4
+        assert by_phase["solve"]["rk_finish"] == 2
+        assert by_phase["solve"]["out_leg"] == 1
+        assert by_phase["prepare"]["out_leg"] == 0
+        assert counts.snapshot()["rk_finish"] == 6
+    finally:
+        counts.reset()
+    assert counts.phases() == {} and not any(counts.snapshot().values())
 
 
 def test_rk_finish_plain_controller_and_frozen_lanes():
@@ -184,12 +302,9 @@ def test_rk_finish_plain_controller_and_frozen_lanes():
     t1 = torch.tensor([1.0, 1.0, 0.2, 1.0], dtype=torch.float64)
     n = torch.zeros(B, dtype=torch.int64)
     active = torch.tensor([True, True, True, False])
-    tab = tode.RKF45
-    prm = k3.controller_params(1e-7, 1e-2, tab.order, "cpu")
+    consts = k3.attempt_consts(tode.RKF45, 1e-7, 1e-2, "cpu")
     before = counts.snapshot()
-    y2, t2, h2, n2, r = k3.rk_finish(
-        y, ks, t, h, t1, n, active, torch.tensor(tab.b), torch.tensor(tab.e),
-        prm)
+    y2, t2, h2, n2, r = k3.rk_finish(y, ks, t, h, t1, n, active, consts)
     assert counts.snapshot() == before
     assert float(r[0]) > 1.1 and float(t2[0]) == 0.0
     assert torch.equal(y2[0], y[0]) and float(h2[0]) < 0.1
@@ -341,15 +456,59 @@ def test_cuda_pz_leg_shapes(cuda_device):
         assert torch.equal(PZ, k2.pz_leg(*args)), (B, nk, npts)
 
 
+# (tableau, D): the main path's states (growth ramp, growth segments,
+# eta at nk=128), an odd D (8-byte accesses, eight a thread), a ragged
+# one and the nk=512 state (eight 16-byte accesses a thread)
+RK_SHAPES = [("DOP853", 2), ("DOPRI5", 102), ("RKF45", 41 * 128),
+             ("DOP853", 41 * 128 - 1), ("DOPRI5", 3000),
+             ("RKF45", 41 * 512)]
+
+
 @pytest.mark.cuda
 def test_cuda_rk_finish_matches_plain(cuda_device):
-    """On the card: the Triton kernel against the plain version."""
-    args = _rk_args(8, 41 * 32, np.random.default_rng(3), cuda_device)
-    before = counts.LAUNCHES["rk_finish"]
-    out, ref = k3.rk_finish(*args), k3.rk_finish_plain(*args)
-    assert counts.LAUNCHES["rk_finish"] == before + 1
-    for a, b in zip(out, ref):
-        torch.testing.assert_close(a, b, rtol=1e-13, atol=0)
+    """On the card: K3's rk_finish against the plain version at
+    RK_SHAPES: y, t, h, n and r bit for bit; the same bits from two
+    calls; a NaN stage gives a NaN r in its lane alone, the rest still
+    bit for bit; frozen lanes stay."""
+    rng = np.random.default_rng(3)
+    for name, D in RK_SHAPES:
+        args, consts = _rk_args(8, D, rng, cuda_device, getattr(tode, name))
+        plain = lambda a: k3.rk_finish_plain(*a, consts.b, consts.e,
+                                             consts.prm)
+        before = counts.LAUNCHES["rk_finish"]
+        out, ref = k3.rk_finish(*args, consts), plain(args)
+        assert counts.LAUNCHES["rk_finish"] == before + 1
+        for i, (a, b) in enumerate(zip(out, ref)):
+            assert torch.equal(a, b), (name, D, i)
+        for a, b in zip(out, k3.rk_finish(*args, consts)):
+            assert torch.equal(a, b), (name, D)
+        assert torch.equal(out[0][-1], args[0][-1])     # the frozen lane
+        args[1][2, 1, D // 2] = float("nan")
+        out, ref = k3.rk_finish(*args, consts), plain(args)
+        assert torch.equal(out[4].isnan(), ref[4].isnan())
+        assert out[4].isnan().tolist() == [False, True] + [False] * 6
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    with pytest.raises(ValueError, match="blocks"):
+        k3.rk_finish(*_rk_args(1, 2 * 8 * 2048 + 2, rng, cuda_device)[0],
+                     consts)
+
+
+@pytest.mark.cuda
+def test_cuda_rk_stage_equals_plain(cuda_device):
+    """On the card: K3's rk_stage against its plain version, bit for bit,
+    at every stage index of RK_SHAPES' tableaux; one launch counted per
+    call."""
+    rng = np.random.default_rng(4)
+    for name, D in RK_SHAPES:
+        (y, ks, _, h, *_), consts = _rk_args(8, D, rng, cuda_device,
+                                            getattr(tode, name))
+        before = counts.LAUNCHES["rk_stage"]
+        for i in range(1, consts.s):
+            assert torch.equal(
+                k3.rk_stage(y, ks, h, consts, i),
+                k3.rk_stage_plain(y, ks, h, consts.a[i], i)), (name, D, i)
+        assert counts.LAUNCHES["rk_stage"] == before + consts.s - 1
 
 
 PROBE_SIZES = [1, 8 * 128, 1000, 2 ** 20 + 3]
@@ -368,6 +527,9 @@ def test_cuda_probe_kernels_equal_plain(cuda_device):
         return torch.as_tensor((rng.standard_normal(n) * np.exp(
             rng.uniform(-8, 8, n))).astype(np.float32), device=cuda_device)
 
+    # a view that starts off a 16-byte boundary: every element goes alone
+    off = f32(1001)[1:]
+    assert torch.equal(kp.affine(off), kp.affine_plain(off))
     before = counts.snapshot()
     for n in PROBE_SIZES:
         x = f32(n)

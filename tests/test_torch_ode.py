@@ -1,6 +1,6 @@
 """The PyTorch port's batched integrator (one GSL controller per lane,
-with the plain version of the K3 rk_finish kernel on the CPU) against the
-JAX package's vmapped `integrate_interval`.
+with the plain versions of K3's rk_stage and rk_finish kernels on the CPU)
+against the JAX package's vmapped `integrate_interval`.
 
 On a small per-lane ODE both run the same controller arithmetic, so the
 attempt counts must be identical and y agree within 1e-13 (BOUNDS below
@@ -16,6 +16,8 @@ import torch
 import torch_port_util  # noqa: F401  (one torch thread per worker)
 from redtime_tpu import ode as jode
 from redtime_tpu_torch import ode as tode
+from redtime_tpu_torch.kernels import counts
+from redtime_tpu_torch.kernels import rk_finish as k3
 
 TABLEAUX = ("RKF45", "DOPRI5", "DOP853")
 # per-lane rates of a damped oscillator + a growing mode: lanes differ in
@@ -117,3 +119,56 @@ def test_rk_step_matches_jax():
                                    atol=1e-15)
         np.testing.assert_allclose(et[b].numpy(), np.asarray(ej), rtol=0,
                                    atol=1e-17)
+
+
+STAGES = [(name, i) for name in TABLEAUX
+          for i in range(1, len(getattr(tode, name).c))]
+
+
+@pytest.mark.parametrize("name,i", STAGES)
+def test_rk_stage_plain_equals_the_inline_chain(name, i):
+    """K3's rk_stage on the CPU (its plain version, through the wrapper)
+    equals the eager chain it replaced, y + h (a_i0 k_0 + a_i1 k_1 + ...)
+    with Python-float coefficients, bit for bit, at every stage of every
+    tableau."""
+    tab = getattr(tode, name)
+    rng = np.random.default_rng(100 * len(tab.c) + i)
+    B, D = 3, 7
+    y = torch.as_tensor(rng.standard_normal((B, D)))
+    ks = torch.as_tensor(rng.standard_normal((len(tab.c), B, D)))
+    h = torch.as_tensor(10.0 ** rng.uniform(-6, 0, B))
+    acc = float(tab.a[i, 0]) * ks[0]
+    for j in range(1, i):
+        acc = acc + float(tab.a[i, j]) * ks[j]
+    chain = y + h[:, None] * acc
+    consts = k3.attempt_consts(tab, 0.0, 1e-3, "cpu")
+    assert torch.equal(k3.rk_stage(y, ks, h, consts, i), chain)
+    assert torch.equal(k3.rk_stage_plain(y, ks, h, consts.a[i], i), chain)
+
+
+@pytest.mark.parametrize("name", TABLEAUX)
+def test_rk_stages_times_and_inputs(name):
+    """rk_stages evaluates stage i at t + c_i h, every stage time from one
+    broadcast, bit-equal to the per-stage form, on the input rk_stage
+    gives; on the CPU no launch is counted."""
+    tab = getattr(tode, name)
+    rng = np.random.default_rng(len(tab.c))
+    t = torch.as_tensor(rng.uniform(0, 1, 4))
+    h = torch.as_tensor(10.0 ** rng.uniform(-3, 0, 4))
+    y = torch.as_tensor(rng.standard_normal((4, 3)))
+    seen = []
+
+    def rhs(tt, yy):
+        seen.append((tt.clone(), yy.clone()))
+        return torch.sin(yy) + tt[:, None]
+
+    consts = k3.attempt_consts(tab, 1e-7, 1e-2, "cpu")
+    before = counts.snapshot()
+    ks = tode.rk_stages(rhs, t, h, y, consts)
+    assert counts.snapshot() == before
+    assert ks.shape == (len(tab.c), 4, 3)
+    for i, (tt, yy) in enumerate(seen):
+        assert torch.equal(tt, t + float(tab.c[i]) * h)
+        want = y if i == 0 else k3.rk_stage_plain(y, ks, h, consts.a[i], i)
+        assert torch.equal(yy, want)
+        assert torch.equal(ks[i], torch.sin(yy) + tt[:, None])
