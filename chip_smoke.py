@@ -7,7 +7,7 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the CUDA kernels from redtime_tpu_torch/csrc with nvcc
      (sm_90a) and checks that K1's and K2's SASS holds FP64 tensor-core
-     instructions (DMMA, by cuobjdump);
+     instructions (DMMA) and K5's and K7's int8 ones (IMMA), by cuobjdump;
   3. checks each hand kernel against its plain PyTorch version on the card
      at the main path's shapes (nk=128, np=512, 16 lanes, inputs from a
      seeded numpy generator; K3's rk_finish and rk_stage at each tableau
@@ -24,10 +24,12 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
      against their plain versions on the card, bit for bit, at the
      probes' shapes, at one larger shape each and on ragged sizes, and
      times both, and an empty kernel beside them (the launch floor under
-     the probes' small shapes); then runs redtime_tpu_torch.probes
-     probe1-probe4 on the card, with the launch counters reset just
-     before and read just after, and checks that K4-K6 (and K1, probe4's
-     port) were launched;
+     the probes' small shapes); K7 oz_fused the same way at P4's shape,
+     on ragged shapes and on rows at the edges of the row exponent; then
+     runs redtime_tpu_torch.probes (probe1-probe4 and probe4_out_leg) on
+     the card, with the launch counters reset just before and read just
+     after, checks that K4-K7 (and K1, at probe4's shape) were launched,
+     and times probe4's two paths in a loop as the JAX probe does;
   5. runs the main path: driver.run_batch over 16 cosmologies of the
      bench's Mira-Titan Latin-hypercube design, full Time-RG at
      SolverConfig() defaults, on the card, once untimed as set-up and
@@ -52,6 +54,7 @@ It imports nothing of JAX.  Details go to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -75,7 +78,7 @@ HBM_BYTES_S = 3.35e12
 PEAK_FP64_TC, PEAK_FP64, PEAK_FP32, PEAK_INT8_TC = 67e12, 34e12, 67e12, \
     1979e12
 MAIN_KERNELS = ("out_leg", "pz_leg", "rk_stage", "rk_finish")
-PROBE_KERNELS = ("affine", "int8_dot", "dd_mul")
+PROBE_KERNELS = ("affine", "int8_dot", "dd_mul", "oz_fused")
 
 
 def check(ok: bool, what: str) -> None:
@@ -386,7 +389,7 @@ def check_kernels(rng, detail: dict) -> list:
     rows.append(dict(
         name="out_leg", route="cuda",
         source="redtime_tpu_torch/csrc/out_leg.cu",
-        replaces="scripts/probe_pallas.py:145",
+        replaces="redtime_tpu/fastpt.py:1228",
         max_abs_err=float(err.max()), **t_k1,
         **least_time(8.0 * (tab.numel() + nfam * K * O + J.numel()),
                 2.0 * nfam * 9 * B * K * O, PEAK_FP64_TC)))
@@ -475,9 +478,16 @@ def check_kernels(rng, detail: dict) -> list:
     return rows
 
 
+# the tensor-core instruction each kernel's SASS must hold: FP64 (DMMA)
+# for K1 and K2, int8 (IMMA) for K5 and K7
+TENSOR_CORE_OPS = {"out_leg_kernel": "DMMA", "pz_leg_kernel": "DMMA",
+                   "int8_dot_kernel": "IMMA", "oz_fused_kernel": "IMMA"}
+
+
 def check_tensor_cores(lib, detail: dict) -> None:
-    """K1 and K2 run on the FP64 tensor cores: their SASS (cuobjdump
-    -sass of the built library) holds DMMA instructions."""
+    """K1 and K2 run on the FP64 tensor cores, K5 and K7 on the int8 ones:
+    their SASS (cuobjdump -sass of the built library) holds DMMA and IMMA
+    instructions."""
     from redtime_tpu_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -486,13 +496,13 @@ def check_tensor_cores(lib, detail: dict) -> None:
     counts = {}
     for part in sass.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
-        for kernel in ("out_leg_kernel", "pz_leg_kernel"):
+        for kernel, op in TENSOR_CORE_OPS.items():
             if kernel in name:
-                counts[kernel] = counts.get(kernel, 0) + part.count("DMMA")
-    for kernel in ("out_leg_kernel", "pz_leg_kernel"):
-        check(counts.get(kernel, 0) > 0, f"{kernel}: no DMMA in its SASS")
-    print(f"tensor cores: DMMA instructions in the SASS {counts}")
-    detail["dmma_in_sass"] = counts
+                counts[kernel] = counts.get(kernel, 0) + part.count(op)
+    for kernel, op in TENSOR_CORE_OPS.items():
+        check(counts.get(kernel, 0) > 0, f"{kernel}: no {op} in its SASS")
+    print(f"tensor cores: DMMA / IMMA instructions in the SASS {counts}")
+    detail["tensor_core_ops_in_sass"] = counts
 
 
 def check_leg_shapes(rng, detail: dict) -> None:
@@ -557,7 +567,7 @@ def check_leg_shapes(rng, detail: dict) -> None:
 def check_probe_kernels(rng, detail: dict) -> list:
     """K4-K6 against their plain versions on the card, bit for bit: at
     the probes' shapes (timed), at one larger shape each (timed) and on
-    ragged sizes."""
+    ragged sizes; then K7 (check_oz_fused)."""
     import torch
 
     from redtime_tpu_torch import dd
@@ -607,7 +617,8 @@ def check_probe_kernels(rng, detail: dict) -> list:
         ("int8_dot", "scripts/probe_pallas.py:44", kp.int8_dot,
          kp.int8_dot_plain, lambda a, b: lambda: torch._int_mm(a, b),
          lambda s: dot_args(*s), cost_dot, (128, 512, 256),
-         (2016, 1024, 256), [(1, 1, 1), (67, 130, 33), (129, 1023, 257)]),
+         (2016, 1024, 256),
+         [(1, 1, 1), (67, 130, 33), (129, 1023, 257), (67, 1000, 33)]),
         ("dd_mul", "scripts/probe_pallas.py:78", kp.dd_mul, kp.dd_mul_plain,
          None, dd_args, cost_dd, 8 * 128, 2 ** 20, [1, 1000, 2 ** 20 + 7]),
     ]
@@ -655,11 +666,98 @@ def check_probe_kernels(rng, detail: dict) -> list:
             large_shape=str(large),
             **{f"large_{k}": v for k, v in big.items()}))
     detail["probe_kernel_cases"] = cases
+    # K5's tile and split of K at each shape (rt_int8_dot_plan)
+    plan = (ctypes.c_int * 2)()
+    detail["int8_dot_plans"] = {}
+    for m, k, n in [(128, 512, 256), (2016, 1024, 256)] + specs[1][-1]:
+        build.lib().rt_int8_dot_plan(m, n, k, plan)
+        detail["int8_dot_plans"][str((m, k, n))] = dict(tile=plan[0],
+                                                      split=plan[1])
+    print(f"int8_dot plans at (M, K, N): {detail['int8_dot_plans']}")
+    rows.append(check_oz_fused(rng, detail))
     return rows
 
 
+def oz_edge_rows(x: np.ndarray, rng) -> np.ndarray:
+    """x with rows 0-4 at the edges of P4's row exponent exi = clip(
+    floor(log2 max|xh|) + 2, -125, 125): a zero row (max 0 meets the 1e-38
+    floor, exi -125, the lower clip bound); a row with max|x| 1.5 2^123
+    (exi 125, the upper bound, unclipped) and one with 1.5 2^124 (126,
+    clipped to 125; its first slice still fits int8); a row of normal
+    values in [2^-126, 1.5 2^-126] (exi -124, the nearest a normal row
+    gets to the lower bound); and a row of subnormal f32 values (max
+    about 2^-128, exi clipped from -126)."""
+    x = x.copy()
+    K = x.shape[1]
+    x[0] = 0.0
+    for row, top in ((1, 1.5 * 2.0 ** 123), (2, 1.5 * 2.0 ** 124)):
+        x[row] *= top / np.abs(x[row]).max()
+    x[3] = np.sign(x[3]) * rng.uniform(1.0, 1.5, K) * 2.0 ** -126
+    x[4] *= 2.0 ** -128 / np.abs(x[4]).max()
+    return x
+
+
+def check_oz_fused(rng, detail: dict) -> dict:
+    """K7 against oz_fused_plain on the card, bit for bit in oh and ol: at
+    P4's shape with probe4's inputs (timed), with the rows of oz_edge_rows,
+    and at ragged shapes (M not a multiple of the 32-row tile, K not of
+    32, O not of 8; K % 4 != 0 and O % 16 != 0 take the loaders' scalar
+    paths).  Returns its row for the kernels' line."""
+    import torch
+
+    from redtime_tpu_torch import dd, probes
+    from redtime_tpu_torch.kernels import probes as kp
+
+    def split(x, ws):
+        xh, xl = dd.from_f64(torch.as_tensor(x, device="cuda"))
+        return xh, xl, torch.as_tensor(ws, device="cuda")
+
+    def ragged(m, k, o):
+        return split(rng.standard_normal((m, k)),
+                     rng.integers(-64, 64, (4, k, o)).astype(np.int8))
+
+    x, xh, xl, ws = probes.probe4_inputs("cuda")
+    M, K = xh.shape
+    O = ws.shape[2]
+    cases = [("P4", (xh, xl, ws)),
+             ("edge rows", split(oz_edge_rows(x.cpu().numpy(), rng),
+                                 ws.cpu().numpy())),
+             ("ragged (77, 1000, 100)", ragged(77, 1000, 100)),
+             ("ragged (300, 999, 129)", ragged(300, 999, 129))]
+    err = 0.0
+    for case, args in cases:
+        out, ref = kp.oz_fused(*args), kp.oz_fused_plain(*args)
+        for o, r, name in zip(out, ref, ("oh", "ol")):
+            check(o.dtype == r.dtype and o.shape == r.shape,
+                  f"oz_fused {case}: {name} dtype or shape")
+            delta = float((o.double() - r.double()).abs().max())
+            err = max(err, delta)
+            check(bool(torch.equal(o, r)),
+                  f"oz_fused {case}: {name} not bit-equal to plain, max "
+                  f"|delta| {delta:.3g}")
+    edge = cases[1][1]
+    exi = kp._oz_row_exponent(edge[0])[:5, 0].tolist()
+    check(exi == [-125, 125, 125, -124, -125],
+          f"oz_fused edge rows: exponents {exi}")
+    t, runs = measure(lambda: kp.oz_fused(xh, xl, ws),
+                      lambda: kp.oz_fused_plain(xh, xl, ws))
+    detail["oz_fused_timing"] = runs
+    detail["oz_fused_cases"] = [c for c, _ in cases]
+    print(f"kernel oz_fused: bit-equal to plain in oh and ol at "
+          f"{[c for c, _ in cases]}; at P4's shape {t['ms']:.4f} ms eager, "
+          f"{t['device_ms']:.4f} ms device (plain {t['plain_ms']:.4f} / "
+          f"{t['plain_device_ms']:.4f} ms)")
+    # xh, xl and W read once, oh and ol written once; six int8 dots
+    return dict(
+        name="oz_fused", route="cuda",
+        source="redtime_tpu_torch/csrc/oz_fused.cu",
+        replaces="scripts/probe_pallas.py:145", max_abs_err=err, **t,
+        **least_time(float(2 * 4 * M * K + 4 * K * O + 2 * 4 * M * O),
+                     6.0 * 2.0 * M * K * O, PEAK_INT8_TC))
+
+
 def run_probes(detail: dict) -> dict:
-    """redtime_tpu_torch.probes probe1-probe4 on the card; returns the
+    """redtime_tpu_torch.probes' PROBES on the card; returns the
     launch counts of that run."""
     import torch
 
@@ -675,9 +773,11 @@ def run_probes(detail: dict) -> dict:
     for name in PROBE_KERNELS + ("out_leg",):
         check(launches[name] > 0, f"kernel {name} was not launched by the "
                                   "probes")
-    detail["probes"] = dict(results=out, launches=launches)
-    print(f"probes: probe1-probe4 OK on the card {out}; launches "
-          f"{launches}")
+    inloop = probes.probe4_inloop()
+    detail["probes"] = dict(results=out, launches=launches,
+                            probe4_inloop=inloop)
+    print(f"probes: {', '.join(out)} OK on the card {out}; launches "
+          f"{launches}; probe4 in-loop {inloop}")
     return launches
 
 

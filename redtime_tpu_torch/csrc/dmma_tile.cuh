@@ -20,7 +20,7 @@ namespace cg = cooperative_groups;
 
 // 16 bytes global -> shared, asynchronously; zero-fills when !valid (the
 // source is then not read, but must still be a mapped address)
-__device__ __forceinline__ void cp_async16(double* smem, const double* gmem,
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool valid) {
   const unsigned dst =
       static_cast<unsigned>(__cvta_generic_to_shared(smem));

@@ -2,11 +2,12 @@
 //
 //   Jw[b,f,a,c,o] = sum_n (tab[b,0,f,a,n] * tab[b,1,f,c,n] / 2np) * G[f,n,o]
 //
-// Replaces, on the TPU side, the fused Ozaki output leg (the Pallas kernel
-// probe4.kernel in scripts/probe_pallas.py, and the int8 slice dots of
-// redtime_tpu/fastpt.py compute_J_PZ_windowed, out_leg='ozaki'): the TPU
-// split each f64 operand into 7-bit int8 slices so its MXU could emulate
-// f64.  Hopper multiplies f64 natively, so here the composite matrix G
+// Replaces redtime_tpu/fastpt.py:1228-1303 (compute_J_PZ_windowed's output
+// leg), which has no Pallas kernel; on the TPU it ran as XLA fusions, with
+// out_leg='ozaki' as int8 slice dots: the TPU split each f64 operand into
+// 7-bit int8 slices so its MXU could emulate f64 (the Pallas probe of that
+// technique, probe4.kernel, is K7 oz_fused).  Hopper multiplies f64
+// natively, so here the composite matrix G
 // (per family: the f/tau phase, the restricted even-sample backward DFT
 // and the prek factor, built in f64 on the host) is contracted directly.
 //

@@ -122,6 +122,10 @@ def lib() -> ctypes.CDLL:
         handle.rt_affine.restype = i
         handle.rt_int8_dot.argtypes = [p, p, p, i, i, i, p]
         handle.rt_int8_dot.restype = i
+        handle.rt_int8_dot_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
+        handle.rt_int8_dot_plan.restype = None
+        handle.rt_oz_fused.argtypes = [p] * 5 + [i] * 3 + [p]
+        handle.rt_oz_fused.restype = i
         handle.rt_dd_mul.argtypes = [p, p, p, p, p, p, n, p]
         handle.rt_dd_mul.restype = i
         handle.rt_launch_floor.argtypes = [p]

@@ -7,8 +7,9 @@ tab [B, 2, nfam, 3, 2np] is the convolution backward leg's output
 matrix (fastpt.composite_out_matrix).  The kernel reads G's rows in
 16-byte copies: on the card G must have unit stride along O and even row
 and family strides, which `padded` gives it (engine_consts builds G so).  Replaces
-the TPU's Ozaki output leg (redtime_tpu/fastpt.py:1232-1266 and the
-Pallas probe4.kernel, scripts/probe_pallas.py:145-199).
+the output leg of redtime_tpu/fastpt.py:1228-1303 (on the TPU XLA fusions
+around Ozaki int8 dots, no Pallas kernel; P4, the Pallas probe of that
+technique, is K7 oz_fused in kernels/probes.py).
 """
 
 from __future__ import annotations

@@ -1,13 +1,18 @@
-"""K4 affine, K5 int8_dot, K6 dd_mul: the Pallas feasibility probes P1-P3
-of scripts/probe_pallas.py as Hopper kernels (csrc/probes.cu).
+"""K4 affine, K5 int8_dot, K6 dd_mul, K7 oz_fused: the Pallas feasibility
+probes P1-P4 of scripts/probe_pallas.py as Hopper kernels (csrc/probes.cu,
+csrc/oz_fused.cu).
 
   * affine(x)          — P1 (probe_pallas.py:29-38): 2x + 1 on f32;
   * int8_dot(a, b)     — P2 (:44-57): int8 [M,K] @ int8 [K,N] -> int32,
-                         exact;
+                         exact, on the int8 tensor cores;
   * dd_mul(ah, al, bh, bl) — P3 (:78-99): the double-double product
-                         dd.mul of f32 (hi, lo) pairs.
+                         dd.mul of f32 (hi, lo) pairs;
+  * oz_fused(xh, xl, ws) — P4 (:145-181): the fused Ozaki product of an
+                         f32 pair [M,K] with four int8 [K,O]: six 7-bit
+                         slices, six int8 dots, a double-double f32 sum.
 
-Each kernel equals its plain version bit for bit.
+Each kernel equals its plain version bit for bit (K7 for finite inputs).
+oz_xla_path is P4's reference path (:120-142), in f64.
 """
 
 from __future__ import annotations
@@ -33,6 +38,82 @@ def int8_dot_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 dd_mul_plain = dd.mul
+
+# P4's Ozaki split: SA slices of Q bits each (probe_pallas.py:130-131)
+OZ_Q, OZ_SLICES = 7, 6
+# |t| <= 2^6 and |w| <= 2^7, so an int32 sum over K is exact while
+# K * 2^13 < 2^31
+_OZ_MAX_K = 2 ** 31 // 2 ** 13 - 1
+
+
+def _oz_row_exponent(xh: torch.Tensor) -> torch.Tensor:
+    """exi [M, 1] int32: floor(log2 max|xh|) + 2 of each row, clipped to
+    [-125, 125]; 2^-exi balances the row below 1/2."""
+    mx = xh.abs().amax(dim=1, keepdim=True)
+    ex = torch.floor(torch.log2(torch.clamp(mx, min=1e-38))) + 2.0
+    return torch.clamp(ex, -125.0, 125.0).to(torch.int32)
+
+
+def _pow2(e: torch.Tensor) -> torch.Tensor:
+    """2^(e - 127) as f32, from its biased exponent e (int32)."""
+    return (e << 23).view(torch.float32)
+
+
+def _oz_slices(xh: torch.Tensor, xl: torch.Tensor, inv: torch.Tensor):
+    """The six int8 slices of the balanced rows (xh, xl) * inv, in f32 as
+    P4 peels them: slice i is round(r 2^(7(i+1))), half to even, and xl
+    joins the residual after slice 2."""
+    r = xh * inv
+    for i in range(OZ_SLICES):
+        sc = float(2.0 ** (OZ_Q * (i + 1)))
+        t = torch.round(r * sc)
+        r = r - t / sc
+        if i == 2:
+            r = r + xl * inv
+        yield i, t.to(torch.int8)
+
+
+def oz_fused_plain(xh: torch.Tensor, xl: torch.Tensor,
+                   ws: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """P4's body (probe_pallas.py:145-181) in PyTorch f32 operations, in
+    its order: (oh, ol) f32 [M, O] with oh + ol ~ (xh + xl) @ W, the dots
+    through int8_dot_plain (exact).  ws is [4, K, O] int8; slice i meets
+    ws[i % 4]."""
+    exi = _oz_row_exponent(xh)
+    toth = torch.zeros((xh.shape[0], ws.shape[2]), dtype=torch.float32,
+                       device=xh.device)
+    totl = torch.zeros_like(toth)
+    for i, t in _oz_slices(xh, xl, _pow2(127 - exi)):
+        o = int8_dot_plain(t, ws[i % 4])
+        # int32 -> (hi, lo) f32, exact: hi rounds, the residual fits f32
+        ch = o.to(torch.float32)
+        cl = (o - ch.to(torch.int32)).to(torch.float32)
+        s = float(2.0 ** (-OZ_Q * (i + 2)))
+        ch, cl = ch * s, cl * s
+        # (toth, totl) += (ch, cl): Knuth's two-sum on the hi words
+        sh = toth + ch
+        v = sh - toth
+        e = (toth - (sh - v)) + (ch - v) + totl + cl
+        toth = sh + e
+        totl = e - (toth - sh)
+    unscale = _pow2(exi + 127)
+    return toth * unscale, totl * unscale
+
+
+def oz_xla_path(x: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """P4's reference path (probe_pallas.py:120-142): x f64 [M, K] split
+    into f32 (hi, lo), the same six slices and dots, each int32 sum scaled
+    and added in f64; returns f64 [M, O]."""
+    xh = x.to(torch.float32)
+    xl = (x - xh.to(torch.float64)).to(torch.float32)
+    exi = _oz_row_exponent(xh)
+    inv = _pow2(127 - exi)
+    tot = None
+    for i, t in _oz_slices(xh, xl, inv):
+        c = int8_dot_plain(t, ws[i % 4]).to(torch.float64) \
+            * (2.0 ** (-OZ_Q * (i + 2)))
+        tot = c if tot is None else tot + c
+    return tot * (1.0 / inv.to(torch.float64))
 
 
 def _check_f32(name: str, *xs: torch.Tensor) -> None:
@@ -103,6 +184,43 @@ def int8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     build.check(status, "int8_dot")
     counts.LAUNCHES["int8_dot"] += 1
     return out
+
+
+def oz_fused(xh: torch.Tensor, xl: torch.Tensor,
+             ws: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """P4's fused product: (xh, xl) f32 [M, K] and ws int8 [4, K, O] ->
+    (oh, ol) f32 [M, O], bit-equal to oz_fused_plain for finite xh."""
+    _check_f32("oz_fused", xh, xl)
+    if xh.dim() != 2:
+        raise ValueError(f"oz_fused: xh, xl must be 2-D, got "
+                         f"{tuple(xh.shape)}")
+    if ws.dtype != torch.int8:
+        raise TypeError(f"oz_fused: ws must be int8, got {ws.dtype}")
+    if ws.dim() != 3 or ws.shape[0] != 4 or not ws.is_contiguous():
+        raise ValueError(f"oz_fused: ws must be a contiguous [4, K, O], got "
+                         f"{tuple(ws.shape)}")
+    (M, K), O = xh.shape, ws.shape[2]
+    if ws.shape[1] != K:
+        raise ValueError(f"oz_fused: shapes {tuple(xh.shape)} and "
+                         f"{tuple(ws.shape)} do not chain")
+    if ws.device != xh.device:
+        raise ValueError("oz_fused: x and ws on different devices")
+    if M == 0 or O == 0:
+        raise ValueError(f"oz_fused: empty output [{M}, {O}]")
+    if K > _OZ_MAX_K:
+        raise ValueError(f"oz_fused: K={K} can overflow the int32 sums "
+                         f"(K * 2^13 must stay below 2^31)")
+    if not _device("oz_fused", xh):
+        return oz_fused_plain(xh, xl, ws)
+    oh = torch.empty((M, O), dtype=torch.float32, device=xh.device)
+    ol = torch.empty_like(oh)
+    with torch.cuda.device(xh.device):
+        status = build.lib().rt_oz_fused(
+            xh.data_ptr(), xl.data_ptr(), ws.data_ptr(), oh.data_ptr(),
+            ol.data_ptr(), M, K, O, _stream(xh))
+    build.check(status, "oz_fused")
+    counts.LAUNCHES["oz_fused"] += 1
+    return oh, ol
 
 
 def dd_mul(ah: torch.Tensor, al: torch.Tensor, bh: torch.Tensor,

@@ -10,10 +10,18 @@ numpy seeds) and criteria:
                   int32 product;
   3. K6 dd_mul:   the double-double product of [8, 128] (hi, lo) pairs,
                   hi + lo within 1e-13 relative of x*y;
-  4. K1 out_leg (the port of probe4's fused output leg) at probe4's shape,
-     M = 2016 rows (16 lanes x 14 families x 9 pairs), K = 1024, O = 256,
-     within the f64 dot product's forward-error bound of its plain
-     version.
+  4. K7 oz_fused: probe4's fused Ozaki product, (xh, xl) f32 [2016, 1024]
+                  (x standard normal from seed 2, split as pallas_path's
+                  caller splits it) with four int8 [1024, 256] W from
+                  integers(-64, 64), within 1e-13 of max|ref| of
+                  oz_xla_path, the f64 counterpart of probe4's xla_path;
+                  on the card main() also prints the in-loop time of both
+                  (30 calls, 3 rounds), as the JAX probe does;
+
+and, after them, probe4_out_leg: K1 out_leg (the main path's output leg,
+redtime_tpu/fastpt.py:1228, which has no Pallas kernel) at probe4's shape,
+M = 2016 rows (16 lanes x 14 families x 9 pairs), K = 1024, O = 256,
+within the f64 dot product's forward-error bound of its plain version.
 
 It prints one line per probe.  A failed probe raises and the process
 exits non-zero; nothing is caught.  On CPU tensors (`device="cpu"`) the
@@ -73,7 +81,34 @@ def probe3(device="cuda") -> dict:
     return dict(max_rel_err=rel)
 
 
+def probe4_inputs(device="cuda") -> tuple:
+    """probe4's x f64 [2016, 1024], its f32 split (xh, xl) and ws int8
+    [4, 1024, 256], from the JAX probe's generator and order."""
+    M, K, O = 2016, 1024, 256
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((M, K))
+    ws = np.stack([rng.integers(-64, 64, (K, O)).astype(np.int8)
+                   for _ in range(4)])
+    xh = x.astype(np.float32)
+    xl = (x - xh).astype(np.float32)
+    t = lambda a: torch.as_tensor(a, device=device)
+    return t(x), t(xh), t(xl), t(ws)
+
+
 def probe4(device="cuda") -> dict:
+    """K7 oz_fused against oz_xla_path, P4's own check."""
+    x, xh, xl, ws = probe4_inputs(device)
+    oh, ol = kp.oz_fused(xh, xl, ws)
+    ref = kp.oz_xla_path(x, ws)
+    got = oh.double() + ol.double()
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    _require(bool(torch.isfinite(got).all()), "probe4: non-finite output")
+    _require(rel < 1e-13, f"probe4: fused vs XLA path {rel:.2e} of max")
+    return dict(M=x.shape[0], K=x.shape[1], O=ws.shape[2],
+                agreement=rel)
+
+
+def probe4_out_leg(device="cuda") -> dict:
     """K1 at probe4's shape against its plain version."""
     B, nfam, K, O = 16, 14, 1024, 256
     rng = np.random.default_rng(2)
@@ -86,13 +121,40 @@ def probe4(device="cuda") -> dict:
     bound = 2 * K * EPS * torch.matmul(
         prod.abs().reshape(B, nfam, 9, K), G.abs()).reshape(J.shape)
     err = (J - J_ref).abs()
-    _require(bool(torch.isfinite(J).all()), "probe4: non-finite output")
+    _require(bool(torch.isfinite(J).all()),
+             "probe4_out_leg: non-finite output")
     _require(bool((err <= bound).all()),
-             f"probe4: max |delta|/bound {float((err / bound).max()):.3g}")
+             "probe4_out_leg: max |delta|/bound "
+             f"{float((err / bound).max()):.3g}")
     return dict(M=B * nfam * 9, K=K, O=O, max_abs_err=float(err.max()))
 
 
-PROBES = (probe1, probe2, probe3, probe4)
+def inloop_ms(fn, n: int = 30, reps: int = 3) -> float:
+    """ms a call of fn() over `reps` rounds of `n` calls, between CUDA
+    events after one warm-up call (probe_pallas.py's inloop)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps * n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * n)
+
+
+def probe4_inloop() -> dict:
+    """The in-loop time of probe4's two paths on the card, each from x f64
+    (the fused path splits it into (xh, xl) first, as the JAX probe's
+    loop does)."""
+    x, _, _, ws = probe4_inputs("cuda")
+    t_xla = inloop_ms(lambda: kp.oz_xla_path(x, ws))
+    t_fused = inloop_ms(lambda: kp.oz_fused(*dd.from_f64(x), ws))
+    return dict(xla_ms=t_xla, fused_ms=t_fused, speedup=t_xla / t_fused)
+
+
+PROBES = (probe1, probe2, probe3, probe4, probe4_out_leg)
 
 
 def main() -> int:
@@ -105,6 +167,9 @@ def main() -> int:
         out = p("cuda")
         torch.cuda.synchronize()
         print(f"{p.__name__}: OK {out}")
+    t = probe4_inloop()
+    print(f"probe4 in-loop: XLA path {t['xla_ms']:.4f} ms  fused (K7) "
+          f"{t['fused_ms']:.4f} ms  speedup {t['speedup']:.2f}x")
     return 0
 
 

@@ -1,5 +1,5 @@
 """The hand kernels' wrappers (K1 out_leg, K2 pz_leg, K3 rk_finish, K4
-affine, K5 int8_dot, K6 dd_mul) and chip_smoke.py's inputs.  This file
+affine, K5 int8_dot, K6 dd_mul, K7 oz_fused) and chip_smoke.py's inputs.  This file
 imports no JAX, so its `cuda` tests also run on a GPU machine that has
 none:
 
@@ -10,7 +10,7 @@ tensor on any other device never reaches the plain version.  On the card
 each kernel is held to its plain version: K1 and K2 within the f64
 dot-product forward-error bound (they sum in another order), K3
 (rk_finish and rk_stage, which round every operation alone as their plain
-versions do; CUDA's pow is the routine torch.pow runs) and K4-K6 bit for
+versions do; CUDA's pow is the routine torch.pow runs) and K4-K7 bit for
 bit.
 """
 
@@ -127,6 +127,58 @@ def test_probe_wrappers_validate_and_cpu_takes_plain():
         kp.dd_mul(f, f, f, f[:4])
 
 
+def test_oz_fused_wrapper_validates_and_cpu_takes_plain():
+    f = torch.zeros((3, 8), dtype=torch.float32)
+    ws = torch.zeros((4, 8, 5), dtype=torch.int8)
+    before = counts.snapshot()
+    for x, y in zip(kp.oz_fused(f, f, ws), kp.oz_fused_plain(f, f, ws)):
+        assert torch.equal(x, y) and x.shape == (3, 5)
+    assert counts.snapshot() == before
+    with pytest.raises(TypeError):
+        kp.oz_fused(f.double(), f, ws)
+    with pytest.raises(TypeError):
+        kp.oz_fused(f, f, ws.int())
+    with pytest.raises(ValueError, match="shape"):
+        kp.oz_fused(f, f[:2], ws)
+    with pytest.raises(ValueError, match="2-D"):
+        kp.oz_fused(f[None], f[None], ws)
+    with pytest.raises(ValueError, match="contiguous"):
+        kp.oz_fused(f, f, torch.zeros((4, 5, 8), dtype=torch.int8)
+                    .transpose(1, 2))
+    with pytest.raises(ValueError, match=r"\[4, K, O\]"):
+        kp.oz_fused(f, f, ws[:3])
+    with pytest.raises(ValueError, match="chain"):
+        kp.oz_fused(f, f, torch.zeros((4, 7, 5), dtype=torch.int8))
+    with pytest.raises(ValueError, match="empty"):
+        kp.oz_fused(f, f, ws[..., :0])
+    with pytest.raises(ValueError, match="overflow"):
+        big = torch.zeros((1, 2 ** 18), dtype=torch.float32)
+        kp.oz_fused(big, big, torch.zeros((4, 2 ** 18, 1),
+                                          dtype=torch.int8))
+
+
+def test_oz_edge_rows_reach_the_exponent_bounds():
+    """chip_smoke's K7 edge rows: exponents -125 (zero row), 125, 125
+    (clipped from 126), -124 (normal values) and -125 (subnormal values,
+    clipped from -126); every slice fits int8 and the result is finite."""
+    import chip_smoke
+
+    rng = np.random.default_rng(2)
+    x = chip_smoke.oz_edge_rows(rng.standard_normal((8, 64)), rng)
+    xh = torch.as_tensor(x.astype(np.float32))
+    exi = kp._oz_row_exponent(xh)[:, 0].tolist()
+    assert exi[:5] == [-125, 125, 125, -124, -125]
+    assert bool((xh[1:4].abs() >= 2.0 ** -126).all())
+    assert bool((xh[4].abs() < 2.0 ** -126).all())
+    xl = torch.as_tensor((x - x.astype(np.float32)).astype(np.float32))
+    for _, t in kp._oz_slices(xh, xl, kp._pow2(127 - kp._oz_row_exponent(
+            xh))):
+        assert int(t.abs().max()) <= 127
+    ws = torch.as_tensor(rng.integers(-64, 64, (4, 64, 9)).astype(np.int8))
+    oh, ol = kp.oz_fused(xh, xl, ws)
+    assert bool(torch.isfinite(oh).all() and torch.isfinite(ol).all())
+
+
 def test_probe_wrappers_raise_off_the_cpu_without_a_kernel():
     meta = torch.device("meta")
     f = torch.empty(8, dtype=torch.float32, device=meta)
@@ -137,6 +189,10 @@ def test_probe_wrappers_raise_off_the_cpu_without_a_kernel():
                     torch.empty((4, 2), dtype=torch.int8, device=meta))
     with pytest.raises(RuntimeError, match="no kernel"):
         kp.dd_mul(f, f, f, f)
+    x = torch.empty((2, 4), dtype=torch.float32, device=meta)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        kp.oz_fused(x, x, torch.empty((4, 4, 2), dtype=torch.int8,
+                                      device=meta))
 
 
 def _rk_args(B, D, rng, device, tab=tode.RKF45):
@@ -513,7 +569,7 @@ def test_cuda_rk_stage_equals_plain(cuda_device):
 
 PROBE_SIZES = [1, 8 * 128, 1000, 2 ** 20 + 3]
 DOT_SHAPES = [(128, 512, 256), (1, 1, 1), (67, 130, 33), (129, 1023, 257),
-              (2016, 1024, 256)]
+              (2016, 1024, 256), (67, 1000, 33)]
 
 
 @pytest.mark.cuda
@@ -552,9 +608,41 @@ def test_cuda_probe_kernels_equal_plain(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_oz_fused_equals_plain(cuda_device):
+    """On the card: K7 bit for bit against oz_fused_plain in oh and ol at
+    chip_smoke's shapes: probe4's inputs, its edge rows and two ragged
+    shapes; one launch counted per call."""
+    import chip_smoke
+
+    rng = np.random.default_rng(9)
+    x, xh, xl, ws = probes.probe4_inputs(cuda_device)
+    edge = chip_smoke.oz_edge_rows(x.cpu().numpy(), rng)
+    cases = [(xh, xl, ws),
+             (*(torch.as_tensor(a, device=cuda_device) for a in (
+                 edge.astype(np.float32),
+                 (edge - edge.astype(np.float32)).astype(np.float32))), ws)]
+    for M, K, O in ((77, 1000, 100), (300, 999, 129)):
+        xr = rng.standard_normal((M, K))
+        cases.append((
+            torch.as_tensor(xr.astype(np.float32), device=cuda_device),
+            torch.as_tensor((xr - xr.astype(np.float32)).astype(np.float32),
+                            device=cuda_device),
+            torch.as_tensor(rng.integers(-64, 64, (4, K, O)).astype(np.int8),
+                            device=cuda_device)))
+    before = counts.LAUNCHES["oz_fused"]
+    for args in cases:
+        for got, ref in zip(kp.oz_fused(*args), kp.oz_fused_plain(*args)):
+            assert torch.equal(got, ref), tuple(args[0].shape)
+    assert counts.LAUNCHES["oz_fused"] == before + len(cases)
+    with pytest.raises(ValueError, match="devices"):
+        kp.oz_fused(xh, xl, ws.cpu())
+
+
+@pytest.mark.cuda
 def test_cuda_probes_entry_point(cuda_device):
-    """python -m redtime_tpu_torch.probes runs probe1-probe4 on the card
-    and prints one line per probe."""
+    """python -m redtime_tpu_torch.probes runs probe1-probe4 and
+    probe4_out_leg on the card, prints one line per probe and probe4's
+    in-loop times."""
     for p in probes.PROBES:
         p(cuda_device)
     out = subprocess.run([sys.executable, "-m", "redtime_tpu_torch.probes"],
@@ -564,3 +652,4 @@ def test_cuda_probes_entry_point(cuda_device):
     lines = out.stdout.splitlines()
     for p in probes.PROBES:
         assert any(line.startswith(f"{p.__name__}: OK") for line in lines)
+    assert any(line.startswith("probe4 in-loop:") for line in lines)
