@@ -18,8 +18,9 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
      call for the same function in turns: eager, and on the device alone
      (CUDA-graph replay); each row also carries the least time the card
      could take (bound_ms, by bytes or operations); then K1 and K2 at
-     every shape the port uses (check_leg_shapes), and two calls of each
-     must give the same bits;
+     every shape the port uses and on grids with ragged K-steps
+     (check_leg_shapes), and two calls of each must give the same bits;
+     K3 also on lanes too large for a cluster's registers (in passes);
   4. checks the probe kernels K4 affine, K5 int8_dot and K6 dd_mul
      against their plain versions on the card, bit for bit, at the
      probes' shapes, at one larger shape each and on ragged sizes, and
@@ -33,20 +34,33 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
   5. runs the main path: driver.run_batch over 16 cosmologies of the
      bench's Mira-Titan Latin-hypercube design, full Time-RG at
      SolverConfig() defaults, on the card, once untimed as set-up and
-     once timed, with every launch counter reset just before the timed
-     run and read just after (K3's split into prepare and solve);
-     checks that every table is finite, that K1-K3 (rk_stage and
-     rk_finish) were launched, and that lanes 0-1 match the JAX golden
+     once timed at the default placement (each chunk prepared on the
+     host CPU, then solved on the card), then once more with
+     prepare_on_host=False (prepared on the card), each with every
+     launch counter reset just before it and read just after (split into
+     run_batch's prepare and solve phases); checks that every table is
+     finite, that the solve launched K1-K3 (rk_stage and rk_finish), that
+     host prepare launched no kernel on the card and card prepare K3, and
+     that lanes 0-1 match the JAX golden
      (tests/data/torch_port_golden_nk128.npz, written by
      scripts/gen_torch_port_golden.py) within 3e-5 of column scale, the
-     linear columns and the sigma_v^2 and H headers within 1e-10
-     relative;
+     linear columns and the sigma_v^2, H and sigmaV2(z=0) headers within
+     1e-10 relative;
   6. runs 1-loop mode the same way (the bench's secondary workload):
      32 design cosmologies (one GPU chunk), SolverConfig(print_bias=True),
      the redshifts (5, 4, 3, 2, 1, 0.5, 0); the same checks against
      tests/data/torch_port_golden_oneloop_nk128.npz (gen_torch_port_golden
      --oneloop), and the PT and PMR columns must be populated;
-  7. prints the kernels' JSON line, the card line and, last, the result.
+  7. runs full TRG over the bench's batch of 64 (4 chunks, each
+     prepared on the host, then solved), lanes 0-1 against the golden,
+     with its wall and the host time in prepare;
+     the CLI (`batch` over 4 params files written with the port's io,
+     `run` over one) at nk=128, against run_batch on the same inputs; and
+     full TRG at nk=48 (a grid whose K-steps end ragged in K1 and K2),
+     against the port's own CPU run, and once more in chunks of one lane
+     (whether a lane's bits depend on its chunk on the card: printed,
+     not checked);
+  8. prints the kernels' JSON line, the card line and, last, the result.
 
 Any failed phase raises, and the script exits non-zero without a result.
 It imports nothing of JAX.  Details go to chiprun_out/chip_smoke.json.
@@ -71,6 +85,7 @@ DETAIL = os.path.join(HERE, "chiprun_out", "chip_smoke.json")
 Z_OUT = (2.02, 1.61, 1.01, 0.66, 0.43, 0.24, 0.10, 0.0)
 Z_OUT_1L = (5.0, 4.0, 3.0, 2.0, 1.0, 0.5, 0.0)
 N_DESIGN, N_DESIGN_1L, SEED, B_CHECK = 16, 32, 42, 16
+BATCH_BENCH = 64                      # the bench's batch (bench.py:65)
 EPS = float(np.finfo(np.float64).eps)
 # H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s; FP64 on the
 # tensor cores, FP64 and FP32 outside them, int8 on the tensor cores
@@ -106,6 +121,44 @@ def design_params(n: int = N_DESIGN, seed: int = SEED) -> np.ndarray:
     om_m, om_b, s8, h, ns, w0, wa, om_nu = rows.T
     return np.stack([ns, s8, h, om_m / h ** 2, om_b / h ** 2,
                      om_nu / h ** 2, np.full(n, 2.726), w0, wa], axis=1)
+
+
+# the redshifts of write_cli_inputs' transfer stacks (z = 0 is also the
+# transfer file): >= 4 nodes for the cubic a-stencil, from z_in down
+CLI_STACK_Z = ("200", "50", "10", "5", "2", "1", "0.5", "0")
+
+
+def write_cli_inputs(workdir: str, params: np.ndarray, z_out,
+                     one_loop: bool = False) -> list:
+    """Write one params_redTime_M<i>.dat per row of params (design_params'
+    columns) with a synthetic CAMB transfer stack beside it (7 columns:
+    k, delta_c, delta_b, ..., delta_nu at column 5; example_linear's
+    transfer, a neutrino suppression growing with a), with the port's own
+    io; z_in 200, switches nonlinear, 1-loop as asked, print_lin and
+    print_rsd on.  Returns the params paths."""
+    from redtime_tpu_torch.io.params import ParamsFile, write_params_file
+
+    k = np.logspace(-5, 1.3, 400)
+    keq = 0.015
+    T = 1.0 / (1.0 + (k / keq) ** 2 * np.log(1.0 + k / keq))
+    paths = []
+    for i, row in enumerate(params):
+        name = f"M{i:03d}"
+        os.makedirs(os.path.join(workdir, name), exist_ok=True)
+        for z in CLI_STACK_Z:
+            a = 1.0 / (1.0 + float(z))
+            supp = 1.0 / (1.0 + (k / 0.1) ** 2) * (0.3 + 0.7 * a)
+            np.savetxt(os.path.join(workdir, name, f"camb_transfer_z{z}.dat"),
+                       np.column_stack([k, T, T, T, T, T * supp, T]),
+                       fmt="%.17e")
+        root = f"{name}/camb_transfer_z"
+        path = os.path.join(workdir, f"params_redTime_{name}.dat")
+        write_params_file(path, ParamsFile(
+            *[float(x) for x in row], 1, int(one_loop), 1, 1, 200.0,
+            [float(z) for z in z_out], root + "0.dat", 0, root,
+            list(CLI_STACK_Z)))
+        paths.append(path)
+    return paths
 
 
 def card_line() -> str:
@@ -210,6 +263,14 @@ def rk_cases(cfg) -> list:
             ("eta", "RKF45", 41 * cfg.nk, cfg.eabs_P, cfg.erel_P)]
 
 
+# K3 on lanes that eight blocks cannot keep in registers (the kernel
+# loops over its slices): the eta state at nk = 1024 (D = 41984, 16-byte
+# accesses) and an odd D above 16384 (nk = 401, 8-byte accesses)
+RK_PASSES = [("eta nk=1024, in passes", "RKF45", 41 * 1024, 1e-7, 1e-2),
+             ("odd D in passes", "DOP853", 41 * 401, 1e-7, 1e-2)]
+PASSES_CASES = {case for case, *_ in RK_PASSES}
+
+
 def rk_inputs(rng, tab, B: int, D: int, eabs: float, dev) -> list:
     """One attempt's (y, ks, t, h, t1, n, active) from the generator."""
     import torch
@@ -254,7 +315,7 @@ def check_rk_finish(rng, cfg, dev) -> list:
     B = B_CHECK
     cases = rk_cases(cfg) + [
         ("odd D", "DOP853", 41 * cfg.nk - 1, cfg.eabs_P, cfg.erel_P),
-        ("ragged D", "DOPRI5", 3000, cfg.eabs_P, cfg.erel_P)]
+        ("ragged D", "DOPRI5", 3000, cfg.eabs_P, cfg.erel_P)] + RK_PASSES
     out_cases = []
     for case, tname, D, eabs, erel in cases:
         tab = getattr(ode, tname)
@@ -291,9 +352,12 @@ def check_rk_finish(rng, cfg, dev) -> list:
             check(bool(torch.equal(still[i], args[j])),
                   f"{what}: a frozen lane moved")
         cl, vec = k3.cluster_plan(D, True)
+        check(k3.in_passes(D, cl, vec) == (case in PASSES_CASES),
+              f"{what}: in passes or not, against the plan")
         out_cases.append(dict(
             case=case, tableau=tname, D=D, eabs=eabs, erel=erel,
             cluster=cl, bytes_per_access=16 if vec else 8,
+            in_passes=k3.in_passes(D, cl, vec),
             max_abs_err=float((out[0] - ref[0]).abs().max()),
             rejected=int(rej.sum()), args=args, consts=consts))
     return out_cases
@@ -310,7 +374,8 @@ def check_rk_stage(rng, cfg, dev, detail: dict) -> dict:
     from redtime_tpu_torch.kernels import rk_finish as k3
 
     B = B_CHECK
-    sizes = [D for _, _, D, _, _ in rk_cases(cfg)] + [41 * cfg.nk - 1]
+    sizes = [D for _, _, D, _, _ in rk_cases(cfg)] + [41 * cfg.nk - 1] + [
+        D for _, _, D, _, _ in RK_PASSES]
     n_checked, err = 0, 0.0
     for tname in ("RKF45", "DOPRI5", "DOP853"):
         tab = getattr(ode, tname)
@@ -431,14 +496,15 @@ def check_kernels(rng, detail: dict) -> list:
         **least_time(8.0 * (T2.numel() + P2.numel() + nk + PZ.numel()),
                 2.0 * 7 * nk * 3 * B * npts, PEAK_FP64_TC)))
 
-    # K3 rk_finish at each tableau the main path runs it with (rk_cases);
-    # its row is the eta case, the one the evolution runs
+    # K3 rk_finish at each tableau the main path runs it with (rk_cases)
+    # and in passes (the grids of nk > 799); its row is the eta case, the
+    # one the evolution runs
     k3_cases = check_rk_finish(np.random.default_rng(5678), cfg, dev)
-    main_cases = {case for case, *_ in rk_cases(cfg)}
+    timed_cases = {case for case, *_ in rk_cases(cfg)} | PASSES_CASES
     calls = {}
     for c in k3_cases:
         args, consts = c.pop("args"), c.pop("consts")
-        if c["case"] not in main_cases:
+        if c["case"] not in timed_cases:
             continue
         calls[c["case"]] = (*args, consts)
         c.update(measure(
@@ -505,13 +571,20 @@ def check_tensor_cores(lib, detail: dict) -> None:
     detail["tensor_core_ops_in_sass"] = counts
 
 
+# (nk, np) of grids whose K is no multiple of K1's or K2's K-steps, or
+# whose 2np is no power of two: nk = 16, 48, 96 at np = 4nk, np_factor 8
+# at nk = 128, an odd nk
+RAGGED_GRIDS = ((16, 64), (48, 192), (96, 384), (128, 1024), (37, 148))
+
+
 def check_leg_shapes(rng, detail: dict) -> None:
     """K1 and K2 against their plain versions at every shape the port
     uses, within the forward-error bounds of check_kernels, and bit-equal
     over two calls: K1 at B in (1, 3, 16, 33), 7 and 14 families, 2np in
-    (1024, 4096) and O in (129, 257, 513), G padded as engine_consts pads
-    it; K2 at the same B on the default, v0.1 and HIGH_ACCURACY grids
-    (nk, np) = (128, 512), (256, 2048), (512, 2048)."""
+    (1024, 4096) and O in (129, 257, 513), and at (2np, nk + 1) of each
+    of RAGGED_GRIDS, G padded as engine_consts pads it; K2 at the same B
+    on the default, v0.1 and HIGH_ACCURACY grids (nk, np) = (128, 512),
+    (256, 2048), (512, 2048) and on RAGGED_GRIDS."""
     import torch
 
     from redtime_tpu_torch.kernels import out_leg as k1
@@ -521,24 +594,26 @@ def check_leg_shapes(rng, detail: dict) -> None:
     cases = []
     for B in (1, 3, 16, 33):
         for nfam in (7, 14):
-            for K in (1024, 4096):
-                for O in (129, 257, 513):
-                    tab = t(rng.standard_normal((B, 2, nfam, 3, K)))
-                    G = k1.padded(t(rng.standard_normal((nfam, K, O))))
-                    J = k1.out_leg(tab, G)
-                    prod = tab[:, 0, :, :, None, :] \
-                        * tab[:, 1, :, None, :, :] / K
-                    bound = 2 * K * EPS * torch.matmul(
-                        prod.abs().reshape(B, nfam, 9, K), G.abs())
-                    ratio = float(((J - k1.out_leg_plain(tab, G)).abs()
-                                   .reshape(bound.shape) / bound).max())
-                    what = f"out_leg at B={B} nfam={nfam} K={K} O={O}"
-                    check(ratio <= 1.0, f"{what}: |delta|/bound {ratio:.3g}")
-                    check(bool(torch.equal(J, k1.out_leg(tab, G))),
-                          f"{what}: two calls differ")
-                    cases.append(dict(kernel="out_leg", B=B, nfam=nfam, K=K,
-                                      O=O, err_over_bound=ratio))
-        for nk, npts in ((128, 512), (256, 2048), (512, 2048)):
+            ko = [(K, O) for K in (1024, 4096) for O in (129, 257, 513)] \
+                + [(2 * npts, nk + 1) for nk, npts in RAGGED_GRIDS]
+            for K, O in ko:
+                tab = t(rng.standard_normal((B, 2, nfam, 3, K)))
+                G = k1.padded(t(rng.standard_normal((nfam, K, O))))
+                J = k1.out_leg(tab, G)
+                prod = tab[:, 0, :, :, None, :] \
+                    * tab[:, 1, :, None, :, :] / K
+                bound = 2 * K * EPS * torch.matmul(
+                    prod.abs().reshape(B, nfam, 9, K), G.abs())
+                ratio = float(((J - k1.out_leg_plain(tab, G)).abs()
+                               .reshape(bound.shape) / bound).max())
+                what = f"out_leg at B={B} nfam={nfam} K={K} O={O}"
+                check(ratio <= 1.0, f"{what}: |delta|/bound {ratio:.3g}")
+                check(bool(torch.equal(J, k1.out_leg(tab, G))),
+                      f"{what}: two calls differ")
+                cases.append(dict(kernel="out_leg", B=B, nfam=nfam, K=K,
+                                  O=O, err_over_bound=ratio))
+        for nk, npts in ((128, 512), (256, 2048), (512, 2048)) \
+                + RAGGED_GRIDS:
             T = t(rng.standard_normal((7, nk, npts)))
             P = t(np.exp(rng.standard_normal((B, 3, npts))))
             kfac = t(rng.standard_normal(nk))
@@ -781,55 +856,26 @@ def run_probes(detail: dict) -> dict:
     return launches
 
 
-def run_path(what: str, cfg, settings, n_design: int, golden: str,
-             detail: dict, card: str):
-    """n_design design cosmologies through run_batch on the card, once
-    untimed (set-up: cuBLAS and allocator first use) and once timed;
-    checks the timed run against the JAX golden of lanes 0-1 and returns
-    its launch counts, with their split into run_batch's phases
-    (prepare, solve) under "by_phase"."""
+def design_inputs(n: int, params: np.ndarray | None = None):
+    """(CosmoParams, LinearData) of n design cosmologies (design_params,
+    or the rows of `params`) with example_linear's inputs, as numpy-backed
+    CPU tensors and arrays: run_batch cuts and places them itself."""
     import torch
 
-    from redtime_tpu_torch import driver, fastpt
-    from redtime_tpu_torch.kernels import counts
     from redtime_tpu_torch.config import CosmoParams
     from redtime_tpu_torch.io.camb import LinearData
 
-    params = design_params(n_design)
-    lin = example_linear()
-    gold = np.load(golden)
-    check(np.array_equal(gold["params"], params[:2])
-          and np.array_equal(gold["z_out"], np.asarray(settings.z_out)),
-          f"{what}: design lanes 0-1 or z_out differ from the golden's")
-    for name, x in zip(LinearData._fields, lin):
-        check(np.array_equal(gold[name], x),
-              f"{what}: linear input {name} differs from the golden's")
+    params = design_params(n) if params is None else params
     cs = CosmoParams(*[torch.as_tensor(params[:, i]) for i in range(9)])
-    lins = LinearData(*[np.stack([x] * n_design) for x in lin])
-    t0 = time.perf_counter()
-    fastpt.engine_consts(cfg, "cuda")
-    driver.run_batch(cfg, settings, cs, lins, device="cuda")
-    torch.cuda.synchronize()
-    setup = time.perf_counter() - t0
-    print(f"{what} set-up: engine constants and one untimed run_batch of "
-          f"the same chunk {setup:.3f} s")
+    lins = LinearData(*[np.stack([x] * len(params))
+                        for x in example_linear()])
+    return cs, lins
 
-    counts.reset()
-    t0 = time.perf_counter()
-    res = driver.run_batch(cfg, settings, cs, lins, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = counts.snapshot()
-    by_phase = counts.phases()
-    for name, total in launches.items():
-        check(sum(p[name] for p in by_phase.values()) == total,
-              f"{what}: {name}'s launches by phase do not add up")
 
-    bad = driver.finite_report(res)
-    check(len(bad) == 0, f"{what}: non-finite lanes {list(bad)}")
-    for name in MAIN_KERNELS:
-        check(launches[name] > 0,
-              f"{what}: kernel {name} was not launched")
+def golden_dev(res, gold: dict, what: str) -> tuple:
+    """Lanes 0-1 of res against the JAX golden: (column-scale deviation,
+    linear columns' relative deviation); raises past 3e-5 / 1e-10 or when
+    sigma_v^2, H or sigmaV2_z0 leave 1e-10 relative."""
     table = res.table[:2].cpu().numpy()
     ref = gold["table"]
     check(table.shape == ref.shape, f"{what}: table shape {table.shape}")
@@ -846,17 +892,105 @@ def run_path(what: str, cfg, settings, n_design: int, golden: str,
         rel = float(np.max(np.abs(got - gold[name]) / np.abs(gold[name])))
         check(rel <= 1e-10, f"{what}: {name} vs golden {rel:.3g} relative "
                             "(bound 1e-10)")
-    per_min = n_design / wall * 60.0
-    detail[what] = dict(setup_s=setup, wall_s=wall, cosmologies=n_design,
-                        cosmologies_per_min=per_min,
-                        golden_dev_col_scale=dev_col,
-                        golden_dev_linear_rel=dev_lin, launches=launches,
-                        launches_by_phase=by_phase)
-    print(f"{what} path on {card}: {n_design} cosmologies, nk={cfg.nk}, "
-          f"{wall:.3f} s = {per_min:.2f} cosmologies/min; lanes 0-1 vs "
-          f"JAX golden {dev_col:.3g} of column scale, linear "
-          f"{dev_lin:.3g}; launches {launches}; by phase {by_phase}")
-    return res, dict(launches, by_phase=by_phase)
+    return dev_col, dev_lin
+
+
+def load_golden(golden: str, params: np.ndarray, settings, what: str):
+    gold = dict(np.load(golden))
+    check(np.array_equal(gold["params"], params[:2])
+          and np.array_equal(gold["z_out"], np.asarray(settings.z_out)),
+          f"{what}: design lanes 0-1 or z_out differ from the golden's")
+    for name, x in zip(("t_lnk", "t_Tc", "t_Tb", "beta_a", "beta_k",
+                        "beta_raw"), example_linear()):
+        check(np.array_equal(gold[name], x),
+              f"{what}: linear input {name} differs from the golden's")
+    return gold
+
+
+def timed_run(what: str, cfg, settings, cs, lins, detail: dict, **kw):
+    """One run_batch on the card with every launch counter set to 0 just
+    before it and read just after; checks that every lane is finite, that
+    the launches by phase add up and that the solve launched K1-K3; with
+    host prepare (the default) that prepare launched none of them, with
+    card prepare that it ran K3.  Returns (result, launches with
+    by_phase, wall seconds, the run's StageTimer times)."""
+    import torch
+
+    from redtime_tpu_torch import driver
+    from redtime_tpu_torch.kernels import counts
+    from redtime_tpu_torch.profiling import StageTimer
+
+    timer = StageTimer(enabled=False)
+    counts.reset()
+    t0 = time.perf_counter()
+    res = driver.run_batch(cfg, settings, cs, lins, device="cuda",
+                           timer=timer, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts.snapshot()
+    by_phase = counts.phases()
+    for name, total in launches.items():
+        check(sum(p[name] for p in by_phase.values()) == total,
+              f"{what}: {name}'s launches by phase do not add up")
+    bad = driver.finite_report(res)
+    check(len(bad) == 0, f"{what}: non-finite lanes {list(bad)}")
+    for name in MAIN_KERNELS:
+        check(by_phase["solve"][name] > 0,
+              f"{what}: kernel {name} was not launched in the solve")
+    k3_prep = by_phase["prepare"]["rk_stage"] + \
+        by_phase["prepare"]["rk_finish"]
+    if kw.get("prepare_on_host", True):
+        check(k3_prep == 0 and by_phase["prepare"]["out_leg"] == 0,
+              f"{what}: host prepare launched kernels on the card "
+              f"{by_phase['prepare']}")
+    else:
+        check(k3_prep > 0, f"{what}: card prepare launched no K3")
+    return res, dict(launches, by_phase=by_phase), wall, dict(timer.times)
+
+
+def run_path(what: str, cfg, settings, n_design: int, golden: str,
+             detail: dict, card: str):
+    """n_design design cosmologies through run_batch on the card at the
+    default placement (prepare on the host), once untimed (set-up: cuBLAS
+    and allocator first use) and once timed, held to the JAX golden of
+    lanes 0-1; then the same chunk once more with prepare on the card
+    (prepare_on_host=False), held to the golden too.  Returns the default
+    run's result and the launch counts of each run (by phase under
+    "by_phase"), keyed what and what_card_prepare."""
+    import torch
+
+    from redtime_tpu_torch import driver, fastpt
+
+    params = design_params(n_design)
+    gold = load_golden(golden, params, settings, what)
+    cs, lins = design_inputs(n_design)
+    t0 = time.perf_counter()
+    fastpt.engine_consts(cfg, "cuda")
+    driver.run_batch(cfg, settings, cs, lins, device="cuda")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    print(f"{what} set-up: engine constants and one untimed run_batch of "
+          f"the same chunk {setup:.3f} s")
+
+    out, launches = {}, {}
+    for key, kw in ((what, {}),
+                    (f"{what}_card_prepare", dict(prepare_on_host=False))):
+        res, launches[key], wall, times = timed_run(key, cfg, settings, cs,
+                                                    lins, detail, **kw)
+        dev_col, dev_lin = golden_dev(res, gold, key)
+        per_min = n_design / wall * 60.0
+        detail[key] = dict(setup_s=setup, wall_s=wall, cosmologies=n_design,
+                           cosmologies_per_min=per_min, stages_s=times,
+                           golden_dev_col_scale=dev_col,
+                           golden_dev_linear_rel=dev_lin,
+                           launches=launches[key])
+        print(f"{key} path on {card}: {n_design} cosmologies, nk={cfg.nk}, "
+              f"prepare on the {'card' if kw else 'host'}: {wall:.3f} s = "
+              f"{per_min:.2f} cosmologies/min (stages {times}); lanes 0-1 "
+              f"vs JAX golden {dev_col:.3g} of column scale, linear "
+              f"{dev_lin:.3g}; launches by phase {launches[key]['by_phase']}")
+        out.setdefault("res", res)
+    return out["res"], launches
 
 
 def run_main_path(detail: dict, card: str) -> dict:
@@ -885,6 +1019,150 @@ def run_oneloop(detail: dict, card: str) -> dict:
     pt = res.table[..., 15:32].cpu().numpy()
     check(bool(np.all(np.any(pt != 0.0, axis=2))),
           "1-loop PT and PMR columns must be populated")
+    return launches
+
+
+def run_batch64(detail: dict, card: str) -> dict:
+    """Full TRG over the bench's batch (bench.py:65): 64 cosmologies of
+    the design latin_hypercube(64, seed=42), with the golden's two
+    cosmologies in lanes 0-1, in 4 chunks of 16 at the default placement
+    (each chunk prepared on the host, then solved).  Every lane finite,
+    lanes 0-1 held to the golden; prints the wall and the host time in
+    prepare, which the solve does not hide."""
+    from redtime_tpu_torch.config import RunSettings, SolverConfig
+
+    cfg, settings = SolverConfig(), RunSettings(one_loop=False, z_out=Z_OUT)
+    params = design_params(BATCH_BENCH)
+    params[:2] = design_params(N_DESIGN)[:2]
+    gold = load_golden(GOLDEN, params, settings, "batch64")
+    cs, lins = design_inputs(BATCH_BENCH, params)
+    res, launches, wall, times = timed_run("batch64", cfg, settings, cs,
+                                           lins, detail)
+    dev_col, dev_lin = golden_dev(res, gold, "batch64")
+    per_min = BATCH_BENCH / wall * 60.0
+    detail["batch64"] = dict(wall_s=wall, cosmologies=BATCH_BENCH,
+                             cosmologies_per_min=per_min, stages_s=times,
+                             golden_dev_col_scale=dev_col,
+                             golden_dev_linear_rel=dev_lin,
+                             launches=launches)
+    print(f"batch64 path on {card}: {BATCH_BENCH} cosmologies in 4 chunks, "
+          f"{wall:.3f} s = {per_min:.2f} cosmologies/min; host prepare "
+          f"{times['prepare']:.3f} s (copies included, not hidden behind "
+          f"the solve); solve {times['solve']:.3f} "
+          f"s; lanes 0-1 vs JAX golden {dev_col:.3g} of column scale, "
+          f"linear {dev_lin:.3g}")
+    return launches
+
+
+def run_cli(detail: dict, card: str) -> dict:
+    """The CLI on the card: write_cli_inputs writes 4 design cosmologies
+    (full TRG, the bench's redshifts) into a temporary directory;
+    redtime_tpu_torch.cli.main(["batch", ...]) and (["run", ...]) on the
+    first file run there at nk=128; rc 0, every file written and finite,
+    and each table within 3e-5 of column scale of run_batch's on the same
+    inputs (loaded by the CLI's own reader), its linear columns within
+    1e-10 relative."""
+    import tempfile
+
+    import torch
+
+    from redtime_tpu_torch import cli, driver
+    from redtime_tpu_torch.config import CosmoParams, SolverConfig
+    from redtime_tpu_torch.io.camb import LinearData
+    from redtime_tpu_torch.kernels import counts
+
+    n = 4
+    with tempfile.TemporaryDirectory() as work:
+        paths = write_cli_inputs(work, design_params(n), Z_OUT)
+        out_dir = os.path.join(work, "out")
+        counts.reset()
+        t0 = time.perf_counter()
+        rc = cli.main(["batch", "--timing", "-o", out_dir] + paths)
+        wall_batch = time.perf_counter() - t0
+        rc_run = cli.main(["run", "--params", paths[0], "-o",
+                           os.path.join(work, "one.dat")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts.snapshot()
+        check(rc == 0 and rc_run == 0, f"cli: batch rc {rc}, run rc {rc_run}")
+        for name in MAIN_KERNELS:
+            check(launches[name] > 0, f"cli: kernel {name} was not launched")
+        tables = [np.loadtxt(os.path.join(
+            out_dir, f"redTime_M{i:03d}.dat")) for i in range(n)]
+        tables.append(np.loadtxt(os.path.join(work, "one.dat")))
+        loaded = [cli._load(p, False) for p in paths]
+        cs = CosmoParams(*[torch.stack([c[i] for *_, c in loaded])
+                           for i in range(9)])
+        lins = LinearData(*[np.stack([lin[i] for _, lin, _, _ in loaded])
+                            for i in range(6)])
+        ref = driver.run_batch(SolverConfig(), loaded[0][2], cs, lins,
+                               device="cuda").table.cpu().numpy()
+    nk = SolverConfig().nk
+    devs = []
+    for i, t in enumerate(tables):       # the batch's n, then run's one
+        r = ref[i % n].reshape(-1, ref.shape[-1])
+        check(t.shape == r.shape and bool(np.isfinite(t).all()),
+              f"cli: table {i} shape {t.shape} or non-finite")
+        scale = np.max(np.abs(r), axis=0) + 1e-300
+        dev = float(np.max(np.abs(t - r) / scale))
+        lin = float(np.max(np.abs(t[:, :7] - r[:, :7])
+                           / (np.abs(r[:, :7]) + 1e-300)))
+        check(dev <= 3e-5 and lin <= 1e-10,
+              f"cli: table {i} vs run_batch {dev:.3g} of column scale, "
+              f"linear {lin:.3g}")
+        devs.append(dev)
+    detail["cli"] = dict(batch_wall_s=wall_batch, wall_s=wall, files=n,
+                         nk=nk, dev_col_scale=devs, launches=launches)
+    print(f"cli path on {card}: batch of {n} files {wall_batch:.3f} s, then "
+          f"run of one, {wall:.3f} s in all; tables vs run_batch "
+          f"{max(devs):.3g} of column scale (the printed 12 digits); "
+          f"launches {launches}")
+    return launches
+
+
+def run_ragged_grid(detail: dict, card: str) -> dict:
+    """Full TRG at nk=48 (np=192, 2np=384: no power of two, ragged
+    K-steps in K1 and K2), 2 design lanes, the bench's redshifts: on the
+    card against the port's own CPU run of the same lanes, within 3e-5
+    of column scale, the linear columns within 1e-10 relative; then the
+    same lanes on the card in chunks of one, and whether each lane has
+    the same bits as in the chunk of two (printed, not checked: the
+    host's prepare and the card's library GEMMs may block by shape)."""
+    import torch
+
+    from redtime_tpu_torch import driver
+    from redtime_tpu_torch.config import RunSettings, SolverConfig
+
+    cfg = SolverConfig(nk=48)
+    settings = RunSettings(one_loop=False, z_out=Z_OUT)
+    cs, lins = design_inputs(2)
+    res, launches, wall, _ = timed_run("grid_nk48", cfg, settings, cs, lins,
+                                       detail)
+    t0 = time.perf_counter()
+    ref = driver.run_batch(cfg, settings, cs, lins, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    got, want = res.table.cpu().numpy(), ref.table.numpy()
+    scale = np.max(np.abs(want), axis=(0, 2), keepdims=True) + 1e-300
+    dev = float(np.max(np.abs(got - want) / scale))
+    lin = float(np.max(np.abs(got[..., :7] - want[..., :7])
+                       / (np.abs(want[..., :7]) + 1e-300)))
+    check(dev <= 3e-5 and lin <= 1e-10,
+          f"grid_nk48: card vs CPU {dev:.3g} of column scale, linear "
+          f"{lin:.3g}")
+    apart = driver.run_batch(cfg, settings, cs, lins, device="cuda",
+                             max_chunk=1).table
+    same = bool(torch.equal(apart, res.table))
+    n_diff = int((apart != res.table).sum())
+    detail["grid_nk48"] = dict(wall_s=wall, cpu_wall_s=cpu_s,
+                               dev_col_scale=dev, dev_linear_rel=lin,
+                               chunk_of_one_same_bits=same,
+                               chunk_of_one_elements_differ=n_diff,
+                               launches=launches)
+    print(f"grid_nk48 path on {card}: 2 lanes, nk=48, {wall:.3f} s (CPU "
+          f"{cpu_s:.3f} s); card vs CPU {dev:.3g} of column scale, linear "
+          f"{lin:.3g}; launches by phase {launches['by_phase']}; in chunks "
+          f"of one: same bits {same} ({n_diff} of {res.table.numel()} "
+          "elements differ)")
     return launches
 
 
@@ -926,9 +1204,12 @@ def main() -> int:
               f"{r['max_abs_err']:.3g}")
     # each path runs with the counters set to 0 just before it; a
     # kernel's launches are the sum over the paths that ran it
-    phases = dict(probes=run_probes(detail),
-                  full_trg=run_main_path(detail, card),
-                  oneloop=run_oneloop(detail, card))
+    phases = dict(probes=run_probes(detail))
+    phases.update(run_main_path(detail, card))
+    phases.update(run_oneloop(detail, card))
+    phases.update(batch64=run_batch64(detail, card),
+                  cli=run_cli(detail, card),
+                  grid_nk48=run_ragged_grid(detail, card))
     for r in rows:
         r["launches_by_path"] = {k: p[r["name"]] for k, p in phases.items()}
         r["launches"] = sum(r["launches_by_path"].values())

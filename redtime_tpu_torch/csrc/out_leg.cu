@@ -26,16 +26,20 @@
 //    50% for 64 x 64 tiles);
 //  * the pair product never reaches device memory: the ring stages the
 //    3 a-rows and 3 c-rows of each lane (6 rows, not 9 products), and the
-//    A fragments multiply them while they are read; 2np is a power of two,
-//    so the 1/2np is applied once to the sums, exactly (one multiply less
-//    a fragment value);
+//    A fragments multiply them while they are read; the 1/2np is applied
+//    once to the sums, as a multiply (exact when 2np is a power of two,
+//    as on the reference's grids; else within the dot product's error
+//    bound);
 //  * a 2-stage cp.async ring over K-steps of 32, so one step loads while
 //    the other computes; each thread's copies are the same in every stage,
 //    so their addresses are set up once; G's row pitch is a multiple of 16
 //    bytes (the caller pads it), so its rows load in 16-byte copies;
 //  * K split 4 ways inside a cluster (112 blocks of 384 threads, one per
 //    SM), the partial tiles summed through distributed shared memory in
-//    rank order: no atomics, the same bits on every run.
+//    rank order: no atomics, the same bits on every run;
+//  * any even 2np: the K-steps are dealt out to the ranks in whole steps,
+//    and the copies past 2np are zero-filled (a rank may get none), so
+//    every grid the solver takes (nk, np_factor) runs here.
 // What still bounds it (PERF.md): the main loop's mma steps, below the
 // tensor cores' peak rate, then the cluster's sum.
 
@@ -98,11 +102,15 @@ __global__ void __cluster_dims__(1, 1, KSPLIT) __launch_bounds__(THREADS, 1)
   const int f = blockIdx.z / KSPLIT;
   rt::cg::cluster_group cluster = rt::cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int k_len = K / KSPLIT;
-  const int k0 = rank * k_len;
+  // this rank's K-steps: whole steps of BK, dealt out in rank order; the
+  // last step may pass K, and a rank may get none
+  const int KT = (K + BK - 1) / BK, kt_per = (KT + KSPLIT - 1) / KSPLIT;
+  const int kt_n = max(0, min(kt_per, KT - rank * kt_per));
+  const int k0 = rank * kt_per * BK;
 
   // the copies of one K-step: tab row (lane, side, a) pair kp, and G row
-  // kk column pair o; lanes past B and columns past O are zero-filled
+  // kk column pair o; lanes past B, columns past O and K-indices past K
+  // are zero-filled (from a mapped address, tab's or G's first element)
   const double* tab_f = tab + (size_t)f * 3 * K + k0;
   const int tab_lane = 2 * nfam * 3 * K;  // tab's stride along b
   const double* Gf = G + f * g_fam + (size_t)k0 * g_row;
@@ -128,20 +136,24 @@ __global__ void __cluster_dims__(1, 1, KSPLIT) __launch_bounds__(THREADS, 1)
   const double* g_src = Gf + (size_t)g_kk0 * g_row + (g_ok ? n0 + g_o : 0);
   auto load = [&](int slot, int kt) {
     double* st = smem + slot * STAGE;
+    const int kb = k0 + kt * BK;  // the step's first K-index
+    const bool t_in = kb + t_kp < K;
 #pragma unroll
     for (int n = 0; n < T_N; ++n) {
       const int row = t_row0 + T_RS * n;
+      const bool ok = t_in && t_src[n] >= 0;
       if (TROWS % T_RS == 0 || row < TROWS)
         rt::cp_async16(st + row * TP + t_kp,
-                       tab_f + (t_src[n] < 0 ? 0 : t_src[n]) + kt * BK,
-                       t_src[n] >= 0);
+                       ok ? tab_f + t_src[n] + kt * BK : tab, ok);
     }
     const double* gs = g_src + (size_t)kt * BK * g_row;
     if (tid >= COPY_THREADS) return;
 #pragma unroll
-    for (int n = 0; n < G_N; ++n)
+    for (int n = 0; n < G_N; ++n) {
+      const bool ok = g_ok && kb + g_kk0 + G_RS * n < K;
       rt::cp_async16(st + STAGE_T + (g_kk0 + G_RS * n) * GP + g_o,
-                     gs + (size_t)(G_RS * n) * g_row, g_ok);
+                     ok ? gs + (size_t)(G_RS * n) * g_row : G, ok);
+    }
   };
 
   // the warp's two fragment rows r = 16 m_atom + g (+8) are pairs (a, c)
@@ -200,7 +212,7 @@ __global__ void __cluster_dims__(1, 1, KSPLIT) __launch_bounds__(THREADS, 1)
         step(st, k, std::integral_constant<int, 3>());
     }
   };
-  rt::pipeline<STAGES>(k_len / BK, load, compute);
+  rt::pipeline<STAGES>(kt_n, load, compute);
 
   // the cluster's sum: rank q owns rows [q ROWS_PER_RANK, (q+1)
   // ROWS_PER_RANK).  Each block pushes its partial rows into their
@@ -237,8 +249,8 @@ __global__ void __cluster_dims__(1, 1, KSPLIT) __launch_bounds__(THREADS, 1)
         s.x += v.x;
         s.y += v.y;
       }
-      // the 1/2np of the pair products, exact on the sums as on the
-      // products (a power of two)
+      // the 1/2np of the pair products, on the sums: the same bits as on
+      // the products when 2np is a power of two
       s.x *= inv_n2;
       s.y *= inv_n2;
       double* dst = out + (((size_t)b * nfam + f) * 9 + r % 9) * O + o;
@@ -252,9 +264,8 @@ __global__ void __cluster_dims__(1, 1, KSPLIT) __launch_bounds__(THREADS, 1)
 
 // tab [B, 2, nfam, 3, K] contiguous; G [nfam, K, O] with unit stride along
 // O, row stride g_row (even, >= O) and family stride g_fam; out [B, nfam,
-// 3, 3, O] contiguous; f64, 16-byte aligned, on the current device.  K a
-// power of two and a multiple of KSPLIT * BK (the wrapper checks).
-// Returns cudaGetLastError().
+// 3, 3, O] contiguous; f64, 16-byte aligned, on the current device.  K
+// even (the wrapper checks).  Returns cudaGetLastError().
 extern "C" int rt_out_leg(const double* tab, const double* G, double* out,
                           int B, int nfam, int K, int O, long long g_fam,
                           int g_row, void* stream) {
@@ -273,6 +284,3 @@ extern "C" int rt_out_leg(const double* tab, const double* G, double* out,
       tab, G, out, B, nfam, K, O, g_fam, g_row, 1.0 / K);
   return static_cast<int>(cudaGetLastError());
 }
-
-// K must be a power of two and a multiple of this (the wrapper checks)
-extern "C" int rt_out_leg_k_step() { return KSPLIT * BK; }

@@ -23,7 +23,10 @@
 //    partial tiles summed through distributed shared memory in rank order
 //    (no atomics: the same bits on every run);
 //  * the outer factor is applied after that sum, so conv never reaches
-//    device memory and PZ is written once.
+//    device memory and PZ is written once;
+//  * any even np: the K-steps are dealt out to the ranks in whole steps,
+//    and the copies past np are zero-filled (a rank may get none), so
+//    every grid the solver takes (nk, np_factor) runs here.
 // What bounds it: with 4 K-steps a block, the ring's fill, the cluster's
 // sum and the epilogue weigh as much as the main loop.
 #include "dmma_tile.cuh"
@@ -67,8 +70,11 @@ __global__ void __cluster_dims__(1, 1, KSPLIT) __launch_bounds__(THREADS)
   const int r0 = blockIdx.y * BM;
   rt::cg::cluster_group cluster = rt::cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int k_len = np / KSPLIT;
-  const int k0 = rank * k_len;
+  // this rank's K-steps: whole steps of BK, dealt out in rank order; the
+  // last step may pass np, and a rank may get none
+  const int KT = (np + BK - 1) / BK, kt_per = (KT + KSPLIT - 1) / KSPLIT;
+  const int kt_n = max(0, min(kt_per, KT - rank * kt_per));
+  const int k0 = rank * kt_per * BK;
 
   // the epilogue's operands, which do not depend on the contraction: read
   // now, so their latency hides behind the main loop.  Output e of this
@@ -88,17 +94,21 @@ __global__ void __cluster_dims__(1, 1, KSPLIT) __launch_bounds__(THREADS)
       e_p[it][c] = P[((size_t)b * 3 + c) * np + nshift + i];
   }
 
-  // stage rows 0..BM-1 are T rows, BM..BM+BN-1 spectra; both K-contiguous
+  // stage rows 0..BM-1 are T rows, BM..BM+BN-1 spectra; both K-contiguous.
+  // Rows past R or Q and K-indices past np are zero-filled (from a mapped
+  // address, the first element of T or P)
   auto load = [&](int slot, int kt) {
     double* st = smem + slot * STAGE;
     for (int i = tid; i < CHUNKS; i += THREADS) {
       const int row = i / (BK / 2), kp = i % (BK / 2);
       const bool is_t = row < BM;
       const int src_row = is_t ? r0 + row : q0 + row - BM;
-      const bool ok = src_row < (is_t ? R : Q);
-      const double* src = (is_t ? T : P) + (size_t)(ok ? src_row : 0) * np
-          + k0 + kt * BK + 2 * kp;
-      rt::cp_async16(st + row * TP + 2 * kp, src, ok);
+      const int k = k0 + kt * BK + 2 * kp;
+      const bool row_ok = src_row < (is_t ? R : Q);
+      const bool ok = row_ok && k < np;
+      const double* base = is_t ? T : P;
+      rt::cp_async16(st + row * TP + 2 * kp,
+                     ok ? base + (size_t)src_row * np + k : base, ok);
     }
   };
 
@@ -129,7 +139,7 @@ __global__ void __cluster_dims__(1, 1, KSPLIT) __launch_bounds__(THREADS)
       }
     }
   };
-  rt::pipeline<STAGES>(k_len / BK, load, compute);
+  rt::pipeline<STAGES>(kt_n, load, compute);
 
   // the sum over the cluster: rank q owns columns [q COLS_PER_RANK, ...).
   // Each block pushes its partial columns into their owner's receive
@@ -170,8 +180,8 @@ __global__ void __cluster_dims__(1, 1, KSPLIT) __launch_bounds__(THREADS)
 }  // namespace
 
 // T [7, nk, np], P [B, 3, np], kfac [nk], out [B, 7, 3, 3, nk]; f64,
-// contiguous, 16-byte aligned, on the current device; np a multiple of
-// KSPLIT * BK (the wrapper checks).  Returns cudaGetLastError().
+// contiguous, 16-byte aligned, on the current device; np even (the
+// wrapper checks).  Returns cudaGetLastError().
 extern "C" int rt_pz_leg(const double* T, const double* P, const double* kfac,
                          double* out, int B, int nk, int np, int nshift,
                          void* stream) {
@@ -190,6 +200,3 @@ extern "C" int rt_pz_leg(const double* T, const double* P, const double* kfac,
                                                        np, nshift);
   return static_cast<int>(cudaGetLastError());
 }
-
-// np must be a multiple of this (the wrapper checks)
-extern "C" int rt_pz_leg_k_step() { return KSPLIT * BK; }

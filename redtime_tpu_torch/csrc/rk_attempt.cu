@@ -41,7 +41,12 @@
 //  * every block decides accept / reject from r (one compare) and writes
 //    its slice; rank 0 alone evaluates the step factor, the one pow the
 //    lane's branch needs (a rejected lane's, a growing lane's, or none),
-//    and writes the lane's t, h, n and r.
+//    and writes the lane's t, h, n and r;
+//  * a lane larger than eight blocks hold in registers (D > 32768 with
+//    16-byte accesses, nk > 799) goes to rk_finish_passes_kernel: each
+//    block loops over its slice, writes y_new as it goes and, when the
+//    lane is not taken, copies y over it in a second pass.  The same
+//    operations in the same order: the same bits.
 // Each block arrives at a cluster barrier when it starts and waits on it
 // before its first write into a peer's shared memory; the barrier after
 // the writes is the last access to a peer, so no block exits while one
@@ -111,6 +116,74 @@ __device__ __forceinline__ double clamp(double x, double lo, double hi) {
   return x != x ? x : fmin(fmax(x, lo), hi);
 }
 
+// The lane's error norm r from each thread's share (q_max, and whether it
+// met a NaN): warp shuffles, then shared memory, then, for a lane split
+// over cl blocks, every block writes its partial maximum into slot [rank]
+// of every peer's shared memory and takes the maximum of the cl slots
+// after one cluster barrier.  fmax drops a NaN, so a NaN is carried as a
+// flag and put back, as torch.amax propagates it.
+__device__ __forceinline__ double lane_norm(double q_max, bool q_nan, int cl,
+                                            int rank) {
+  __shared__ double warp_max[WARPS];
+  __shared__ double peer_max[MAX_CL];
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2)
+    q_max = fmax(q_max, __shfl_xor_sync(0xffffffffu, q_max, off));
+  q_nan = __any_sync(0xffffffffu, q_nan);
+  if (tid % 32 == 0) warp_max[tid / 32] = q_nan ? quiet_nan() : q_max;
+  __syncthreads();
+  // a NaN slot sets the flag and passes through fmax unseen
+  double r = 0.0;
+  bool r_nan = false;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    const double v = warp_max[w];
+    r_nan |= v != v;
+    r = fmax(r, v);
+  }
+  if (cl > 1) {
+    rt::cg::cluster_group cluster = rt::cg::this_cluster();
+    rt::cluster_wait();  // every peer has started
+    if (tid < cl)
+      *cluster.map_shared_rank(&peer_max[rank], tid) =
+          r_nan ? quiet_nan() : r;
+    cluster.sync();
+    r = 0.0;
+    r_nan = false;
+    for (int p = 0; p < cl; ++p) {
+      const double v = peer_max[p];
+      r_nan |= v != v;
+      r = fmax(r, v);
+    }
+  }
+  return r_nan ? quiet_nan() : r;
+}
+
+// GSL's standard controller on the lane's r (dec: r > reject_above): the
+// step factor, the one pow the lane's branch needs (a rejected lane's, a
+// growing lane's, or none), and the lane's t, h, n and r.
+__device__ __forceinline__ void controller_tail(
+    const Coeffs& c, double r, bool dec, bool final, double h_try,
+    double t_l, double h_l, double t1_l, long long n_l, bool act, int lane,
+    double* t_out, double* h_out, long long* n_out, double* r_out) {
+  const double p_dec = c.prm[2], p_inc = c.prm[3], safety = c.prm[4];
+  const double grow_below = c.prm[6], fac_min = c.prm[7], fac_max = c.prm[8];
+  const double inf = __longlong_as_double(0x7ff0000000000000LL);
+  double fac = 1.0;  // also for a NaN r, as the plain version's where
+  if (dec)
+    fac = clamp(mul(safety, pow(r, p_dec)), fac_min, inf);
+  else if (r < grow_below)
+    fac = clamp(mul(safety, pow(r, p_inc)), 1.0, fac_max);
+  const double h_next = mul(h_try, fac);
+  const double t_acc = final ? t1_l : add(t_l, h_try);
+  const double t_new = dec ? t_l : t_acc;
+  t_out[lane] = act ? t_new : t_l;
+  h_out[lane] = act ? h_next : h_l;
+  n_out[lane] = n_l + (act ? 1 : 0);
+  r_out[lane] = r;
+}
+
 // S: the stage count; UPT: accesses a thread holds; W: doubles an access.
 template <int S, int UPT, int W>
 __global__ void __launch_bounds__(THREADS)
@@ -127,8 +200,6 @@ __global__ void __launch_bounds__(THREADS)
                      long long* __restrict__ n_out,
                      double* __restrict__ r_out, int B, int D, int cl) {
   static_assert(UPT % ROUND == 0, "whole rounds");
-  __shared__ double warp_max[WARPS];
-  __shared__ double peer_max[MAX_CL];
   if (cl > 1) rt::cluster_arrive_relaxed();
   const int tid = threadIdx.x;
   const int lane = blockIdx.y, rank = blockIdx.x;  // cluster dims (cl, 1, 1)
@@ -209,37 +280,7 @@ __global__ void __launch_bounds__(THREADS)
         q_max = fmax(q_max, q);
     }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2)
-    q_max = fmax(q_max, __shfl_xor_sync(0xffffffffu, q_max, off));
-  q_nan = __any_sync(0xffffffffu, q_nan);
-  if (tid % 32 == 0) warp_max[tid / 32] = q_nan ? quiet_nan() : q_max;
-  __syncthreads();
-  // a NaN slot sets the flag and passes through fmax unseen
-  double r = 0.0;
-  bool r_nan = false;
-#pragma unroll
-  for (int w = 0; w < WARPS; ++w) {
-    const double v = warp_max[w];
-    r_nan |= v != v;
-    r = fmax(r, v);
-  }
-  if (cl > 1) {
-    rt::cg::cluster_group cluster = rt::cg::this_cluster();
-    rt::cluster_wait();  // every peer has started
-    if (tid < cl)
-      *cluster.map_shared_rank(&peer_max[rank], tid) =
-          r_nan ? quiet_nan() : r;
-    cluster.sync();
-    r = 0.0;
-    r_nan = false;
-    for (int p = 0; p < cl; ++p) {
-      const double v = peer_max[p];
-      r_nan |= v != v;
-      r = fmax(r, v);
-    }
-  }
-  if (r_nan) r = quiet_nan();
+  const double r = lane_norm(q_max, q_nan, cl, rank);
 
   const bool dec = r > reject_above;
   const bool take = act && !dec;
@@ -253,24 +294,93 @@ __global__ void __launch_bounds__(THREADS)
       store<W>(dst, yv[i]);
   }
 
-  if (rank == 0 && tid == 0) {
-    const double p_dec = c.prm[2], p_inc = c.prm[3], safety = c.prm[4];
-    const double grow_below = c.prm[6], fac_min = c.prm[7],
-                 fac_max = c.prm[8];
-    const double inf = __longlong_as_double(0x7ff0000000000000LL);
-    double fac = 1.0;  // also for a NaN r, as the plain version's where
-    if (dec)
-      fac = clamp(mul(safety, pow(r, p_dec)), fac_min, inf);
-    else if (r < grow_below)
-      fac = clamp(mul(safety, pow(r, p_inc)), 1.0, fac_max);
-    const double h_next = mul(h_try, fac);
-    const double t_acc = final ? t1_l : add(t_l, h_try);
-    const double t_new = dec ? t_l : t_acc;
-    t_out[lane] = act ? t_new : t_l;
-    h_out[lane] = act ? h_next : h_l;
-    n_out[lane] = n_l + (act ? 1 : 0);
-    r_out[lane] = r;
+  if (rank == 0 && tid == 0)
+    controller_tail(c, r, dec, final, h_try, t_l, h_l, t1_l, n_l, act, lane,
+                    t_out, h_out, n_out, r_out);
+}
+
+// A lane whose slice a block cannot keep in registers: each block loops
+// over its slice once, writing y_new and keeping its share of the norm,
+// and, when the lane is not taken, a second time, copying y over y_new.
+// Every value is computed as in rk_finish_kernel (the same operations in
+// the same order), so y_out, t, h, n and r are the same bits.
+template <int S, int W>
+__global__ void __launch_bounds__(THREADS)
+    rk_finish_passes_kernel(const double* __restrict__ y,
+                            const double* __restrict__ ks,
+                            const double* __restrict__ t,
+                            const double* __restrict__ h,
+                            const double* __restrict__ t1,
+                            const long long* __restrict__ n,
+                            const unsigned char* __restrict__ active,
+                            const __grid_constant__ Coeffs c,
+                            double* __restrict__ y_out,
+                            double* __restrict__ t_out,
+                            double* __restrict__ h_out,
+                            long long* __restrict__ n_out,
+                            double* __restrict__ r_out, int B, int D,
+                            int cl) {
+  if (cl > 1) rt::cluster_arrive_relaxed();
+  const int tid = threadIdx.x;
+  const int lane = blockIdx.y, rank = blockIdx.x;  // cluster dims (cl, 1, 1)
+  const double t_l = t[lane], h_l = h[lane], t1_l = t1[lane];
+  const long long n_l = n[lane];
+  const bool act = active[lane] != 0;
+  const double eabs = c.prm[0], erel = c.prm[1], reject_above = c.prm[5];
+  const double dt = __dsub_rn(t1_l, t_l);
+  const bool final = h_l > dt;
+  const double h_try = final ? dt : h_l;
+
+  const int units = D / W;
+  const int per_block = (units + cl - 1) / cl;
+  const int u0 = rank * per_block;
+  const int u_end = min(u0 + per_block, units);
+  const size_t row = (size_t)lane * D, stage = (size_t)B * D;
+
+  double q_max = 0.0;
+  bool q_nan = false;
+  for (int u = u0 + tid; u < u_end; u += THREADS) {
+    const size_t at = row + (size_t)u * W;
+    double yv[W], k[S][W], acc_b[W], acc_e[W];
+    load<W>(y + at, yv);
+#pragma unroll
+    for (int j = 0; j < S; ++j) load<W>(ks + j * stage + at, k[j]);
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const double bj = c.b[j], ej = c.e[j];
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        acc_b[w] = j == 0 ? mul(bj, k[j][w]) : add(acc_b[w], mul(bj, k[j][w]));
+        acc_e[w] = j == 0 ? mul(ej, k[j][w]) : add(acc_e[w], mul(ej, k[j][w]));
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const double y_new = add(yv[w], mul(h_try, acc_b[w]));
+      const double yerr = mul(h_try, acc_e[w]);
+      const double q =
+          __ddiv_rn(fabs(yerr), add(eabs, mul(erel, fabs(y_new))));
+      acc_b[w] = y_new;
+      if (q != q)
+        q_nan = true;
+      else
+        q_max = fmax(q_max, q);
+    }
+    store<W>(y_out + at, acc_b);
   }
+  const double r = lane_norm(q_max, q_nan, cl, rank);
+  const bool dec = r > reject_above;
+  if (!(act && !dec)) {
+    for (int u = u0 + tid; u < u_end; u += THREADS) {
+      const size_t at = row + (size_t)u * W;
+      double yv[W];
+      load<W>(y + at, yv);
+      store<W>(y_out + at, yv);
+    }
+  }
+  if (rank == 0 && tid == 0)
+    controller_tail(c, r, dec, final, h_try, t_l, h_l, t1_l, n_l, act, lane,
+                    t_out, h_out, n_out, r_out);
 }
 
 // NJ: the number of rows summed (the stage index i).
@@ -328,8 +438,8 @@ struct FinishArgs {
   cudaStream_t stream;
 };
 
-template <int S, int UPT, int W>
-int launch_finish(const FinishArgs& a) {
+template <class Kernel>
+int launch_finish(const FinishArgs& a, Kernel kernel) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.cl, a.B, 1);
   cfg.blockDim = dim3(THREADS, 1, 1);
@@ -342,7 +452,7 @@ int launch_finish(const FinishArgs& a) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, rk_finish_kernel<S, UPT, W>, a.y, a.ks, a.t, a.h, a.t1, a.n,
+      &cfg, kernel, a.y, a.ks, a.t, a.h, a.t1, a.n,
       a.active, a.c, a.y_out, a.t_out, a.h_out, a.n_out, a.r_out, a.B, a.D,
       a.cl);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
@@ -350,8 +460,11 @@ int launch_finish(const FinishArgs& a) {
 
 template <int S, int W>
 int finish_by_upt(const FinishArgs& a, int per_block) {
-  if (per_block <= 2 * THREADS) return launch_finish<S, 2, W>(a);
-  return launch_finish<S, MAX_UPT, W>(a);
+  if (per_block <= 2 * THREADS)
+    return launch_finish(a, rk_finish_kernel<S, 2, W>);
+  if (per_block <= MAX_UPT * THREADS)
+    return launch_finish(a, rk_finish_kernel<S, MAX_UPT, W>);
+  return launch_finish(a, rk_finish_passes_kernel<S, W>);
 }
 
 template <int W>
@@ -392,8 +505,8 @@ int launch_stage(const double* y, const double* ks, const double* h,
 // the kernel's parameters; s in {6, 7, 12}.  cl in {1, 2, 4, 8}: the
 // blocks that split a lane.  vec != 0: 16-byte accesses (D even; y, ks and
 // y_out 16-byte aligned), else 8-byte ones.  A block keeps at most
-// MAX_UPT * THREADS accesses of its lane in registers: the wrapper chooses
-// cl so.  Returns the launch's CUDA error (cudaErrorInvalidValue for a
+// MAX_UPT * THREADS accesses of its lane in registers; a larger slice runs
+// in passes.  Returns the launch's CUDA error (cudaErrorInvalidValue for a
 // shape the kernel does not take).
 extern "C" int rt_rk_finish(const double* y, const double* ks, const double* t,
                             const double* h, const double* t1,
@@ -411,8 +524,6 @@ extern "C" int rt_rk_finish(const double* y, const double* ks, const double* t,
       (cl != 1 && cl != 2 && cl != 4 && cl != 8) || (vec && !aligned))
     return static_cast<int>(cudaErrorInvalidValue);
   const int per_block = (D / W + cl - 1) / cl;
-  if (per_block > MAX_UPT * THREADS)
-    return static_cast<int>(cudaErrorInvalidValue);
   FinishArgs a = {y,     ks,    t,     h,     t1,    n, active, {},
                   y_out, t_out, h_out, n_out, r_out, B, D,      s,
                   cl,    static_cast<cudaStream_t>(stream)};

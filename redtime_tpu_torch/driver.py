@@ -2,14 +2,22 @@
 
 `run_batch` is the entry point: a batch of cosmologies is cut into chunks
 (the last one padded by repeating its first lane), each chunk is prepared
-and solved on `device` as one batch with one adaptive controller per lane,
-and the chunks are concatenated — the JAX package's chunked scheduler
-(redtime_tpu/driver.py:603-710) with the vmap written out as the leading
-batch dimension.
+and then solved on `device` as one batch with one adaptive controller per
+lane, and the chunks are concatenated — the JAX package's chunked
+scheduler (redtime_tpu/driver.py:603-710) with the vmap written out as
+the leading batch dimension.  `run_pipeline` runs one cosmology
+(redtime_tpu/driver.py:453-492).
+
+Prepare placement, as in the JAX package: on the card, each chunk is
+prepared on the host CPU (`prepare_on_host`, the default there) and the
+prepared `Model` is copied to the card; the solve runs on the card.
+Prepare is some 700,000 small kernels a chunk, bound by launches on the
+card and by per-op overhead on the host.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -25,7 +33,8 @@ from redtime_tpu_torch.grids import make_grids
 from redtime_tpu_torch.io.camb import LinearData
 from redtime_tpu_torch.io.params import ParamsFile
 from redtime_tpu_torch.kernels import counts
-from redtime_tpu_torch.state import linear_from_numpy
+from redtime_tpu_torch.profiling import StageTimer, sync
+from redtime_tpu_torch.state import cosmo_from_numpy, linear_from_numpy
 
 F64 = torch.float64
 
@@ -216,10 +225,12 @@ def _finalize(cfg: SolverConfig, settings: RunSettings, model: mdl.Model,
 
 def finite_report(res: RunResult) -> np.ndarray:
     """Indices of batch lanes with non-finite output (per-model fault
-    isolation).  Checks the header scalars too."""
+    isolation).  Checks the header scalars too.  One cosmology's result
+    (run_pipeline's, no batch dimension) counts as lane 0."""
+    nb = res.table.shape[0] if res.table.dim() == 4 else 1
     ok = None
     for x in (res.table, res.sigma_v2, res.H, res.sigmaV2_z0):
-        lane_ok = torch.isfinite(x.reshape(x.shape[0], -1)).all(dim=1)
+        lane_ok = torch.isfinite(x.reshape(nb, -1)).all(dim=1)
         ok = lane_ok if ok is None else ok & lane_ok
     return np.nonzero(~ok.cpu().numpy())[0]
 
@@ -242,9 +253,39 @@ def _take(x: np.ndarray, i0: int, size: int) -> np.ndarray:
     return part
 
 
+def _prepare_chunk(cfg: SolverConfig, chunk, device) -> mdl.Model:
+    """prepare_model of one chunk (cs, lins, norm: numpy rows) on
+    `device`."""
+    cs, lin, nrm = chunk
+    ccs = CosmoParams(*[torch.as_tensor(x, device=device) for x in cs])
+    clin = linear_from_numpy(LinearData(*lin), device)
+    return mdl.prepare_model(cfg, ccs, clin, norm_override=nrm)
+
+
+def _on_device(m: mdl.Model, device: torch.device) -> mdl.Model:
+    """A Model prepared on the host, on `device`: pinned host memory and
+    copies that do not block the host."""
+    if device.type != "cuda":
+        return m
+    to = lambda x: x.pin_memory().to(device, non_blocking=True)
+    return mdl.Model(CosmoParams(*map(to, m.cosmo)), *map(to, m[1:]))
+
+
+@contextlib.contextmanager
+def _torch_threads(n: int):
+    """torch's CPU thread count set to n inside the block."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
 def run_batch(cfg: SolverConfig, settings: RunSettings, cs: CosmoParams,
               lins: LinearData, device="cuda", max_chunk: int | None = None,
-              norm_override=None) -> RunResult:
+              norm_override=None, prepare_on_host: bool | None = None,
+              timer: StageTimer | None = None) -> RunResult:
     """Batched pipeline on `device` (the chunked scheduler): the card
     unless the caller asks for the CPU (device="cpu"); with no card a
     call without `device` raises.
@@ -255,7 +296,13 @@ def run_batch(cfg: SolverConfig, settings: RunSettings, cs: CosmoParams,
     solved at once (default: the whole batch on the CPU; on a GPU 16
     lanes in full-TRG mode, 32 otherwise); chunks are padded to equal
     size by repeating their first lane and the padding is dropped from
-    the result."""
+    the result.
+
+    prepare_on_host: prepare each chunk on the host CPU, on one torch
+    thread, and copy it to `device` (default: on the card, yes; on the
+    CPU the placement is the same either way).
+    timer: a profiling.StageTimer that books "prepare" and "solve" (with
+    a timer, the device is synchronized after each chunk's solve)."""
     _check_settings(settings, cfg)
     device = device_of(device)
     n = _batch_size(cs)
@@ -263,6 +310,10 @@ def run_batch(cfg: SolverConfig, settings: RunSettings, cs: CosmoParams,
         max_chunk = n if device.type == "cpu" else (
             DEFAULT_GPU_CHUNK_FULL if settings.nonlinear
             and not settings.one_loop else DEFAULT_GPU_CHUNK)
+    if prepare_on_host is None:
+        prepare_on_host = device.type != "cpu"
+    timed = timer is not None
+    timer = timer if timed else StageTimer(enabled=False)
     cs_np = [_host(x) for x in cs]
     lin_np = [_host(x) for x in lins]
     nrm_np = None if norm_override is None else _host(norm_override)
@@ -270,16 +321,43 @@ def run_batch(cfg: SolverConfig, settings: RunSettings, cs: CosmoParams,
     outs = []
     size = min(max_chunk, n)
     for i0 in range(0, n, size):
-        ccs = CosmoParams(*[torch.as_tensor(_take(x, i0, size), device=device)
-                            for x in cs_np])
-        clin = linear_from_numpy(
-            LinearData(*[_take(x, i0, size) for x in lin_np]), device)
-        cnrm = None if nrm_np is None else _take(nrm_np, i0, size)
-        m = mdl.prepare_model(cfg, ccs, clin, norm_override=cnrm)
+        with timer.stage("prepare"):
+            chunk = ([_take(x, i0, size) for x in cs_np],
+                     [_take(x, i0, size) for x in lin_np],
+                     None if nrm_np is None else _take(nrm_np, i0, size))
+            if prepare_on_host:
+                # prepare is some 700,000 small ops, which torch's thread
+                # pool slows down on the host
+                with _torch_threads(1):
+                    m = _on_device(_prepare_chunk(cfg, chunk, "cpu"), device)
+            else:
+                m = _prepare_chunk(cfg, chunk, device)
         counts.mark("prepare")
-        outs.append(solve(cfg, settings, m, ec))
+        with timer.stage("solve"):
+            outs.append(solve(cfg, settings, m, ec))
+            if timed:
+                sync(outs[-1].table)
         counts.mark("solve")
     return RunResult(*[torch.cat(xs, dim=0)[:n] for xs in zip(*outs)])
+
+
+def run_pipeline(cfg: SolverConfig, settings: RunSettings, c, lin,
+                 device="cuda", prepare_on_host: bool | None = None,
+                 norm_override=None) -> RunResult:
+    """prepare_model + solve for one cosmology (the port of
+    redtime_tpu/driver.py:453-492): c, CosmoParams of scalars; lin, one
+    cosmology's LinearData (numpy or tensors); norm_override, an optional
+    P_lin normalization constant.  On the card, prepare runs on the host
+    CPU unless prepare_on_host is False, as in run_batch.  Returns one
+    cosmology's RunResult (no batch dimension), as driver.lane gives it;
+    the JAX function's `mode` and `use_jit` have no counterpart (the port
+    runs the GEMM form, eagerly)."""
+    nrm = None if norm_override is None else np.reshape(
+        _host(norm_override), 1)
+    res = run_batch(cfg, settings, cosmo_from_numpy(c), linear_from_numpy(
+        lin), device=device, max_chunk=1, norm_override=nrm,
+        prepare_on_host=prepare_on_host)
+    return lane(res, 0)
 
 
 def settings_from_params(p: ParamsFile) -> tuple[RunSettings, CosmoParams]:

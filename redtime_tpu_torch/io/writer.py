@@ -53,3 +53,9 @@ def write_result(f: IO[str], res, params_file_name: str | None = None
                 f"sigma_v^2={_g(sv2[i])}\n")
         f.write(_format_block(table[i]))
         f.write("\n\n")
+
+
+def write_result_to_path(path: str, res,
+                         params_file_name: str | None = None) -> None:
+    with open(path, "w") as f:
+        write_result(f, res, params_file_name)

@@ -67,10 +67,9 @@ def _check_kernel_shape(tab: torch.Tensor, G: torch.Tensor) -> None:
                          f"along O and even row and family strides (16-byte "
                          f"rows), got strides {G.stride()}; see "
                          f"out_leg.padded")
-    step = build.lib().rt_out_leg_k_step()  # K split x K-step of its ring
-    if K % step or K & (K - 1):
-        raise ValueError(f"out_leg: the kernel takes K = 2np a power of two "
-                         f"and a multiple of {step}, got {K}")
+    if K % 2:  # the kernel reads tab's rows in 16-byte copies
+        raise ValueError(f"out_leg: the kernel takes an even K = 2np, got "
+                         f"{K}")
     if nfam > 65535 // 8 or B > 16 * 65535:  # grid z: nfam x K split <= 8
         raise ValueError(f"out_leg: grid too large for B={B}, nfam={nfam}")
     if tab.numel() >= 2**31:

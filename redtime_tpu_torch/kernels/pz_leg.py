@@ -57,10 +57,8 @@ def pz_leg(T_sl: torch.Tensor, P_e: torch.Tensor, kfac: torch.Tensor,
         raise RuntimeError(f"pz_leg: no kernel for device {P_e.device}")
     _, nk, npts = T_sl.shape
     B = P_e.shape[0]
-    step = build.lib().rt_pz_leg_k_step()  # K split x K-step of its ring
-    if npts % step:
-        raise ValueError(f"pz_leg: the kernel takes np a multiple of "
-                         f"{step}, got {npts}")
+    if npts % 2:  # the kernel reads the rows in 16-byte copies
+        raise ValueError(f"pz_leg: the kernel takes an even np, got {npts}")
     if any(x.data_ptr() % 16 for x in (T_sl, P_e)):
         raise ValueError("pz_leg: T_sl and P_e must be 16-byte aligned")
     out = torch.empty((B, 7, 3, 3, nk), dtype=torch.float64,

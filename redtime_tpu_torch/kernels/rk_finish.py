@@ -23,7 +23,8 @@ finish is a fused elementwise pass plus one max-reduction per lane over
 D = 41 nk elements (~5k at nk=128), bound by reading s + 1 rows of D f64
 per lane: one thread-block cluster per lane reads each row once, keeps
 its slice in registers, finds r through the cluster's shared memory and
-writes the chosen state from registers.  Every product and sum rounds
+writes the chosen state from registers (a slice too large for the
+registers, D > 32768, runs in passes: `in_passes`).  Every product and sum rounds
 once, as in the plain versions (and the JAX controller), so the error
 norm r — which divides by eabs + erel|y_new| and so amplifies the
 rounding of a cancelling y + h sum b k — and with it every accept/reject
@@ -53,7 +54,7 @@ CLUSTER_SIZES = (1, 2, 4, 8)     # blocks that split one lane's D elements
 # accesses (of 16 or 8 bytes) a block takes before the lane is split
 # further (256 threads, two each), and the most it keeps in registers
 # (eight each: MAX_UPT * THREADS of csrc/rk_attempt.cu, whose launcher
-# refuses more)
+# runs a larger slice in passes)
 _UNITS_PER_BLOCK, _MAX_UNITS_PER_BLOCK = 512, 2048
 _F64 = torch.float64
 
@@ -202,16 +203,21 @@ def cluster_plan(D: int, aligned: bool) -> tuple:
     even and the rows are 16-byte aligned, else 8-byte ones; cl, the
     smallest of CLUSTER_SIZES that leaves a block at most _UNITS_PER_BLOCK
     accesses (8 at D = 5248, 1 for the growth states), or 8 when none
-    does.  Raises when a block's slice would exceed what it keeps in
-    registers."""
+    does (see in_passes)."""
     vec = aligned and D % 2 == 0
     units = D // 2 if vec else D
     cl = next((c for c in CLUSTER_SIZES if units <= c * _UNITS_PER_BLOCK),
               CLUSTER_SIZES[-1])
-    if -(-units // cl) > _MAX_UNITS_PER_BLOCK:
-        raise ValueError(f"rk_finish: D={D} is more than {cl} blocks of "
-                         f"{_MAX_UNITS_PER_BLOCK} accesses hold")
     return cl, vec
+
+
+def in_passes(D: int, cl: int, vec: bool) -> bool:
+    """Whether a block's slice of a lane of D f64 (cl blocks a lane,
+    16-byte accesses when vec) exceeds what it keeps in registers, so the
+    kernel loops over it in passes: D > 32768 (16384 when D is odd) at
+    cl = 8, nk > 799 on the eta state."""
+    units = D // 2 if vec else D
+    return -(-units // cl) > _MAX_UNITS_PER_BLOCK
 
 
 def _check_kernel_shape(name: str, y, consts) -> None:

@@ -22,8 +22,20 @@ redshifts), and measures:
     of the evolution: the count of device kernels, the device's busy time
     and its idle share of the profiled wall, and the top device kernels.
 
+With --placements it measures instead the walls of driver.run_batch over
+the bench's design (latin_hypercube(B, seed=42)) at B = 16, 64 and 128
+(--batches), full TRG and 1-loop, for the two prepare placements:
+  card: prepare_on_host=False, each chunk prepared on the card;
+  host: prepare_on_host=True (the default), each chunk prepared on the
+      host CPU, then copied to the card;
+in rounds (card, host), (host, card), after one untimed chunk per mode,
+each with its StageTimer stages (prepare, solve); before them,
+prepare_model of one chunk on the host CPU at one torch thread (as
+run_batch prepares there) and at torch's default.
+
 Prints each result and writes them all as JSON to PATH (default
-chiprun_out/profile_torch_port[_oneloop].json).  Imports nothing of JAX.
+chiprun_out/profile_torch_port[_oneloop|_placements].json).  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -194,21 +206,95 @@ def profile_phases(cfg, settings, m, cs, lins, ec, out: dict) -> None:
     _show("first interval", out["profile_first_interval"])
 
 
+PLACEMENTS = {"card": False, "host": True}   # prepare_on_host
+
+
+def host_prepare_threads(out: dict) -> None:
+    """prepare_model of one chunk on the host CPU at one torch thread and
+    at torch's default count, in turns (1, default, default, 1), both
+    modes' chunk sizes."""
+    default = torch.get_num_threads()
+    cfg = SolverConfig()
+    rows = out["host_prepare_threads"] = []
+    for B in (chip_smoke.N_DESIGN, chip_smoke.N_DESIGN_1L):
+        cs, lins = chip_smoke.design_inputs(B)
+        chunk = ([x.numpy() for x in cs], list(lins), None)
+        driver._prepare_chunk(cfg, chunk, "cpu")          # warm-up
+        for n in (1, default, default, 1):
+            with driver._torch_threads(n):
+                t0 = time.perf_counter()
+                driver._prepare_chunk(cfg, chunk, "cpu")
+                rows.append(dict(lanes=B, threads=n,
+                                 seconds=time.perf_counter() - t0))
+            print(json.dumps(rows[-1]))
+
+
+def placements(batches, out: dict) -> None:
+    """run_batch walls of each placement at each batch, both modes."""
+    from redtime_tpu_torch.profiling import StageTimer
+
+    modes = {"full_trg": (SolverConfig(), RunSettings(
+                 one_loop=False, z_out=chip_smoke.Z_OUT)),
+             "oneloop": (SolverConfig(print_bias=True), RunSettings(
+                 one_loop=True, z_out=chip_smoke.Z_OUT_1L))}
+    runs = out["placements"] = []
+    for mode, (cfg, settings) in modes.items():
+        cs, lins = chip_smoke.design_inputs(16)
+        t0 = time.perf_counter()
+        driver.run_batch(cfg, settings, cs, lins, device="cuda")
+        sync()
+        print(f"{mode} set-up (one untimed chunk of 16): "
+              f"{time.perf_counter() - t0:.3f} s")
+        for B in batches:
+            cs, lins = chip_smoke.design_inputs(B)
+            for rnd, order in enumerate((list(PLACEMENTS),
+                                         list(PLACEMENTS)[::-1])):
+                for name in order:
+                    timer = StageTimer(enabled=False)
+                    t0 = time.perf_counter()
+                    res = driver.run_batch(cfg, settings, cs, lins,
+                                           device="cuda", timer=timer,
+                                           prepare_on_host=PLACEMENTS[name])
+                    sync()
+                    wall = time.perf_counter() - t0
+                    bad = driver.finite_report(res)
+                    chip_smoke.check(len(bad) == 0, f"{mode} B={B} {name}: "
+                                     f"non-finite lanes {list(bad)}")
+                    row = dict(mode=mode, batch=B, placement=name,
+                               round=rnd, wall_s=wall,
+                               cosmologies_per_min=B / wall * 60.0,
+                               stages_s=dict(timer.times))
+                    runs.append(row)
+                    print(json.dumps(row))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--oneloop", action="store_true",
                     help="the 1-loop cell instead of the full-TRG one")
+    ap.add_argument("--placements", action="store_true",
+                    help="time the prepare placements instead")
+    ap.add_argument("--batches", default="16,64,128",
+                    help="batch sizes of --placements")
     ap.add_argument("--out")
     args = ap.parse_args()
     out_path = args.out or os.path.join(
         ROOT, "chiprun_out", "profile_torch_port"
-        + ("_oneloop" if args.oneloop else "") + ".json")
+        + ("_placements" if args.placements else "_oneloop" if args.oneloop
+           else "") + ".json")
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
         return 2
     out = {"card": chip_smoke.card_line()}
     print(out["card"])
     build.build()
+    if args.placements:
+        host_prepare_threads(out)
+        placements([int(b) for b in args.batches.split(",")], out)
+        os.makedirs(os.path.dirname(out_path), exist_ok=True)
+        with open(out_path, "w") as f:
+            json.dump(out, f, indent=1)
+        return 0
     dev = torch.device("cuda")
     if args.oneloop:
         B = chip_smoke.N_DESIGN_1L

@@ -30,6 +30,7 @@ from redtime_tpu import model as jm
 from redtime_tpu.config import SolverConfig as JCfg
 from redtime_tpu_torch import fastpt as tf
 from redtime_tpu_torch.config import SolverConfig as TCfg
+from redtime_tpu_torch.grids import make_grids
 
 EPS = np.finfo(np.float64).eps
 DOT = dict(out_leg="dot", tab_leg="dot", pz_leg="dot", fwd_leg="dot")
@@ -136,6 +137,16 @@ def test_engine_matches_jax(nk, mode):
 
 
 def test_engine_without_rsd_zeroes_the_rsd_families():
+    """Without RSD the seven Jn0 families are zero and the other seven
+    are the same map as with RSD.  The tab leg (sab @ dft_bwd_half) and
+    the output leg contract 7 or 14 families in one GEMM each, and the
+    CPU's f64 GEMM (MKL) blocks by the operands' shapes, so the two
+    agree within twice the forward-error bound of that chain: the tab
+    leg's np-term dots (|delta tab| <= np eps |sab| @ |D|, D =
+    dft_bwd_half), the pair product and the output leg's 2np-term dot,
+    (2 np + 4 + 2np) eps (|tab_a| |tab_c| / 2np) @ |G| with |tab|
+    bounded by |sab| @ |D|.  The PZ leg does not depend on the families:
+    the same bits."""
     tc = TCfg(nk=32)
     lnP, ns = _spectra(32)
     ec = tf.engine_consts(tc, "cpu")
@@ -143,8 +154,29 @@ def test_engine_without_rsd_zeroes_the_rsd_families():
     J7, lo7, PZ7 = tf.compute_J_PZ_windowed(tc, P, False, ec)
     J14, lo14, PZ14 = tf.compute_J_PZ_windowed(tc, P, True, ec)
     assert torch.all(J7[:, 7:] == 0)
-    torch.testing.assert_close(J7[:, :7], J14[:, :7], rtol=0, atol=0)
-    torch.testing.assert_close(lo7, lo14, rtol=0, atol=0)
+    # |tab| bound of the first 7 families and the output leg's |.| map
+    g = make_grids(tc)
+    half, K = g.npts // 2, 2 * g.npts
+    Pn = P.numpy()
+    ci = (Pn * ec.kbias.numpy()) @ ec.dft_fwd_half.numpy()
+    ca = np.abs(ci[:, None, :, :half] + 1j * ci[:, None, :, half:])
+    gam = [np.abs(getattr(ec, f"g{s}_re").numpy()[:7, None]
+                  + 1j * getattr(ec, f"g{s}_im").numpy()[:7, None])
+           for s in "ab"]
+    # |s_r|, |s_i| <= |ca| |g| (the coefficients' complex products)
+    sab = np.stack([np.concatenate([ca * g_] * 2, axis=-1) for g_ in gam],
+                   axis=1)                          # [B, 2, 7, 3, 2 half]
+    tab_abs = sab @ np.abs(ec.dft_bwd_half.numpy())  # [B, 2, 7, 3, 2np]
+    prod = tab_abs[:, 0, :, :, None, :] * tab_abs[:, 1, :, None, :, :] / K
+    G = np.abs(ec.G.numpy()[:7])
+    lin = (prod.reshape(2, 7, 9, K) @ G).reshape(2, 7, 3, 3, -1)
+    bound = 2 * (2 * (g.npts + 2) + K) * EPS * lin
+    # the bound's own rounding: one more relative eps of margin
+    bound *= 1 + 4 * K * EPS
+    err = (J7[:, :7] - J14[:, :7]).abs().numpy()
+    assert np.all(err <= bound[..., :32])
+    assert abs(float(lo7[0] - lo14[0])) <= bound[0, 0, 0, 0, 32]
+    assert abs(float(lo7[1] - lo14[1])) <= bound[1, 0, 0, 0, 32]
     torch.testing.assert_close(PZ7, PZ14, rtol=0, atol=0)
 
 

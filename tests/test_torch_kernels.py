@@ -312,11 +312,16 @@ def test_cluster_plan(D, aligned, cl, vec):
 
 
 def test_cluster_plan_refuses_what_a_cluster_cannot_hold():
-    k3.cluster_plan(2 * 8 * 2048, True)
-    with pytest.raises(ValueError, match="blocks"):
-        k3.cluster_plan(2 * 8 * 2048 + 2, True)
-    with pytest.raises(ValueError, match="blocks"):
-        k3.cluster_plan(8 * 2048 + 1, False)
+    """A lane that eight blocks cannot keep in registers takes eight
+    blocks that loop over their slices in passes (any D runs)."""
+    for D, aligned, passes in ((2 * 8 * 2048, True, False),
+                               (2 * 8 * 2048 + 2, True, True),
+                               (8 * 2048, False, False),
+                               (8 * 2048 + 1, False, True),
+                               (41 * 1024, True, True), (5248, True, False)):
+        cl, vec = k3.cluster_plan(D, aligned)
+        assert k3.in_passes(D, cl, vec) is passes, D
+        assert cl == 8 or not passes
 
 
 def test_launch_counts_by_phase():
@@ -426,6 +431,10 @@ K1_SHAPES = [(B, nfam, K, O) for B in (1, 3, 16, 33) for nfam in (7, 14)
 # (B, nk, np): the default, v0.1 and HIGH_ACCURACY grids
 K2_SHAPES = [(B, nk, npts) for B in (1, 3, 16, 33)
              for nk, npts in ((128, 512), (256, 2048), (512, 2048))]
+# (nk, np_factor): grids whose 2np is no power of two or whose np leaves
+# a ragged last K-step (nk = 16, 48, 96 at np = 4nk; np_factor 8 at
+# nk = 128 and 48; an odd nk)
+RAGGED_GRIDS = [(16, 4), (48, 4), (96, 4), (128, 8), (48, 8), (37, 4)]
 
 
 def _k1_bound(tab, G):
@@ -490,8 +499,8 @@ def test_cuda_out_leg_shapes(cuda_device):
         err = (J - k1.out_leg_plain(tab, G)).abs()
         assert bool((err <= _k1_bound(tab, G)).all()), (B, nfam, K, O)
         assert torch.equal(J, k1.out_leg(tab, G)), (B, nfam, K, O)
-    with pytest.raises(ValueError, match="power of two"):
-        k1.out_leg(tab[..., :768].contiguous(), G[:, :768])
+    with pytest.raises(ValueError, match="even K"):
+        k1.out_leg(tab[..., :767].contiguous(), G[:, :767])
 
 
 @pytest.mark.cuda
@@ -510,6 +519,37 @@ def test_cuda_pz_leg_shapes(cuda_device):
         err = (PZ - k2.pz_leg_plain(*args)).abs()
         assert bool((err <= _k2_bound(*args)).all()), (B, nk, npts)
         assert torch.equal(PZ, k2.pz_leg(*args)), (B, nk, npts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk,np_factor", RAGGED_GRIDS)
+def test_cuda_legs_on_ragged_grids(cuda_device, nk, np_factor):
+    """On the card: K1 and K2 on the engine's own constants of grids
+    whose K is no multiple of the kernels' K-steps, against their plain
+    versions within the dot-product bounds, the same bits on two calls;
+    B = 2 and 16 lanes, 7 and 14 families."""
+    cfg = TCfg(nk=nk, np_factor=np_factor)
+    ec = tf.engine_consts(cfg, cuda_device)
+    rng = np.random.default_rng(nk * np_factor)
+    K = 2 * cfg.npts
+    for B in (2, 16):
+        for nfam in (7, tf.NFAM):
+            tab = torch.as_tensor(rng.standard_normal((B, 2, nfam, 3, K)),
+                                  device=cuda_device)
+            G = ec.G[:nfam]
+            J = k1.out_leg(tab, G)
+            err = (J - k1.out_leg_plain(tab, G)).abs()
+            assert bool((err <= _k1_bound(tab, G)).all()), (B, nfam)
+            assert torch.equal(J, k1.out_leg(tab, G)), (B, nfam)
+        lnP = torch.as_tensor(8.0 - 0.3 * rng.standard_normal((B, 3, nk)),
+                              device=cuda_device)
+        P = tf.extend_power(cfg, lnP, torch.full(
+            (B,), 0.96, dtype=torch.float64, device=cuda_device), ec)
+        args = (ec.toeplitz_sl, P, ec.pz_kfac_sl, cfg.nshift)
+        PZ = k2.pz_leg(*args)
+        assert bool(((PZ - k2.pz_leg_plain(*args)).abs()
+                     <= _k2_bound(*args)).all()), B
+        assert torch.equal(PZ, k2.pz_leg(*args)), B
 
 
 # (tableau, D): the main path's states (growth ramp, growth segments,
@@ -545,9 +585,38 @@ def test_cuda_rk_finish_matches_plain(cuda_device):
         assert out[4].isnan().tolist() == [False, True] + [False] * 6
         for a, b in zip(out, ref):
             torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
-    with pytest.raises(ValueError, match="blocks"):
-        k3.rk_finish(*_rk_args(1, 2 * 8 * 2048 + 2, rng, cuda_device)[0],
-                     consts)
+
+
+# (tableau, D) of lanes that eight blocks cannot keep in registers: the
+# eta state at nk = 1024 (16-byte accesses) and an odd D above 16384
+# (8-byte ones, nk = 401)
+RK_PASSES_SHAPES = [("RKF45", 41 * 1024), ("DOP853", 41 * 401)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,D", RK_PASSES_SHAPES)
+def test_cuda_rk_attempt_in_passes(cuda_device, name, D):
+    """On the card: K3 on a lane larger than a cluster's registers hold
+    (its blocks loop over their slices): rk_finish's five outputs and
+    rk_stage at every stage bit-equal to the plain versions, accepted,
+    rejected and frozen lanes alike."""
+    rng = np.random.default_rng(D)
+    args, consts = _rk_args(8, D, rng, cuda_device, getattr(tode, name))
+    # steps from 1e-12 (accepted) to 1 (rejected)
+    args[3] = torch.logspace(-12, 0, 8, dtype=torch.float64,
+                             device=cuda_device)
+    cl, vec = k3.cluster_plan(D, True)
+    assert k3.in_passes(D, cl, vec)
+    ref = k3.rk_finish_plain(*args, consts.b, consts.e, consts.prm)
+    rej = ref[4] > k3.REJECT_ABOVE
+    assert 0 < int(rej.sum()) < 8
+    for _ in range(2):
+        for i, (a, b) in enumerate(zip(k3.rk_finish(*args, consts), ref)):
+            assert torch.equal(a, b), (name, D, i)
+    y, ks, h = args[0], args[1], args[3]
+    for i in range(1, consts.s):
+        assert torch.equal(k3.rk_stage(y, ks, h, consts, i),
+                           k3.rk_stage_plain(y, ks, h, consts.a[i], i)), i
 
 
 @pytest.mark.cuda
