@@ -20,7 +20,14 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
      could take (bound_ms, by bytes or operations); then K1 and K2 at
      every shape the port uses and on grids with ragged K-steps
      (check_leg_shapes), and two calls of each must give the same bits;
-     K3 also on lanes too large for a cluster's registers (in passes);
+     K3 also on lanes too large for a cluster's registers (in passes),
+     and under both final-step rules (h > dt, the chunked scheduler's,
+     and h >= dt, the packed one's) at the main path's three cases and
+     at the presets' eta states (D = 41 nk at nk = 512, 256), all six
+     outputs bit for bit, reached included; then K1, K2 and K3 at the
+     shapes of
+     the presets' phase (nk, np = 512, 2048 and 256, 2048; 2 lanes),
+     checked and timed with their bounds (preset_rows);
   4. checks the probe kernels K4 affine, K5 int8_dot and K6 dd_mul
      against their plain versions on the card, bit for bit, at the
      probes' shapes, at one larger shape each and on ragged sizes, and
@@ -50,17 +57,32 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
      32 design cosmologies (one GPU chunk), SolverConfig(print_bias=True),
      the redshifts (5, 4, 3, 2, 1, 0.5, 0); the same checks against
      tests/data/torch_port_golden_oneloop_nk128.npz (gen_torch_port_golden
-     --oneloop), and the PT and PMR columns must be populated;
+     --case oneloop), and the PT and PMR columns must be populated;
   7. runs full TRG over the bench's batch of 64 (4 chunks, each
      prepared on the host, then solved), lanes 0-1 against the golden,
      with its wall and the host time in prepare;
-     the CLI (`batch` over 4 params files written with the port's io,
-     `run` over one) at nk=128, against run_batch on the same inputs; and
-     full TRG at nk=48 (a grid whose K-steps end ragged in K1 and K2),
-     against the port's own CPU run, and once more in chunks of one lane
-     (whether a lane's bits depend on its chunk on the card: printed,
-     not checked);
-  8. prints the kernels' JSON line, the card line and, last, the result.
+  8. runs the packed scheduler (run_batch(scheduler="packed")): full TRG
+     over the same 64 on 16 lanes and 1-loop over step 6's 32 on 8
+     lanes, each against its golden and within the controller band (3e-5
+     of column scale) of the chunked table on the same inputs, with its
+     wall, prepare / solve split, iterations and attempts per cosmology;
+  9. runs the CLI (`batch` over 4 params files written with the port's
+     io, `run` over one) at nk=128, against run_batch on the same inputs,
+     and `batch --scheduler packed --lanes 2` against
+     run_batch(scheduler="packed", n_lanes=2);
+ 10. runs the presets at their full settings, SolverConfig.high_accuracy()
+     and v01_compat(), 2 design lanes, 1-loop, z_out (1, 0), against
+     their JAX goldens (tests/data/torch_port_golden_{high_accuracy,
+     v01_compat}.npz, gen_torch_port_golden --case), with the same
+     bounds; and full TRG at nk=48 (a grid whose K-steps end ragged in
+     K1 and K2), against the port's own CPU run, and once more in chunks
+     of one lane (whether a lane's bits depend on its chunk on the card:
+     printed, not checked);
+ 11. prints the kernels' JSON line, the card line and, last, the result.
+
+Every path from step 4 on runs with the launch counters set to 0 just
+before it and read just after, and must have launched K1-K3 (the probes:
+K4-K7 and K1).
 
 Any failed phase raises, and the script exits non-zero without a result.
 It imports nothing of JAX.  Details go to chiprun_out/chip_smoke.json.
@@ -81,6 +103,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "data", "torch_port_golden_nk128.npz")
 GOLDEN_1L = os.path.join(HERE, "tests", "data",
                          "torch_port_golden_oneloop_nk128.npz")
+# the presets' JAX goldens (scripts/gen_torch_port_golden.py --case):
+# name -> (nk, path); 1-loop at Z_OUT_PRESETS
+GOLDEN_PRESETS = {
+    name: (nk, os.path.join(HERE, "tests", "data",
+                            f"torch_port_golden_{name}.npz"))
+    for name, nk in (("high_accuracy", 512), ("v01_compat", 256))}
+Z_OUT_PRESETS = (1.0, 0.0)
 DETAIL = os.path.join(HERE, "chiprun_out", "chip_smoke.json")
 Z_OUT = (2.02, 1.61, 1.01, 0.66, 0.43, 0.24, 0.10, 0.0)
 Z_OUT_1L = (5.0, 4.0, 3.0, 2.0, 1.0, 0.5, 0.0)
@@ -290,6 +319,34 @@ def rk_inputs(rng, tab, B: int, D: int, eabs: float, dev) -> list:
     return [y, ks, tt, h, t1, n, active]
 
 
+def final_rule_lanes(args) -> list:
+    """rk_inputs' attempt with two lanes the final-step rule tells apart,
+    both active and with steps small enough to be accepted: lane 0 steps
+    exactly onto t1 (h == t1 - t: final under h >= dt, not under h > dt);
+    lane 1 steps just short of t1 where t + h rounds onto t1 (h < t1 - t:
+    final under neither rule, and t_out lands on t1 all the same)."""
+    y, ks, t, h, t1, n, active = [x.clone() for x in args]
+    t[0], t[1] = 0.25, 3.0
+    t1[0] = t[0] + 2.0 ** -40
+    t1[1] = t[1] + 4 * float(np.spacing(3.0))
+    h[0] = t1[0] - t[0]
+    h[1] = float(np.nextafter(float(t1[1] - t[1]), 0.0))
+    active[:2] = True
+    return [y, ks, t, h, t1, n, active]
+
+
+# rk_finish's outputs, in order
+K3_OUTPUTS = ("y", "t", "h", "n", "r", "reached")
+
+
+def rk_finish_cost(y, ks) -> dict:
+    """least_time of one rk_finish: y, ks, t, h, t1, n, active, b, e and
+    prm in; y, t, h, n, r and reached out; 2 s + 4 flops an element."""
+    s, (B, D) = ks.shape[0], y.shape
+    return least_time(8.0 * (2 * B * D + s * B * D + 8 * B + 2 * s + 9)
+                      + 2 * B, 2.0 * B * D * (2 * s + 4), PEAK_FP64)
+
+
 def same_bits(a, b) -> bool:
     """torch.equal, with NaNs in the same places counted as equal."""
     return a.shape == b.shape and bool(
@@ -300,10 +357,10 @@ def check_rk_finish(rng, cfg, dev) -> list:
     """K3's rk_finish against its plain version on one attempt of each
     rk_cases entry, of an odd D (8-byte accesses, eight a thread) and of
     a D whose blocks end ragged: y, t, h, n, r and the accept/reject
-    masks bit for bit (the kernel rounds every operation alone, as the
-    plain version does, and CUDA's pow, which r and h go through, is the
-    routine torch.pow runs).  Each case must reject some lanes and accept
-    others; then the same inputs a second time (the same bits), with a
+    masks bit for bit, reached included (the kernel rounds every
+    operation alone, as the plain version does, and CUDA's pow, which r
+    and h go through, is the routine torch.pow runs).  Each case must
+    reject some lanes and accept others; then the same inputs a second time (the same bits), with a
     NaN in one lane's stages (r is NaN there, as torch.amax gives it, the
     other lanes untouched) and with every lane frozen (the state comes
     back as it went in)."""
@@ -325,7 +382,7 @@ def check_rk_finish(rng, cfg, dev) -> list:
                                              consts.prm)
         out, ref = k3.rk_finish(*args, consts), plain(args)
         what = f"rk_finish {case}"
-        for x, want, name in zip(out, ref, "ythnr"):
+        for x, want, name in zip(out, ref, K3_OUTPUTS):
             check(bool(torch.equal(x, want)),
                   f"{what}: {name} not bit-equal to plain")
         rej = ref[4] > k3.REJECT_ABOVE
@@ -345,7 +402,7 @@ def check_rk_finish(rng, cfg, dev) -> list:
         frozen = args[:6] + [torch.zeros_like(args[6])]
         still = k3.rk_finish(*frozen, consts)
         for x, a, b in zip(got + still, want + plain(frozen),
-                           "ythnr" * 2):
+                           K3_OUTPUTS * 2):
             check(same_bits(x, a), f"{what}: {b} differs from plain with a "
                                    "NaN lane or with every lane frozen")
         for i, j in ((0, 0), (1, 2), (2, 3), (3, 5)):
@@ -361,6 +418,121 @@ def check_rk_finish(rng, cfg, dev) -> list:
             max_abs_err=float((out[0] - ref[0]).abs().max()),
             rejected=int(rej.sum()), args=args, consts=consts))
     return out_cases
+
+
+# the presets' eta states (SolverConfig.high_accuracy / v01_compat: RKF45
+# at eabs 1e-15, erel 1e-6), where the packed scheduler also runs K3
+RK_PRESETS = [("eta high_accuracy", "RKF45", 41 * 512, 1e-15, 1e-6),
+              ("eta v01_compat", "RKF45", 41 * 256, 1e-15, 1e-6)]
+
+
+def check_rk_final_rule(rng, cfg, dev) -> list:
+    """K3's rk_finish under both final-step rules (h > dt, the chunked
+    scheduler's; h >= dt, the packed one's) on final_rule_lanes' attempt
+    at each rk_cases entry and at RK_PRESETS: all six outputs bit-equal
+    to plain, reached included; reached set under h >= dt alone in lane
+    0, and in neither rule in lane 1, whose t lands on t1 all the same.
+    Each case timed under h >= dt.  Returns the cases."""
+    import torch
+
+    from redtime_tpu_torch import ode
+    from redtime_tpu_torch.kernels import rk_finish as k3
+
+    out_cases = []
+    for case, tname, D, eabs, erel in rk_cases(cfg) + RK_PRESETS:
+        tab = getattr(ode, tname)
+        args = final_rule_lanes(rk_inputs(rng, tab, B_CHECK, D, eabs, dev))
+        reached, err = {}, 0.0
+        for ge in (False, True):
+            consts = k3.attempt_consts(tab, eabs, erel, dev,
+                                       final_at_equal=ge)
+            out = k3.rk_finish(*args, consts)
+            ref = k3.rk_finish_plain(*args, consts.b, consts.e, consts.prm,
+                                     ge)
+            what = f"rk_finish {case}, {'h >= dt' if ge else 'h > dt'}"
+            for x, want, name in zip(out, ref, K3_OUTPUTS):
+                check(bool(torch.equal(x, want)),
+                      f"{what}: {name} not bit-equal to plain")
+            check(float(out[1][1]) == float(args[4][1])
+                  and not bool(out[5][1]),
+                  f"{what}: lane 1 must land on t1 without reaching it")
+            err = max(err, float((out[0] - ref[0]).abs().max()))
+            reached[ge] = out[5]
+        check(bool(reached[True][0]) and not bool(reached[False][0]),
+              f"rk_finish {case}: lane 0 reaches t1 under h >= dt alone")
+        row = dict(case=case, tableau=tname, D=D, eabs=eabs, erel=erel,
+                   rule="h >= dt", max_abs_err=err,
+                   reached=int(reached[True].sum()))
+        row.update(measure(
+            lambda: k3.rk_finish(*args, consts),
+            lambda: k3.rk_finish_plain(*args, consts.b, consts.e, consts.prm,
+                                       True))[0])
+        row.update(rk_finish_cost(args[0], args[1]))
+        out_cases.append(row)
+        print(f"rk_finish {case} ({tname}, D={D}) under both final-step "
+              f"rules: all six outputs bit-equal to plain; h >= dt "
+              f"{row['ms']:.4f} ms eager, {row['device_ms']:.4f} ms device "
+              f"(plain {row['plain_ms']:.4f} / {row['plain_device_ms']:.4f};"
+              f" bound {row['bound_ms']:.5f})")
+    return out_cases
+
+
+def preset_rows(rng, detail: dict) -> dict:
+    """K1, K2 and K3 at the presets' shapes as their phase runs them (2
+    lanes, chunked): K1 and K2 on SolverConfig.high_accuracy()'s and
+    v01_compat()'s engine constants (leg_rows), K3's rk_finish and
+    rk_stage (stage 5) on their eta states (RKF45, D = 41 nk), bit-equal
+    to plain; each timed, with its bound.  Returns {kernel: {preset:
+    row}}."""
+    import torch
+
+    from redtime_tpu_torch import ode
+    from redtime_tpu_torch.config import SolverConfig
+    from redtime_tpu_torch.kernels import rk_finish as k3
+
+    dev = torch.device("cuda")
+    out: dict = {}
+    keep = ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
+            "bound_ms", "bound_by", "max_abs_err")
+    for name in GOLDEN_PRESETS:
+        cfg = getattr(SolverConfig, name)()
+        B = 2
+        for r in leg_rows(rng, cfg, B, detail, f"_{name}"):
+            out.setdefault(r["name"], {})[name] = dict(
+                {k: r[k] for k in keep}, B=B, nk=cfg.nk, np=cfg.npts)
+        consts = k3.attempt_consts(ode.RKF45, cfg.eabs_P, cfg.erel_P, dev)
+        args = rk_inputs(rng, ode.RKF45, B, 41 * cfg.nk, cfg.eabs_P, dev)
+        got = k3.rk_finish(*args, consts)
+        want = k3.rk_finish_plain(*args, consts.b, consts.e, consts.prm)
+        for x, w, label in zip(got, want, K3_OUTPUTS):
+            check(bool(torch.equal(x, w)), f"rk_finish at {name}'s eta "
+                                           f"state: {label} not bit-equal")
+        t, _ = measure(lambda: k3.rk_finish(*args, consts),
+                       lambda: k3.rk_finish_plain(*args, consts.b, consts.e,
+                                                  consts.prm))
+        out.setdefault("rk_finish", {})[name] = dict(
+            t, **rk_finish_cost(args[0], args[1]), max_abs_err=0.0, B=B,
+            D=41 * cfg.nk)
+        y, ks, h = args[0], args[1], args[3]
+        i, D = 5, y.shape[1]
+        check(bool(torch.equal(k3.rk_stage(y, ks, h, consts, i),
+                               k3.rk_stage_plain(y, ks, h, consts.a[i], i))),
+              f"rk_stage at {name}'s eta state: not bit-equal")
+        t, _ = measure(lambda: k3.rk_stage(y, ks, h, consts, i),
+                       lambda: k3.rk_stage_plain(y, ks, h, consts.a[i], i))
+        out.setdefault("rk_stage", {})[name] = dict(
+            t, **least_time(8.0 * ((i + 2) * B * D + B + i),
+                            (2.0 * i + 1.0) * B * D, PEAK_FP64),
+            max_abs_err=0.0, B=B, D=D)
+        for kernel, by in out.items():
+            r = by[name]
+            print(f"{kernel} at {name}'s shape (B={B}): {r['ms']:.4f} ms "
+                  f"eager, {r['device_ms']:.4f} ms device (plain "
+                  f"{r['plain_ms']:.4f} / {r['plain_device_ms']:.4f}; "
+                  f"library {r['library_ms']}; bound {r['bound_ms']:.5f} by "
+                  f"{r['bound_by']})")
+    detail["preset_shapes"] = out
+    return out
 
 
 def check_rk_stage(rng, cfg, dev, detail: dict) -> dict:
@@ -409,21 +581,21 @@ def check_rk_stage(rng, cfg, dev, detail: dict) -> dict:
                      (2.0 * i + 1.0) * B * D, PEAK_FP64))
 
 
-def check_kernels(rng, detail: dict) -> list:
-    """Each kernel against its plain version at the main path's shapes."""
+def leg_rows(rng, cfg, B: int, detail: dict, tag: str = "") -> list:
+    """K1 and K2 on cfg's engine constants at B lanes, against their
+    plain versions: within the dot product's forward-error bound, the
+    same bits over two calls; timed with the library call beside them.
+    Returns their rows for the kernels' line (detail keys end in tag)."""
     import torch
 
     from redtime_tpu_torch import fastpt
-    from redtime_tpu_torch.config import SolverConfig
     from redtime_tpu_torch.kernels import out_leg as k1
     from redtime_tpu_torch.kernels import pz_leg as k2
-    from redtime_tpu_torch.kernels import rk_finish as k3
 
     dev = torch.device("cuda")
-    cfg = SolverConfig()
     ec = fastpt.engine_consts(cfg, dev)
     t = lambda x: torch.as_tensor(x, dtype=torch.float64, device=dev)
-    B, nk, npts = B_CHECK, cfg.nk, cfg.npts
+    nk, npts = cfg.nk, cfg.npts
     K = 2 * npts
     rows = []
 
@@ -437,11 +609,11 @@ def check_kernels(rng, detail: dict) -> list:
         prod.abs().reshape(B, fastpt.NFAM, 9, K), ec.G.abs()).reshape(
             J.shape)
     err = (J - J_ref).abs()
-    check(bool(torch.isfinite(J).all()), "out_leg: non-finite output")
+    check(bool(torch.isfinite(J).all()), f"out_leg{tag}: non-finite output")
     check(bool(torch.equal(J, k1.out_leg(tab, ec.G))),
-          "out_leg: two calls on the same inputs differ")
+          f"out_leg{tag}: two calls on the same inputs differ")
     check(bool((err <= bound).all()),
-          f"out_leg: max |delta|/bound {float((err / bound).max()):.3g}")
+          f"out_leg{tag}: max |delta|/bound {float((err / bound).max()):.3g}")
     nfam, O = fastpt.NFAM, ec.G.shape[-1]
     # the library yardstick: one batched DGEMM on the pair product,
     # materialized outside the timed region
@@ -450,7 +622,7 @@ def check_kernels(rng, detail: dict) -> list:
     t_k1, runs = measure(lambda: k1.out_leg(tab, ec.G),
                          lambda: k1.out_leg_plain(tab, ec.G),
                          lambda: torch.bmm(prod_mat, ec.G))
-    detail["out_leg_timing"] = runs
+    detail[f"out_leg_timing{tag}"] = runs
     rows.append(dict(
         name="out_leg", route="cuda",
         source="redtime_tpu_torch/csrc/out_leg.cu",
@@ -474,12 +646,12 @@ def check_kernels(rng, detail: dict) -> list:
     bound = (2 * npts * EPS * dot_abs[:, :, :, None, :]
              * (ec.pz_kfac_sl * P_e[:, None, None, :, sl]).abs())
     err = (PZ - PZ_ref).abs()
-    check(bool(torch.isfinite(PZ).all()), "pz_leg: non-finite output")
+    check(bool(torch.isfinite(PZ).all()), f"pz_leg{tag}: non-finite output")
     check(bool(torch.equal(PZ, k2.pz_leg(ec.toeplitz_sl, P_e, ec.pz_kfac_sl,
                                          cfg.nshift))),
-          "pz_leg: two calls on the same inputs differ")
+          f"pz_leg{tag}: two calls on the same inputs differ")
     check(bool((err <= bound).all()),
-          "pz_leg: max |delta|/bound "
+          f"pz_leg{tag}: max |delta|/bound "
           f"{float((err / bound.clamp(min=1e-300)).max()):.3g}")
     T2, P2 = ec.toeplitz_sl.view(7 * nk, npts), P_e.view(3 * B, npts)
     t_k2, runs = measure(
@@ -487,7 +659,7 @@ def check_kernels(rng, detail: dict) -> list:
         lambda: k2.pz_leg_plain(ec.toeplitz_sl, P_e, ec.pz_kfac_sl,
                                 cfg.nshift),
         lambda: torch.matmul(T2, P2.T))
-    detail["pz_leg_timing"] = runs
+    detail[f"pz_leg_timing{tag}"] = runs
     rows.append(dict(
         name="pz_leg", route="cuda",
         source="redtime_tpu_torch/csrc/pz_leg.cu",
@@ -495,6 +667,20 @@ def check_kernels(rng, detail: dict) -> list:
         max_abs_err=float(err.max()), **t_k2,
         **least_time(8.0 * (T2.numel() + P2.numel() + nk + PZ.numel()),
                 2.0 * 7 * nk * 3 * B * npts, PEAK_FP64_TC)))
+    return rows
+
+
+def check_kernels(rng, detail: dict) -> list:
+    """Each kernel against its plain version at the main path's shapes."""
+    import torch
+
+    from redtime_tpu_torch.config import SolverConfig
+    from redtime_tpu_torch.kernels import rk_finish as k3
+
+    dev = torch.device("cuda")
+    cfg = SolverConfig()
+    B = B_CHECK
+    rows = leg_rows(rng, cfg, B, detail)
 
     # K3 rk_finish at each tableau the main path runs it with (rk_cases)
     # and in passes (the grids of nk > 799); its row is the eta case, the
@@ -511,16 +697,12 @@ def check_kernels(rng, detail: dict) -> list:
             lambda: k3.rk_finish(*args, consts),
             lambda: k3.rk_finish_plain(*args, consts.b, consts.e,
                                        consts.prm))[0])
-        y, ks = args[0], args[1]
-        s, (Bc, D) = ks.shape[0], y.shape
-        # y, ks, t, h, t1, n, active, b, e, prm in; y, t, h, n, r out
-        c.update(least_time(8.0 * (2 * Bc * D + s * Bc * D + 8 * Bc + 2 * s + 9)
-                       + Bc, 2.0 * Bc * D * (2 * s + 4), PEAK_FP64))
+        c.update(rk_finish_cost(args[0], args[1]))
         print(f"rk_finish {c['case']} ({c['tableau']}, D={c['D']}, "
               f"{c['cluster']} blocks a lane): "
               f"{c['ms']:.4f} ms eager, {c['device_ms']:.4f} ms device "
               f"(plain {c['plain_ms']:.4f} / {c['plain_device_ms']:.4f}), "
-              f"y, t, h, n and r bit-equal to plain, {c['rejected']}/{B} lanes "
+              f"all six outputs bit-equal to plain, {c['rejected']}/{B} lanes "
               "rejected")
     eta = next(c for c in k3_cases if c["case"] == "eta")
     # the eta case with the lane split over fewer blocks than the wrapper
@@ -530,15 +712,23 @@ def check_kernels(rng, detail: dict) -> list:
         for cl in (2, 4, 8)}
     print(f"rk_finish eta by blocks a lane: {eta['device_ms_by_cluster']} "
           "ms device")
+    # under the packed scheduler's final-step rule too
+    rule_cases = check_rk_final_rule(np.random.default_rng(9753), cfg, dev)
+    eta_ge = next(c for c in rule_cases if c["case"] == "eta")
     rows.append(dict(
         name="rk_finish", route="cuda",
         source="redtime_tpu_torch/csrc/rk_attempt.cu",
         replaces="redtime_tpu/ode.py:161",
-        max_abs_err=max(c["max_abs_err"] for c in k3_cases),
+        also_replaces="redtime_tpu/trg.py:440 (the packed lane attempt)",
+        final_rules="h > dt (chunked) and h >= dt (packed): both bit-equal "
+                    "to plain, reached included",
+        max_abs_err=max(c["max_abs_err"] for c in k3_cases + rule_cases),
+        packed_rule_device_ms=eta_ge["device_ms"],
         **{k: eta[k] for k in ("ms", "device_ms", "plain_ms",
                                "plain_device_ms", "library_ms", "bound_ms",
                                "bound_by", "bound_bytes", "bound_ops")}))
     detail["rk_finish_cases"] = k3_cases
+    detail["rk_finish_final_rule_cases"] = rule_cases
     rows.append(check_rk_stage(np.random.default_rng(8765), cfg, dev,
                                detail))
     return rows
@@ -907,13 +1097,27 @@ def load_golden(golden: str, params: np.ndarray, settings, what: str):
     return gold
 
 
+def spread(xs) -> str:
+    """min / median / max of a list of counts."""
+    return f"{min(xs)} / {float(np.median(xs)):g} / {max(xs)}"
+
+
+def band_dev(got, ref) -> float:
+    """max |got - ref| over the column scale of ref (its max |.| over
+    lanes and k), the controller band's measure (bound 3e-5)."""
+    scale = np.max(np.abs(ref), axis=(0, 2), keepdims=True) + 1e-300
+    return float(np.max(np.abs(got - ref) / scale))
+
+
 def timed_run(what: str, cfg, settings, cs, lins, detail: dict, **kw):
     """One run_batch on the card with every launch counter set to 0 just
     before it and read just after; checks that every lane is finite, that
     the launches by phase add up and that the solve launched K1-K3; with
     host prepare (the default) that prepare launched none of them, with
-    card prepare that it ran K3.  Returns (result, launches with
-    by_phase, wall seconds, the run's StageTimer times)."""
+    card prepare that it ran K3.  kw goes to run_batch.  Returns (result,
+    launches with by_phase, wall seconds, the run's StageTimer: its
+    stages' times and its stats, attempts per cosmology and, packed,
+    iterations)."""
     import torch
 
     from redtime_tpu_torch import driver
@@ -945,7 +1149,7 @@ def timed_run(what: str, cfg, settings, cs, lins, detail: dict, **kw):
               f"{by_phase['prepare']}")
     else:
         check(k3_prep > 0, f"{what}: card prepare launched no K3")
-    return res, dict(launches, by_phase=by_phase), wall, dict(timer.times)
+    return res, dict(launches, by_phase=by_phase), wall, timer
 
 
 def run_path(what: str, cfg, settings, n_design: int, golden: str,
@@ -975,8 +1179,9 @@ def run_path(what: str, cfg, settings, n_design: int, golden: str,
     out, launches = {}, {}
     for key, kw in ((what, {}),
                     (f"{what}_card_prepare", dict(prepare_on_host=False))):
-        res, launches[key], wall, times = timed_run(key, cfg, settings, cs,
+        res, launches[key], wall, timer = timed_run(key, cfg, settings, cs,
                                                     lins, detail, **kw)
+        times = dict(timer.times)
         dev_col, dev_lin = golden_dev(res, gold, key)
         per_min = n_design / wall * 60.0
         detail[key] = dict(setup_s=setup, wall_s=wall, cosmologies=n_design,
@@ -995,7 +1200,7 @@ def run_path(what: str, cfg, settings, n_design: int, golden: str,
 
 def run_main_path(detail: dict, card: str) -> dict:
     """Full Time-RG, the bench's headline workload: its PT columns print
-    zero (the reference's output caveat)."""
+    zero (the reference's output caveat).  Returns the launch counts."""
     from redtime_tpu_torch.config import RunSettings, SolverConfig
 
     res, launches = run_path(
@@ -1007,9 +1212,10 @@ def run_main_path(detail: dict, card: str) -> dict:
     return launches
 
 
-def run_oneloop(detail: dict, card: str) -> dict:
+def run_oneloop(detail: dict, card: str) -> tuple:
     """1-loop mode with the PRINTBIAS columns, the bench's secondary
-    workload: k | 6 lin | 3 P | 5 P_B | 9 PT | 8 PMR."""
+    workload: k | 6 lin | 3 P | 5 P_B | 9 PT | 8 PMR.  Returns the launch
+    counts and the default placement's result."""
     from redtime_tpu_torch.config import RunSettings, SolverConfig
 
     res, launches = run_path(
@@ -1019,16 +1225,17 @@ def run_oneloop(detail: dict, card: str) -> dict:
     pt = res.table[..., 15:32].cpu().numpy()
     check(bool(np.all(np.any(pt != 0.0, axis=2))),
           "1-loop PT and PMR columns must be populated")
-    return launches
+    return launches, res
 
 
-def run_batch64(detail: dict, card: str) -> dict:
+def run_batch64(detail: dict, card: str) -> tuple:
     """Full TRG over the bench's batch (bench.py:65): 64 cosmologies of
     the design latin_hypercube(64, seed=42), with the golden's two
     cosmologies in lanes 0-1, in 4 chunks of 16 at the default placement
     (each chunk prepared on the host, then solved).  Every lane finite,
     lanes 0-1 held to the golden; prints the wall and the host time in
-    prepare, which the solve does not hide."""
+    prepare, which the solve does not hide.  Returns the launch counts and
+    the result."""
     from redtime_tpu_torch.config import RunSettings, SolverConfig
 
     cfg, settings = SolverConfig(), RunSettings(one_loop=False, z_out=Z_OUT)
@@ -1036,22 +1243,23 @@ def run_batch64(detail: dict, card: str) -> dict:
     params[:2] = design_params(N_DESIGN)[:2]
     gold = load_golden(GOLDEN, params, settings, "batch64")
     cs, lins = design_inputs(BATCH_BENCH, params)
-    res, launches, wall, times = timed_run("batch64", cfg, settings, cs,
+    res, launches, wall, timer = timed_run("batch64", cfg, settings, cs,
                                            lins, detail)
+    times, att = dict(timer.times), timer.stats["attempts"]
     dev_col, dev_lin = golden_dev(res, gold, "batch64")
     per_min = BATCH_BENCH / wall * 60.0
     detail["batch64"] = dict(wall_s=wall, cosmologies=BATCH_BENCH,
                              cosmologies_per_min=per_min, stages_s=times,
                              golden_dev_col_scale=dev_col,
                              golden_dev_linear_rel=dev_lin,
-                             launches=launches)
+                             attempts=att, launches=launches)
     print(f"batch64 path on {card}: {BATCH_BENCH} cosmologies in 4 chunks, "
           f"{wall:.3f} s = {per_min:.2f} cosmologies/min; host prepare "
           f"{times['prepare']:.3f} s (copies included, not hidden behind "
           f"the solve); solve {times['solve']:.3f} "
-          f"s; lanes 0-1 vs JAX golden {dev_col:.3g} of column scale, "
-          f"linear {dev_lin:.3g}")
-    return launches
+          f"s; attempts per cosmology {spread(att)}; lanes 0-1 vs JAX "
+          f"golden {dev_col:.3g} of column scale, linear {dev_lin:.3g}")
+    return launches, res
 
 
 def run_cli(detail: dict, card: str) -> dict:
@@ -1166,6 +1374,168 @@ def run_ragged_grid(detail: dict, card: str) -> dict:
     return launches
 
 
+def run_packed(what: str, cfg, settings, params: np.ndarray, lanes: int,
+               golden: str, chunked, detail: dict, card: str) -> dict:
+    """The packed scheduler through run_batch(scheduler="packed",
+    n_lanes=lanes) over the design cosmologies `params` at the default
+    placement (all prepared on the host at once, then one work-queue
+    solve), with the counters set to 0 just before and read just after
+    (timed_run: every lane finite, K1-K3 launched in the solve and none
+    in prepare); lanes 0-1 held to the JAX golden as the chunked paths
+    are, and every lane within the controller band (3e-5 of column
+    scale) of the chunked run's table on the same inputs.  Prints the
+    wall, the prepare / solve split, the loop's iterations and the
+    attempts per cosmology.  Returns the launch counts."""
+    n = len(params)
+    gold = load_golden(golden, params, settings, what)
+    cs, lins = design_inputs(n, params)
+    res, launches, wall, timer = timed_run(what, cfg, settings, cs, lins,
+                                           detail, scheduler="packed",
+                                           n_lanes=lanes)
+    dev_col, dev_lin = golden_dev(res, gold, what)
+    got, ref = res.table.cpu().numpy(), chunked.table.cpu().numpy()
+    check(got.shape == ref.shape, f"{what}: table shape {got.shape}")
+    dev_ch = band_dev(got, ref)
+    check(dev_ch <= 3e-5, f"{what}: vs the chunked table {dev_ch:.3g} of "
+                          "column scale (bound 3e-5)")
+    times, stats = dict(timer.times), timer.stats
+    att = stats["attempts"]
+    per_min = n / wall * 60.0
+    detail[what] = dict(
+        wall_s=wall, cosmologies=n, lanes=lanes, cosmologies_per_min=per_min,
+        stages_s=times, iterations=stats["iterations"], attempts=att,
+        golden_dev_col_scale=dev_col, golden_dev_linear_rel=dev_lin,
+        chunked_dev_col_scale=dev_ch, launches=launches)
+    print(f"{what} path on {card}: {n} cosmologies on {lanes} lanes, "
+          f"{wall:.3f} s = {per_min:.2f} cosmologies/min (prepare "
+          f"{times['prepare']:.3f} s, solve {times['solve']:.3f} s); "
+          f"{stats['iterations']} iterations, attempts per cosmology "
+          f"{spread(att)} (sum {sum(att)}); lanes 0-1 vs JAX golden "
+          f"{dev_col:.3g} of column scale, linear {dev_lin:.3g}; vs the "
+          f"chunked table {dev_ch:.3g}; launches by phase "
+          f"{launches['by_phase']}")
+    return launches
+
+
+def run_packed_paths(chunked64, chunked1l, detail: dict, card: str) -> dict:
+    """Full TRG over the bench's batch of 64 (run_batch64's inputs) on 16
+    lanes, and 1-loop over the 32 cosmologies of run_oneloop on 8 lanes,
+    each through run_packed against its chunked result."""
+    from redtime_tpu_torch.config import RunSettings, SolverConfig
+
+    params = design_params(BATCH_BENCH)
+    params[:2] = design_params(N_DESIGN)[:2]
+    return dict(
+        packed64=run_packed(
+            "packed64", SolverConfig(),
+            RunSettings(one_loop=False, z_out=Z_OUT), params, 16, GOLDEN,
+            chunked64, detail, card),
+        packed_oneloop=run_packed(
+            "packed_oneloop", SolverConfig(print_bias=True),
+            RunSettings(one_loop=True, z_out=Z_OUT_1L),
+            design_params(N_DESIGN_1L), 8, GOLDEN_1L, chunked1l, detail,
+            card))
+
+
+def run_cli_packed(detail: dict, card: str) -> dict:
+    """`batch --scheduler packed --lanes 2` over 4 params files written
+    by write_cli_inputs (full TRG, nk=128), with the counters set to 0
+    just before and read just after: rc 0, K1-K3 launched, every table
+    finite and within 3e-5 of column scale (its linear columns within
+    1e-10 relative) of run_batch(scheduler="packed", n_lanes=2) on the
+    same inputs, loaded by the CLI's own reader."""
+    import tempfile
+
+    import torch
+
+    from redtime_tpu_torch import cli, driver
+    from redtime_tpu_torch.config import CosmoParams, SolverConfig
+    from redtime_tpu_torch.io.camb import LinearData
+    from redtime_tpu_torch.kernels import counts
+
+    n = 4
+    with tempfile.TemporaryDirectory() as work:
+        paths = write_cli_inputs(work, design_params(n), Z_OUT)
+        out_dir = os.path.join(work, "out")
+        counts.reset()
+        t0 = time.perf_counter()
+        rc = cli.main(["batch", "--scheduler", "packed", "--lanes", "2",
+                       "-o", out_dir] + paths)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts.snapshot()
+        check(rc == 0, f"cli packed: batch rc {rc}")
+        for name in MAIN_KERNELS:
+            check(launches[name] > 0,
+                  f"cli packed: kernel {name} was not launched")
+        tables = [np.loadtxt(os.path.join(out_dir, f"redTime_M{i:03d}.dat"))
+                  for i in range(n)]
+        loaded = [cli._load(p, False) for p in paths]
+        cs = CosmoParams(*[torch.stack([c[i] for *_, c in loaded])
+                           for i in range(9)])
+        lins = LinearData(*[np.stack([lin[i] for _, lin, _, _ in loaded])
+                            for i in range(6)])
+        ref = driver.run_batch(SolverConfig(), loaded[0][2], cs, lins,
+                               device="cuda", scheduler="packed",
+                               n_lanes=2).table.cpu().numpy()
+    devs = []
+    for i, t in enumerate(tables):
+        r = ref[i].reshape(-1, ref.shape[-1])
+        check(t.shape == r.shape and bool(np.isfinite(t).all()),
+              f"cli packed: table {i} shape {t.shape} or non-finite")
+        dev = float(np.max(np.abs(t - r) / (np.max(np.abs(r), axis=0)
+                                            + 1e-300)))
+        lin = float(np.max(np.abs(t[:, :7] - r[:, :7])
+                           / (np.abs(r[:, :7]) + 1e-300)))
+        check(dev <= 3e-5 and lin <= 1e-10,
+              f"cli packed: table {i} vs run_batch {dev:.3g} of column "
+              f"scale, linear {lin:.3g}")
+        devs.append(dev)
+    detail["cli_packed"] = dict(wall_s=wall, files=n, lanes=2,
+                                dev_col_scale=devs, launches=launches)
+    print(f"cli_packed path on {card}: batch --scheduler packed --lanes 2 "
+          f"of {n} files {wall:.3f} s; tables vs run_batch(scheduler="
+          f"'packed') {max(devs):.3g} of column scale (the printed 12 "
+          f"digits); launches {launches}")
+    return launches
+
+
+def run_presets(detail: dict, card: str) -> dict:
+    """SolverConfig.high_accuracy() (nk=512, np=2048, eabs 1e-15, erel
+    1e-6) and v01_compat() (nk=256, np_factor 8, growth_n_lnk 1000,
+    a_early 1e-50, growth_h_reset) at their full settings: 2 design
+    cosmologies, 1-loop, z_out (1, 0), chunked at the default placement,
+    each with the counters set to 0 just before and read just after
+    (timed_run); lanes 0-1 held to the presets' JAX goldens as the
+    chunked paths are.  Prints the wall and the attempts per cosmology.
+    Returns the launch counts by preset."""
+    from redtime_tpu_torch.config import RunSettings, SolverConfig
+
+    settings = RunSettings(one_loop=True, z_out=Z_OUT_PRESETS)
+    params = design_params(N_DESIGN)[:2]
+    out = {}
+    for name, (nk, golden) in GOLDEN_PRESETS.items():
+        cfg = getattr(SolverConfig, name)()
+        check(cfg.nk == nk, f"{name}: nk {cfg.nk}")
+        gold = load_golden(golden, params, settings, name)
+        cs, lins = design_inputs(2, params)
+        res, launches, wall, timer = timed_run(name, cfg, settings, cs, lins,
+                                               detail)
+        dev_col, dev_lin = golden_dev(res, gold, name)
+        att = timer.stats["attempts"]
+        detail[name] = dict(wall_s=wall, nk=cfg.nk, np=cfg.npts,
+                            stages_s=dict(timer.times), attempts=att,
+                            golden_dev_col_scale=dev_col,
+                            golden_dev_linear_rel=dev_lin, launches=launches)
+        print(f"{name} path on {card}: 2 cosmologies, nk={cfg.nk}, "
+              f"np={cfg.npts}, 1-loop: {wall:.3f} s (stages "
+              f"{dict(timer.times)}); attempts per cosmology {att}; lanes "
+              f"0-1 vs JAX golden {dev_col:.3g} of column scale, linear "
+              f"{dev_lin:.3g}; launches by phase {launches['by_phase']}")
+        out[name] = launches
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1193,6 +1563,10 @@ def main() -> int:
 
     rows = check_kernels(np.random.default_rng(1234), detail)
     check_leg_shapes(np.random.default_rng(2468), detail)
+    presets = preset_rows(np.random.default_rng(1357), detail)
+    for r in rows:
+        if r["name"] in presets:
+            r["preset_shapes"] = presets[r["name"]]
     rows += check_probe_kernels(np.random.default_rng(4321), detail)
     for r in rows:
         lib_ms = r["library_ms"]
@@ -1206,10 +1580,14 @@ def main() -> int:
     # kernel's launches are the sum over the paths that ran it
     phases = dict(probes=run_probes(detail))
     phases.update(run_main_path(detail, card))
-    phases.update(run_oneloop(detail, card))
-    phases.update(batch64=run_batch64(detail, card),
-                  cli=run_cli(detail, card),
-                  grid_nk48=run_ragged_grid(detail, card))
+    launches_1l, res_1l = run_oneloop(detail, card)
+    phases.update(launches_1l)
+    phases["batch64"], res_64 = run_batch64(detail, card)
+    phases.update(run_packed_paths(res_64, res_1l, detail, card))
+    phases.update(cli=run_cli(detail, card),
+                  cli_packed=run_cli_packed(detail, card))
+    phases.update(run_presets(detail, card))
+    phases.update(grid_nk48=run_ragged_grid(detail, card))
     for r in rows:
         r["launches_by_path"] = {k: p[r["name"]] for k, p in phases.items()}
         r["launches"] = sum(r["launches_by_path"].values())

@@ -4,17 +4,19 @@ redtime_tpu/cli.py's `run` and `batch`).
 `run`   — the redTime-binary equivalent: consume a params_redTime.dat (plus
           its CAMB transfer files) and write the output table (reference
           `src/redTime.cc` main()).
-`batch` — evolve many params files in one batched computation, chunked
-          on the card: the replacement for the serial `runRedTimeBatch`
+`batch` — evolve many params files in one batched computation on the
+          card, chunked or (`--scheduler packed --lanes N`) through the
+          work queue: the replacement for the serial `runRedTimeBatch`
           shell loop (reference scripts/runRedTimeBatch:91-99).
 
     redtime-tpu-torch batch params_*.dat -o out/          # on the card
+    redtime-tpu-torch batch params_*.dat -o out/ --scheduler packed --lanes 16
     python -m redtime_tpu_torch.cli run --params p.dat --platform cpu
 
 Both run on the card unless `--platform cpu` asks for the CPU; with no
 card they exit non-zero.  The JAX CLI's `--mode` and `--show-legs` (FFT
-and Ozaki backends), `--shard`, the packed and segmented schedulers and
-the `convert` commands have no counterpart here.
+and Ozaki backends), `--shard`, the segmented scheduler with its
+`--seg-breaks` and the `convert` commands have no counterpart here.
 """
 
 from __future__ import annotations
@@ -193,7 +195,8 @@ def cmd_batch(args) -> int:
             # they are reported
             res = run_batch(cfg, settings, cosmos, lins, device=dev,
                             max_chunk=args.chunk,
-                            timer=timer if args.timing else None)
+                            timer=timer if args.timing else None,
+                            scheduler=args.scheduler, n_lanes=args.lanes)
             sync(res.table)
     dt = time.time() - t0
 
@@ -275,12 +278,16 @@ def main(argv=None) -> int:
     b.add_argument("--trace-dir", default=None,
                    help="write a torch.profiler trace here")
     b.add_argument("--scheduler", default="auto",
-                   choices=["auto", "chunked"],
+                   choices=["auto", "chunked", "packed"],
                    help="batch scheduler: 'chunked' (the default) prepares "
-                   "the chunks on the host and solves them on the card")
+                   "the chunks on the host and solves them on the card; "
+                   "'packed' prepares every model at once and lets --lanes "
+                   "lanes pull models off a work queue as they finish")
     b.add_argument("--chunk", type=int, default=None,
                    help="chunk size (default: 16 full-TRG / 32 one-loop "
                    "on the card, the whole batch on the CPU)")
+    b.add_argument("--lanes", type=int, default=None,
+                   help="packed-scheduler lane count (default 8)")
     b.set_defaults(fn=cmd_batch)
 
     args = ap.parse_args(argv)

@@ -10,7 +10,12 @@
 //
 // Replaces redtime_tpu/ode.py:130 (the stage input of rk_step) and
 // redtime_tpu/ode.py:161-181 (one attempt under a vmapped while_loop),
-// which the TPU ran inside XLA's while_loop fusion.
+// which the TPU ran inside XLA's while_loop fusion, and the packed
+// scheduler's lane attempt (redtime_tpu/trg.py:440-459): its final-step
+// rule, h >= t1 - t where the chunked path has h > t1 - t, is a launch
+// argument, and every lane also writes reached = final & accepted &
+// active (JAX's final & ~dec), which the packed scheduler advances its
+// segment on.
 //
 // Bound on the card: bytes.  The finish reads y and the s stage rows of
 // every lane once and writes the state once: (s + 2) B D f64, 1.6 us at
@@ -74,10 +79,19 @@ constexpr int MAX_S = 12;       // stages of the largest tableau (DOP853)
 // b, e: the tableau's solution and error weights; prm: eabs, erel, the
 // step-factor exponents -1/ord and -1/(ord+1), then the controller's
 // safety factor, reject-above and grow-below thresholds, smallest and
-// largest step factors (kernels/rk_finish.py controller_params)
+// largest step factors (kernels/rk_finish.py controller_params);
+// final_ge: the final-step rule, h >= dt (1) or h > dt (0)
 struct Coeffs {
   double b[MAX_S], e[MAX_S], prm[9];
+  int final_ge;
 };
+
+// The final-step rule: whether the lane's step reaches t1 this attempt.
+// h_try = final ? dt : h is the same under both rules.
+__device__ __forceinline__ bool is_final(const Coeffs& c, double h,
+                                         double dt) {
+  return c.final_ge ? h >= dt : h > dt;
+}
 
 __device__ __forceinline__ double mul(double a, double b) {
   return __dmul_rn(a, b);
@@ -162,11 +176,12 @@ __device__ __forceinline__ double lane_norm(double q_max, bool q_nan, int cl,
 
 // GSL's standard controller on the lane's r (dec: r > reject_above): the
 // step factor, the one pow the lane's branch needs (a rejected lane's, a
-// growing lane's, or none), and the lane's t, h, n and r.
+// growing lane's, or none), and the lane's t, h, n, r and reached.
 __device__ __forceinline__ void controller_tail(
     const Coeffs& c, double r, bool dec, bool final, double h_try,
     double t_l, double h_l, double t1_l, long long n_l, bool act, int lane,
-    double* t_out, double* h_out, long long* n_out, double* r_out) {
+    double* t_out, double* h_out, long long* n_out, double* r_out,
+    unsigned char* reached_out) {
   const double p_dec = c.prm[2], p_inc = c.prm[3], safety = c.prm[4];
   const double grow_below = c.prm[6], fac_min = c.prm[7], fac_max = c.prm[8];
   const double inf = __longlong_as_double(0x7ff0000000000000LL);
@@ -182,6 +197,7 @@ __device__ __forceinline__ void controller_tail(
   h_out[lane] = act ? h_next : h_l;
   n_out[lane] = n_l + (act ? 1 : 0);
   r_out[lane] = r;
+  reached_out[lane] = final && act && !dec;
 }
 
 // S: the stage count; UPT: accesses a thread holds; W: doubles an access.
@@ -198,7 +214,9 @@ __global__ void __launch_bounds__(THREADS)
                      double* __restrict__ y_out, double* __restrict__ t_out,
                      double* __restrict__ h_out,
                      long long* __restrict__ n_out,
-                     double* __restrict__ r_out, int B, int D, int cl) {
+                     double* __restrict__ r_out,
+                     unsigned char* __restrict__ reached_out, int B, int D,
+                     int cl) {
   static_assert(UPT % ROUND == 0, "whole rounds");
   if (cl > 1) rt::cluster_arrive_relaxed();
   const int tid = threadIdx.x;
@@ -208,7 +226,7 @@ __global__ void __launch_bounds__(THREADS)
   const bool act = active[lane] != 0;
   const double eabs = c.prm[0], erel = c.prm[1], reject_above = c.prm[5];
   const double dt = __dsub_rn(t1_l, t_l);
-  const bool final = h_l > dt;
+  const bool final = is_final(c, h_l, dt);
   const double h_try = final ? dt : h_l;
 
   // this block's slice of the lane, in accesses of W doubles
@@ -296,7 +314,7 @@ __global__ void __launch_bounds__(THREADS)
 
   if (rank == 0 && tid == 0)
     controller_tail(c, r, dec, final, h_try, t_l, h_l, t1_l, n_l, act, lane,
-                    t_out, h_out, n_out, r_out);
+                    t_out, h_out, n_out, r_out, reached_out);
 }
 
 // A lane whose slice a block cannot keep in registers: each block loops
@@ -318,8 +336,9 @@ __global__ void __launch_bounds__(THREADS)
                             double* __restrict__ t_out,
                             double* __restrict__ h_out,
                             long long* __restrict__ n_out,
-                            double* __restrict__ r_out, int B, int D,
-                            int cl) {
+                            double* __restrict__ r_out,
+                            unsigned char* __restrict__ reached_out, int B,
+                            int D, int cl) {
   if (cl > 1) rt::cluster_arrive_relaxed();
   const int tid = threadIdx.x;
   const int lane = blockIdx.y, rank = blockIdx.x;  // cluster dims (cl, 1, 1)
@@ -328,7 +347,7 @@ __global__ void __launch_bounds__(THREADS)
   const bool act = active[lane] != 0;
   const double eabs = c.prm[0], erel = c.prm[1], reject_above = c.prm[5];
   const double dt = __dsub_rn(t1_l, t_l);
-  const bool final = h_l > dt;
+  const bool final = is_final(c, h_l, dt);
   const double h_try = final ? dt : h_l;
 
   const int units = D / W;
@@ -380,7 +399,7 @@ __global__ void __launch_bounds__(THREADS)
   }
   if (rank == 0 && tid == 0)
     controller_tail(c, r, dec, final, h_try, t_l, h_l, t1_l, n_l, act, lane,
-                    t_out, h_out, n_out, r_out);
+                    t_out, h_out, n_out, r_out, reached_out);
 }
 
 // NJ: the number of rows summed (the stage index i).
@@ -434,6 +453,7 @@ struct FinishArgs {
   double *y_out, *t_out, *h_out;
   long long* n_out;
   double* r_out;
+  unsigned char* reached_out;
   int B, D, s, cl;
   cudaStream_t stream;
 };
@@ -453,8 +473,8 @@ int launch_finish(const FinishArgs& a, Kernel kernel) {
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, a.y, a.ks, a.t, a.h, a.t1, a.n,
-      a.active, a.c, a.y_out, a.t_out, a.h_out, a.n_out, a.r_out, a.B, a.D,
-      a.cl);
+      a.active, a.c, a.y_out, a.t_out, a.h_out, a.n_out, a.r_out,
+      a.reached_out, a.B, a.D, a.cl);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -500,9 +520,10 @@ int launch_stage(const double* y, const double* ks, const double* h,
 }  // namespace
 
 // y [B, D], ks [s, B, D], y_out [B, D]; t, h, t1, t_out, h_out, r_out [B]
-// f64; n, n_out [B] int64; active [B] bytes; all contiguous on `device`;
-// coef: 2 s + 9 f64 in host memory, b [s], e [s], prm [9], copied into
-// the kernel's parameters; s in {6, 7, 12}.  cl in {1, 2, 4, 8}: the
+// f64; n, n_out [B] int64; active, reached_out [B] bytes; all contiguous
+// on `device`; coef: 2 s + 9 f64 in host memory, b [s], e [s], prm [9],
+// copied into the kernel's parameters; final_ge: the final-step rule
+// (1: h >= dt, the packed scheduler's; 0: h > dt); s in {6, 7, 12}.  cl in {1, 2, 4, 8}: the
 // blocks that split a lane.  vec != 0: 16-byte accesses (D even; y, ks and
 // y_out 16-byte aligned), else 8-byte ones.  A block keeps at most
 // MAX_UPT * THREADS accesses of its lane in registers; a larger slice runs
@@ -511,9 +532,10 @@ int launch_stage(const double* y, const double* ks, const double* h,
 extern "C" int rt_rk_finish(const double* y, const double* ks, const double* t,
                             const double* h, const double* t1,
                             const long long* n, const unsigned char* active,
-                            const double* coef, double* y_out, double* t_out,
-                            double* h_out, long long* n_out, double* r_out,
-                            int B, int D, int s, int cl, int vec, int device,
+                            const double* coef, int final_ge, double* y_out,
+                            double* t_out, double* h_out, long long* n_out,
+                            double* r_out, unsigned char* reached_out, int B,
+                            int D, int s, int cl, int vec, int device,
                             void* stream) {
   const int W = vec ? 2 : 1;
   const bool aligned =
@@ -524,9 +546,10 @@ extern "C" int rt_rk_finish(const double* y, const double* ks, const double* t,
       (cl != 1 && cl != 2 && cl != 4 && cl != 8) || (vec && !aligned))
     return static_cast<int>(cudaErrorInvalidValue);
   const int per_block = (D / W + cl - 1) / cl;
-  FinishArgs a = {y,     ks,    t,     h,     t1,    n, active, {},
-                  y_out, t_out, h_out, n_out, r_out, B, D,      s,
-                  cl,    static_cast<cudaStream_t>(stream)};
+  FinishArgs a = {y,     ks,    t,     h,     t1,          n, active, {},
+                  y_out, t_out, h_out, n_out, r_out, reached_out, B, D,
+                  s,     cl,    static_cast<cudaStream_t>(stream)};
+  a.c.final_ge = final_ge != 0;
   for (int j = 0; j < s; ++j) {
     a.c.b[j] = coef[j];
     a.c.e[j] = coef[s + j];

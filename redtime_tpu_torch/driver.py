@@ -1,12 +1,16 @@
 """End-to-end solver driver: prepare -> evolve -> output tables.
 
-`run_batch` is the entry point: a batch of cosmologies is cut into chunks
-(the last one padded by repeating its first lane), each chunk is prepared
-and then solved on `device` as one batch with one adaptive controller per
-lane, and the chunks are concatenated — the JAX package's chunked
-scheduler (redtime_tpu/driver.py:603-710) with the vmap written out as
-the leading batch dimension.  `run_pipeline` runs one cosmology
-(redtime_tpu/driver.py:453-492).
+`run_batch` is the entry point, with the JAX package's two schedulers
+(redtime_tpu/driver.py:603-710):
+  * chunked (the default): a batch of cosmologies is cut into chunks (the
+    last one padded by repeating its first lane), each chunk is prepared
+    and then solved on `device` as one batch with one adaptive controller
+    per lane, and the chunks are concatenated, with the vmap written out
+    as the leading batch dimension;
+  * packed: every cosmology is prepared at once, and n_lanes lanes pull
+    cosmologies off a work queue as they finish (trg.evolve_packed,
+    redtime_tpu/driver.py:542-600 without the mesh).
+`run_pipeline` runs one cosmology (redtime_tpu/driver.py:453-492).
 
 Prepare placement, as in the JAX package: on the card, each chunk is
 prepared on the host CPU (`prepare_on_host`, the default there) and the
@@ -45,6 +49,9 @@ prepare_model = mdl.prepare_model
 # neither is tuned for the H100 yet.
 DEFAULT_GPU_CHUNK_FULL = 16
 DEFAULT_GPU_CHUNK = 32
+# Lanes of the packed scheduler: the JAX package's default
+# (redtime_tpu/driver.py:569); not tuned for the H100.
+DEFAULT_LANES = 8
 
 
 class RunResult(NamedTuple):
@@ -187,8 +194,15 @@ def solve(cfg: SolverConfig, settings: RunSettings, model: mdl.Model,
     _check_settings(settings, cfg)
     if ec is None:
         ec = engine_consts(cfg, model.norm.device)
-    ys = trg.evolve(cfg, settings, model, ec)
-    return _finalize(cfg, settings, model, ys, ec)
+    return _solve(cfg, settings, model, ec)[0]
+
+
+def _solve(cfg: SolverConfig, settings: RunSettings, model: mdl.Model,
+           ec) -> tuple:
+    """evolve + _finalize: (RunResult, each lane's controller attempts
+    [B])."""
+    ys, attempts = trg.evolve(cfg, settings, model, ec, return_stats=True)
+    return _finalize(cfg, settings, model, ys, ec), attempts
 
 
 def _finalize(cfg: SolverConfig, settings: RunSettings, model: mdl.Model,
@@ -262,6 +276,16 @@ def _prepare_chunk(cfg: SolverConfig, chunk, device) -> mdl.Model:
     return mdl.prepare_model(cfg, ccs, clin, norm_override=nrm)
 
 
+def _prepare(cfg: SolverConfig, part, device, on_host: bool) -> mdl.Model:
+    """_prepare_chunk of part on `device`, or, on_host, on the host CPU
+    on one torch thread (prepare is some 700,000 small ops, which torch's
+    thread pool slows down there) and then copied to `device`."""
+    if on_host:
+        with _torch_threads(1):
+            return _on_device(_prepare_chunk(cfg, part, "cpu"), device)
+    return _prepare_chunk(cfg, part, device)
+
+
 def _on_device(m: mdl.Model, device: torch.device) -> mdl.Model:
     """A Model prepared on the host, on `device`: pinned host memory and
     copies that do not block the host."""
@@ -285,25 +309,39 @@ def _torch_threads(n: int):
 def run_batch(cfg: SolverConfig, settings: RunSettings, cs: CosmoParams,
               lins: LinearData, device="cuda", max_chunk: int | None = None,
               norm_override=None, prepare_on_host: bool | None = None,
-              timer: StageTimer | None = None) -> RunResult:
-    """Batched pipeline on `device` (the chunked scheduler): the card
-    unless the caller asks for the CPU (device="cpu"); with no card a
-    call without `device` raises.
+              timer: StageTimer | None = None, scheduler: str = "auto",
+              n_lanes: int | None = None) -> RunResult:
+    """Batched pipeline on `device`: the card unless the caller asks for
+    the CPU (device="cpu"); with no card a call without `device` raises.
 
     cs: CosmoParams with [B] fields; lins: LinearData with a leading batch
     dimension (numpy or tensors); norm_override: optional [B] P_lin
-    normalization constants.  max_chunk: the largest batch prepared and
-    solved at once (default: the whole batch on the CPU; on a GPU 16
-    lanes in full-TRG mode, 32 otherwise); chunks are padded to equal
-    size by repeating their first lane and the padding is dropped from
-    the result.
+    normalization constants.
 
-    prepare_on_host: prepare each chunk on the host CPU, on one torch
-    thread, and copy it to `device` (default: on the card, yes; on the
-    CPU the placement is the same either way).
+    scheduler: "chunked" (or "auto", which means chunked, as in the JAX
+    package) or "packed" (the work queue, n_lanes lanes, default 8);
+    "segmented" is not ported.  Chunked: max_chunk is the largest batch
+    prepared and solved at once (default: the whole batch on the CPU; on
+    a GPU 16 lanes in full-TRG mode, 32 otherwise); chunks are padded to
+    equal size by repeating their first lane and the padding is dropped
+    from the result.  Packed: the whole batch is prepared at once and
+    max_chunk is the width of the output assembly's pieces.
+
+    prepare_on_host: prepare on the host CPU, on one torch thread, and
+    copy the Model to `device` (default: on the card, yes; on the CPU the
+    placement is the same either way).
     timer: a profiling.StageTimer that books "prepare" and "solve" (with
-    a timer, the device is synchronized after each chunk's solve)."""
+    a timer, the device is synchronized after each solve) and, in its
+    stats, each cosmology's controller attempts ("attempts") and the
+    packed scheduler's loop iterations ("iterations")."""
     _check_settings(settings, cfg)
+    if scheduler == "segmented":
+        raise ValueError("scheduler='segmented' is not ported: it works "
+                         "around the TPU's dispatch-time limit (ROADMAP.md, "
+                         "'Not ported, on purpose')")
+    if scheduler not in ("auto", "chunked", "packed"):
+        raise ValueError(f"unknown scheduler {scheduler!r}; choose "
+                         "'auto', 'chunked', 'packed', or 'segmented'")
     device = device_of(device)
     n = _batch_size(cs)
     if max_chunk is None:
@@ -318,27 +356,61 @@ def run_batch(cfg: SolverConfig, settings: RunSettings, cs: CosmoParams,
     lin_np = [_host(x) for x in lins]
     nrm_np = None if norm_override is None else _host(norm_override)
     ec = engine_consts(cfg, device)
-    outs = []
     size = min(max_chunk, n)
+    if scheduler == "packed":
+        return _run_batch_packed(
+            cfg, settings, (cs_np, lin_np, nrm_np), device, ec,
+            prepare_on_host, timer, timed,
+            DEFAULT_LANES if n_lanes is None else n_lanes, size)
+    outs, attempts = [], []
     for i0 in range(0, n, size):
         with timer.stage("prepare"):
             chunk = ([_take(x, i0, size) for x in cs_np],
                      [_take(x, i0, size) for x in lin_np],
                      None if nrm_np is None else _take(nrm_np, i0, size))
-            if prepare_on_host:
-                # prepare is some 700,000 small ops, which torch's thread
-                # pool slows down on the host
-                with _torch_threads(1):
-                    m = _on_device(_prepare_chunk(cfg, chunk, "cpu"), device)
-            else:
-                m = _prepare_chunk(cfg, chunk, device)
+            m = _prepare(cfg, chunk, device, prepare_on_host)
         counts.mark("prepare")
         with timer.stage("solve"):
-            outs.append(solve(cfg, settings, m, ec))
+            res, att = _solve(cfg, settings, m, ec)
+            outs.append(res)
+            attempts.append(att)
             if timed:
                 sync(outs[-1].table)
         counts.mark("solve")
+    if timed:
+        timer.stats["attempts"] = torch.cat(attempts)[:n].tolist()
     return RunResult(*[torch.cat(xs, dim=0)[:n] for xs in zip(*outs)])
+
+
+def _run_batch_packed(cfg: SolverConfig, settings: RunSettings, inputs,
+                      device: torch.device, ec, prepare_on_host: bool,
+                      timer: StageTimer, timed: bool, n_lanes: int,
+                      width: int) -> RunResult:
+    """The packed scheduler (redtime_tpu/driver.py:542-600, without the
+    mesh): every cosmology of inputs (cs, lins, norm: numpy rows)
+    prepared at once and copied over once, one trg.evolve_packed on
+    n_lanes lanes, then the output assembly in pieces of `width`
+    cosmologies; timed: the caller's timer, synchronized after the
+    solve, gets the stats."""
+    with timer.stage("prepare"):
+        models = _prepare(cfg, inputs, device, prepare_on_host)
+    counts.mark("prepare")
+    with timer.stage("solve"):
+        ys, iters, attempts = trg.evolve_packed(
+            cfg, settings, models, ec, n_lanes, return_iters=True,
+            return_stats=True)
+        n = models.batch
+        parts = [_finalize(cfg, settings,
+                           mdl.take_lanes(models, slice(i0, i0 + width)),
+                           ys[i0:i0 + width], ec)
+                 for i0 in range(0, n, width)]
+        res = RunResult(*[torch.cat(xs, dim=0) for xs in zip(*parts)])
+        if timed:
+            sync(res.table)
+    counts.mark("solve")
+    if timed:
+        timer.stats.update(iterations=iters, attempts=attempts.tolist())
+    return res
 
 
 def run_pipeline(cfg: SolverConfig, settings: RunSettings, c, lin,

@@ -127,7 +127,8 @@ def lib() -> ctypes.CDLL:
         handle.rt_dd_mul.restype = i
         handle.rt_launch_floor.argtypes = [p]
         handle.rt_launch_floor.restype = i
-        handle.rt_rk_finish.argtypes = [p] * 13 + [i] * 6 + [p]
+        handle.rt_rk_finish.argtypes = [p] * 8 + [i] + [p] * 6 + [i] * 6 \
+            + [p]
         handle.rt_rk_finish.restype = i
         handle.rt_rk_stage.argtypes = [p] * 5 + [i] * 5 + [p]
         handle.rt_rk_stage.restype = i

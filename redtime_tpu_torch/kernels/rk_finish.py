@@ -15,8 +15,17 @@ as in redtime_tpu/ode.py:161-181 under a vmapped while_loop:
     h *= max(0.9 r^(-1/ord), 0.2); r < 0.5 grows h by
     clip(0.9 r^(-1/(ord+1)), 1, 5); the accepted step lands on t1 when final.
 
+The final-step rule is part of the constants: `h > dt` for the chunked
+scheduler's integrate_interval (redtime_tpu/ode.py:164), `h >= dt` for
+the packed scheduler's lanes (`attempt_consts(..., final_at_equal=True)`,
+redtime_tpu/trg.py:446), whose step that lands exactly on the remaining
+interval must count as final.  h_try is the same under both rules.
+
 Lanes that are not active stay frozen (y, t, h and the attempt count n
-unchanged).  Returns (y_out, t_out, h_out, n_out, r).
+unchanged).  Returns (y_out, t_out, h_out, n_out, r, reached): reached
+is final & accepted & active, JAX's `final & ~dec` (redtime_tpu/trg.py:
+459), which t_out == t1 cannot tell: t + h_try may round onto t1 on a
+step that is not final.
 
 On the TPU both were part of XLA's while_loop fusion.  On the card the
 finish is a fused elementwise pass plus one max-reduction per lane over
@@ -74,12 +83,13 @@ def controller_params(eabs: float, erel: float, order: int,
 
 @dataclass(frozen=True)
 class AttemptConsts:
-    """A tableau and the controller's scalars on one device, validated by
-    `attempt_consts`, the only place that makes one: f64, contiguous,
-    a [s, s], b, e [s], c [s, 1], prm [9] (controller_params); and b, e,
-    prm once more in host memory (`host`, 2 s + 9 f64, at address
-    `host_ptr`), which rk_finish's launcher copies into the kernel's
-    parameters."""
+    """A tableau, the controller's scalars and the final-step rule on one
+    device, validated by `attempt_consts`, the only place that makes one:
+    f64, contiguous, a [s, s], b, e [s], c [s, 1], prm [9]
+    (controller_params); b, e, prm once more in host memory (`host`,
+    2 s + 9 f64, at address `host_ptr`), which rk_finish's launcher copies
+    into the kernel's parameters; final_at_equal: a step with h == t1 - t
+    is final (h >= dt, the packed scheduler's rule) or not (h > dt)."""
 
     a: torch.Tensor
     b: torch.Tensor
@@ -90,11 +100,15 @@ class AttemptConsts:
     device: torch.device
     host: np.ndarray
     host_ptr: int
+    final_at_equal: bool = False
 
 
-def attempt_consts(tab, eabs: float, erel: float, device) -> AttemptConsts:
+def attempt_consts(tab, eabs: float, erel: float, device,
+                   final_at_equal: bool = False) -> AttemptConsts:
     """The constants of every attempt of one integration, uploaded in one
-    copy.  tab: a tableau with fields a [s, s], b, e, c [s] and order."""
+    copy.  tab: a tableau with fields a [s, s], b, e, c [s] and order;
+    final_at_equal: the final-step rule (False: h > dt, the chunked
+    scheduler's; True: h >= dt, the packed scheduler's)."""
     a, b, e, c = (np.asarray(x, dtype=np.float64)
                   for x in (tab.a, tab.b, tab.e, tab.c))
     s = b.shape[0]
@@ -111,7 +125,8 @@ def attempt_consts(tab, eabs: float, erel: float, device) -> AttemptConsts:
                            device=device)
     a_t, c_t, b_t, e_t, prm = torch.split(flat, [s * s, s, s, s, 9])
     return AttemptConsts(a_t.view(s, s), b_t, e_t, c_t.view(s, 1), prm, s,
-                         flat.device, host, host.ctypes.data)
+                         flat.device, host, host.ctypes.data,
+                         bool(final_at_equal))
 
 
 def rk_stage_plain(y, ks, h, a_row, i: int):
@@ -123,12 +138,14 @@ def rk_stage_plain(y, ks, h, a_row, i: int):
     return y + h[:, None] * acc
 
 
-def rk_finish_plain(y, ks, t, h, t1, n, active, b, e, prm):
+def rk_finish_plain(y, ks, t, h, t1, n, active, b, e, prm,
+                    final_at_equal: bool = False):
     """The plain PyTorch version, operation for operation the JAX
-    controller (redtime_tpu/ode.py:161-181).  prm: controller_params."""
+    controller (redtime_tpu/ode.py:161-181, and with final_at_equal the
+    packed lane's, redtime_tpu/trg.py:440-459).  prm: controller_params."""
     eabs, erel, p_dec, p_inc = prm[:4]
     dt = t1 - t
-    final = h > dt
+    final = h >= dt if final_at_equal else h > dt
     h_try = torch.where(final, dt, h)
     acc_b = b[0] * ks[0]
     acc_e = e[0] * ks[0]
@@ -154,7 +171,7 @@ def rk_finish_plain(y, ks, t, h, t1, n, active, b, e, prm):
     t_out = torch.where(active, t_new, t)
     h_out = torch.where(active, h_next, h)
     n_out = n + active.to(n.dtype)
-    return y_out, t_out, h_out, n_out, r
+    return y_out, t_out, h_out, n_out, r, final & take
 
 
 def _explain(name: str, consts, specs) -> None:
@@ -239,27 +256,32 @@ def _raw_stream(device: torch.device) -> int:
 
 
 def _launch_finish(y, ks, t, h, t1, n, active, consts, cl: int, vec: bool):
-    """Launch rt_rk_finish with cl blocks a lane; t_out, h_out, r and
-    n_out are rows of one buffer."""
+    """Launch rt_rk_finish with cl blocks a lane; t_out, h_out, r, n_out
+    and reached (in the first B bytes of its row) are rows of one
+    buffer."""
     B, D = y.shape
     y_out = torch.empty_like(y)
-    t_out, h_out, r, n_bits = torch.empty((4, B), dtype=_F64,
-                                          device=y.device).unbind(0)
+    t_out, h_out, r, n_bits, r_bits = torch.empty(
+        (5, B), dtype=_F64, device=y.device).unbind(0)
     n_out = n_bits.view(torch.int64)
+    reached = r_bits.view(torch.uint8)[:B].view(torch.bool)
     status = build.lib().rt_rk_finish(
         y.data_ptr(), ks.data_ptr(), t.data_ptr(), h.data_ptr(),
         t1.data_ptr(), n.data_ptr(), active.data_ptr(), consts.host_ptr,
-        y_out.data_ptr(), t_out.data_ptr(), h_out.data_ptr(),
-        n_out.data_ptr(), r.data_ptr(), B, D, consts.s, cl, int(vec),
-        y.device.index, _raw_stream(y.device))
+        int(consts.final_at_equal), y_out.data_ptr(), t_out.data_ptr(),
+        h_out.data_ptr(), n_out.data_ptr(), r.data_ptr(),
+        reached.data_ptr(), B, D, consts.s, cl, int(vec), y.device.index,
+        _raw_stream(y.device))
     build.check(status, "rk_finish")
     counts.LAUNCHES["rk_finish"] += 1
-    return y_out, t_out, h_out, n_out, r
+    return y_out, t_out, h_out, n_out, r, reached
 
 
 def rk_finish(y, ks, t, h, t1, n, active, consts: AttemptConsts):
     """One controller attempt's tail: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors.  consts: attempt_consts."""
+    the plain version for CPU tensors.  consts: attempt_consts, which
+    also carries the final-step rule.  Returns (y_out, t_out, h_out,
+    n_out, r, reached)."""
     if not (_state_ok(y, ks, consts) and _lanes_ok(y, _F64, t, h, t1)
             and _lanes_ok(y, torch.int64, n)
             and _lanes_ok(y, torch.bool, active)):
@@ -272,7 +294,7 @@ def rk_finish(y, ks, t, h, t1, n, active, consts: AttemptConsts):
             ("active", active, (B,), torch.bool)])
     if y.device.type == "cpu":
         return rk_finish_plain(y, ks, t, h, t1, n, active, consts.b,
-                               consts.e, consts.prm)
+                               consts.e, consts.prm, consts.final_at_equal)
     if y.device.type != "cuda":
         raise RuntimeError(f"rk_finish: no kernel for device {y.device}")
     _check_kernel_shape("rk_finish", y, consts)

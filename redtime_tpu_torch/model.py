@@ -366,6 +366,27 @@ def prepare_model(cfg: SolverConfig, c: CosmoParams, lin: LinearData,
                  T_solver=T_solver, norm=norm, sigmaV2_z0=sv2)
 
 
+def take_lanes(x, idx):
+    """Lanes idx (an index tensor, a list or a slice) of a batched Model,
+    its CosmoParams or a 1-loop cache (trg.OneLoopCache): any NamedTuple
+    of [B, ...] tensors, nested.  Plain indexing, where the JAX package's
+    packed scheduler contracts with one-hot matrices
+    (redtime_tpu/trg.py:468-491); a gather of finite f64 values is the
+    same bits."""
+    if isinstance(x, torch.Tensor):
+        return x[idx]
+    return type(x)(*[take_lanes(f, idx) for f in x])
+
+
+def put_lanes(dst, idx, src):
+    """dst with its lanes idx (an index tensor) replaced by the lanes of
+    src, in order: a new NamedTuple of the same structure as dst (the
+    packed scheduler's reload, redtime_tpu/trg.py:493-518)."""
+    if isinstance(dst, torch.Tensor):
+        return dst.index_copy(0, idx, src)
+    return type(dst)(*[put_lanes(d, idx, s) for d, s in zip(dst, src)])
+
+
 def growth_D_f(model: Model, z):
     """D(z, k) and dD/da(z, k) on the solver grid, [B, nk] each
     (reference :727-730).  z: float or [B]."""

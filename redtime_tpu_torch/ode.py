@@ -142,9 +142,11 @@ def rk_step(rhs: Callable, t, h, y, tab: Tableau):
 def attempt(rhs: Callable, t, h, y, t1, n, active, consts: AttemptConsts):
     """One controller attempt on every lane (frozen where not active).
 
-    The step is clipped to the interval end (final = h > t1 - t, the
-    chunked path's rule, redtime_tpu/ode.py:164); the stages run at the
-    clipped step and K3 finishes the attempt.  Returns (y, t, h, n, r)."""
+    The step is clipped to the interval end; the stages run at the
+    clipped step and K3 finishes the attempt under consts' final-step
+    rule (h > t1 - t, the chunked path's, redtime_tpu/ode.py:164, or
+    h >= t1 - t, the packed lanes', redtime_tpu/trg.py:446: the clipped
+    step is the same under both).  Returns (y, t, h, n, r, reached)."""
     dt = t1 - t
     h_try = torch.where(h > dt, dt, h)
     ks = rk_stages(rhs, t, h_try, y, consts)
@@ -198,8 +200,8 @@ def integrate_interval(rhs: Callable, t0, t1, y0: torch.Tensor, h0,
     active = running()
     while bool(active.any()):
         for _ in range(CHECK_EVERY):
-            y, t, h, n, _ = attempt(flat_rhs, t, h, y, t1v, n, active,
-                                    consts)
+            y, t, h, n, *_ = attempt(flat_rhs, t, h, y, t1v, n, active,
+                                     consts)
             active = running()
     y = torch.where((t >= t1v)[:, None], y, torch.full_like(y, np.nan))
     y = y.reshape(shape)

@@ -28,12 +28,15 @@ def sync(x) -> None:
 
 class StageTimer:
     """Accumulates wall-clock per named stage; prints each stage as it
-    ends when enabled."""
+    ends when enabled.  `stats` holds what a run books beside its stages
+    (driver.run_batch: each cosmology's controller attempts, "attempts",
+    and the packed scheduler's loop iterations, "iterations")."""
 
     def __init__(self, enabled: bool = True, stream=None):
         self.enabled = enabled
         self.stream = stream if stream is not None else sys.stderr
         self.times: Dict[str, float] = {}
+        self.stats: Dict[str, object] = {}
 
     @contextlib.contextmanager
     def stage(self, name: str, block_on=None):

@@ -26,7 +26,9 @@ from redtime_tpu_torch import background as bg
 from redtime_tpu_torch import model as mdl
 from redtime_tpu_torch.config import RunSettings, SolverConfig
 from redtime_tpu_torch.grids import make_grids
-from redtime_tpu_torch.ode import DOP853, DOPRI5, RKF45, integrate_interval
+from redtime_tpu_torch.kernels.rk_finish import attempt_consts
+from redtime_tpu_torch.ode import (DOP853, DOPRI5, RKF45, attempt,
+                                   integrate_interval)
 
 NUP, NUI, NELL, NUQ = 3, 14, 3, 24
 NU_STATE = NUP + NUI + NUQ  # 41
@@ -269,6 +271,108 @@ def evolve(cfg: SolverConfig, settings: RunSettings, model: mdl.Model,
     ys = torch.stack(outs, dim=1).reshape(y.shape[0], len(etasteps),
                                           NU_STATE, nk)
     return (ys, attempts) if return_stats else ys
+
+
+def evolve_packed(cfg: SolverConfig, settings: RunSettings,
+                  models: mdl.Model, ec: fastpt.EngineConsts,
+                  n_lanes: int = 8, max_iters: int = 1_000_000,
+                  return_iters: bool = False, return_stats: bool = False):
+    """Work-queue batched evolution: the JAX package's packed scheduler
+    (redtime_tpu/trg.py:374-560).
+
+    L = min(n_lanes, N) lanes each advance their own controller through
+    all output redshifts of one model; a lane that passes its last output
+    flushes its rows and takes the next model off the queue (lanes take
+    distinct models in lane order), or goes inactive when none is left.
+    The loop ends when no lane is active or after max_iters attempts; a
+    model it never finished keeps zero rows, as in the JAX package.
+    Every attempt is one controller attempt on all L lanes (K3 under the
+    packed rule, h >= t1 - t, redtime_tpu/trg.py:446), with the same
+    controller arithmetic as evolve, so results agree with the chunked
+    scheduler within the controller band, not bit for bit.
+
+    The queue lives on the host: after each attempt the host reads which
+    lanes finished (one wait for the device an attempt) and gathers the
+    next models' rows by index.  Every model's initial state (and its z1l
+    cache in 1-loop mode) is built once, up front.
+
+    models: a prepared Model of N lanes.  Returns ys [N, S, 41, nk]
+    (S output redshifts), then, with return_iters, the attempts the loop
+    ran and, with return_stats, each model's attempts [N]."""
+    nk = make_grids(cfg).nk
+    N, S = models.batch, len(settings.z_out)
+    L = min(n_lanes, N)
+    dev = models.norm.device
+    etasteps = torch.as_tensor(settings.etasteps(), dtype=F64, device=dev)
+    h_init = 1e-2 * float(np.log(1.0 / settings.a_in))
+    consts = attempt_consts(eta_tableau(cfg), cfg.eabs_P, cfg.erel_P, dev,
+                            final_at_equal=True)
+    one_loop = settings.nonlinear and settings.one_loop
+    caches = (build_oneloop_cache(cfg, settings, models, ec)
+              if one_loop else None)
+    y0_all = initial_state(cfg, settings, models)        # [N, 41 nk]
+
+    lanes = torch.arange(L, device=dev)
+    m = mdl.take_lanes(models, lanes)
+    cache = mdl.take_lanes(caches, lanes) if one_loop else None
+    rhs = make_rhs(cfg, settings, m, ec, cache)
+    y = y0_all[:L].clone()
+    t = torch.zeros(L, dtype=F64, device=dev)
+    h = torch.full((L,), h_init, dtype=F64, device=dev)
+    n = torch.zeros(L, dtype=torch.int64, device=dev)
+    seg = torch.zeros(L, dtype=torch.int64, device=dev)
+    active = torch.ones(L, dtype=torch.bool, device=dev)
+    outloc = y.new_zeros((L, S, y.shape[1]))      # each lane's outputs
+    out = y.new_zeros((N, S, y.shape[1]))
+    attempts = torch.zeros(N, dtype=torch.int64, device=dev)
+    # the queue, on the host: each lane's model, which lanes are live and
+    # the next model's index
+    midx, live, counter = list(range(L)), [True] * L, L
+    it = 0
+    while any(live) and it < max_iters:
+        t1 = etasteps[seg.clamp(max=S - 1)]
+        y, t, h, n, _, reached = attempt(rhs, t, h, y, t1, n, active,
+                                         consts)
+        it += 1
+        # a lane that reached its segment's end records its state there
+        at = seg.clamp(max=S - 1)
+        outloc[lanes, at] = torch.where(reached[:, None], y,
+                                        outloc[lanes, at])
+        seg = seg + reached
+        finished = ((seg >= S) & active).tolist()       # waits for the card
+        if not any(finished):
+            continue
+        done = [i for i in range(L) if finished[i]]
+        d_idx = torch.tensor(done, device=dev)
+        m_idx = torch.tensor([midx[i] for i in done], device=dev)
+        out.index_copy_(0, m_idx, outloc[d_idx])
+        attempts.index_copy_(0, m_idx, n[d_idx])
+        take = [(i, counter + k) for k, i in enumerate(done)
+                if counter + k < N]
+        counter += len(done)
+        for i in done[len(take):]:
+            live[i] = False
+        if len(take) < len(done):
+            active = torch.tensor(live, device=dev)
+        if not take:
+            continue
+        for i, j in take:
+            midx[i] = j
+        t_idx = torch.tensor([i for i, _ in take], device=dev)
+        n_idx = torch.tensor([j for _, j in take], device=dev)
+        m = mdl.put_lanes(m, t_idx, mdl.take_lanes(models, n_idx))
+        if one_loop:
+            cache = mdl.put_lanes(cache, t_idx, mdl.take_lanes(caches, n_idx))
+        rhs = make_rhs(cfg, settings, m, ec, cache)
+        y.index_copy_(0, t_idx, y0_all[n_idx])
+        t.index_fill_(0, t_idx, 0.0)
+        h.index_fill_(0, t_idx, h_init)
+        n.index_fill_(0, t_idx, 0)
+        seg.index_fill_(0, t_idx, 0)
+    ys = out.reshape(N, S, NU_STATE, nk)
+    extra = ((it,) if return_iters else ()) + (
+        (attempts,) if return_stats else ())
+    return (ys,) + extra if extra else ys
 
 
 def pbis_j(cfg: SolverConfig, ys: torch.Tensor) -> torch.Tensor:

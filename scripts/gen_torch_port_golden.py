@@ -6,22 +6,34 @@ inputs of __graft_entry__._example_inputs, at SolverConfig() widths
 (nk=128, np=512, RKF45 at eabs 1e-7 / erel 1e-2, f64), and stores the
 inputs and the tables:
 
-  * default: full Time-RG (RunSettings(one_loop=False)) with the bench's
-    headline output redshifts, design latin_hypercube(16, seed=42), into
+  * --case full (the default): full Time-RG (RunSettings(one_loop=False))
+    with the bench's headline output redshifts, design
+    latin_hypercube(16, seed=42), into
     tests/data/torch_port_golden_nk128.npz (~0.3 MB);
-  * --oneloop: the bench's secondary workload, 1-loop mode
+  * --case oneloop: the bench's secondary workload, 1-loop mode
     (RunSettings(one_loop=True)) at its redshifts (5, 4, 3, 2, 1, 0.5, 0),
     with SolverConfig(print_bias=True) (the 22 P_B/PT/PMR columns),
     design latin_hypercube(32, seed=42), into
-    tests/data/torch_port_golden_oneloop_nk128.npz.
+    tests/data/torch_port_golden_oneloop_nk128.npz;
+  * --case high_accuracy / v01_compat: the two presets at their full
+    settings, SolverConfig.high_accuracy() (nk=512, np=2048, eabs 1e-15,
+    erel 1e-6) and SolverConfig.v01_compat() (nk=256, np_factor 8,
+    growth_n_lnk 1000, a_early 1e-50, growth_h_reset), 1-loop mode at
+    z_out (1, 0), design latin_hypercube(16, seed=42), into
+    tests/data/torch_port_golden_{high_accuracy,v01_compat}.npz.
 
-    JAX_PLATFORMS=cpu python scripts/gen_torch_port_golden.py [--oneloop]
+    JAX_PLATFORMS=cpu python scripts/gen_torch_port_golden.py \
+        [--case full|oneloop|high_accuracy|v01_compat]
+
+Prints the seconds the JAX run took.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
+import time
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
@@ -41,14 +53,21 @@ from redtime_tpu.config import CosmoParams, RunSettings, SolverConfig  # noqa: E
 
 SEED, LANES = 42, 2
 DATA = os.path.join(ROOT, "tests", "data")
-# name -> (SolverConfig fields, RunSettings fields, design size, file)
+# name -> (SolverConfig maker, its fields, RunSettings fields, design
+# size, file)
 CASES = {
-    "full_trg": (dict(), dict(one_loop=False, z_out=(
+    "full": (SolverConfig, dict(), dict(one_loop=False, z_out=(
         2.02, 1.61, 1.01, 0.66, 0.43, 0.24, 0.10, 0.0)), 16,
         "torch_port_golden_nk128.npz"),
-    "oneloop": (dict(print_bias=True), dict(one_loop=True, z_out=(
-        5.0, 4.0, 3.0, 2.0, 1.0, 0.5, 0.0)), 32,
+    "oneloop": (SolverConfig, dict(print_bias=True), dict(
+        one_loop=True, z_out=(5.0, 4.0, 3.0, 2.0, 1.0, 0.5, 0.0)), 32,
         "torch_port_golden_oneloop_nk128.npz"),
+    "high_accuracy": (SolverConfig.high_accuracy, dict(), dict(
+        one_loop=True, z_out=(1.0, 0.0)), 16,
+        "torch_port_golden_high_accuracy.npz"),
+    "v01_compat": (SolverConfig.v01_compat, dict(), dict(
+        one_loop=True, z_out=(1.0, 0.0)), 16,
+        "torch_port_golden_v01_compat.npz"),
 }
 
 
@@ -62,24 +81,30 @@ def design_params(n: int, seed: int = SEED) -> np.ndarray:
 
 
 def main(case: str) -> None:
-    cfg_kw, settings_kw, n_design, name = CASES[case]
+    make, cfg_kw, settings_kw, n_design, name = CASES[case]
     out = os.path.join(DATA, name)
-    cfg = SolverConfig(fft_mode="fft", **cfg_kw)
+    cfg = make(fft_mode="fft", **cfg_kw)
     settings = RunSettings(**settings_kw)
     params = design_params(n_design)[:LANES]
     lin = _example_inputs(cfg)
     cosmos = CosmoParams(*[jnp.asarray(params[:, i]) for i in range(9)])
     lins = jax.tree_util.tree_map(
         lambda x: jnp.stack([jnp.asarray(x)] * LANES), lin)
+    t0 = time.perf_counter()
     res = driver.run_batch(cfg, settings, cosmos, lins, mode="fft")
+    np.asarray(res.table)
+    seconds = time.perf_counter() - t0
     np.savez_compressed(
         out, params=params, z_out=np.asarray(settings.z_out),
         t_lnk=lin.t_lnk, t_Tc=lin.t_Tc, t_Tb=lin.t_Tb, beta_a=lin.beta_a,
         beta_k=lin.beta_k, beta_raw=lin.beta_raw,
         table=np.asarray(res.table), sigma_v2=np.asarray(res.sigma_v2),
         H=np.asarray(res.H), sigmaV2_z0=np.asarray(res.sigmaV2_z0))
-    print(f"wrote {out}: table {np.asarray(res.table).shape}")
+    print(f"wrote {out}: table {np.asarray(res.table).shape}; the JAX "
+          f"run took {seconds:.1f} s on the CPU")
 
 
 if __name__ == "__main__":
-    main("oneloop" if "--oneloop" in sys.argv[1:] else "full_trg")
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--case", choices=list(CASES), default="full")
+    main(ap.parse_args().case)

@@ -33,9 +33,18 @@ each with its StageTimer stages (prepare, solve); before them,
 prepare_model of one chunk on the host CPU at one torch thread (as
 run_batch prepares there) and at torch's default.
 
+With --schedulers it measures the walls of driver.run_batch at the
+default placement for the chunked scheduler (chunks of 16 full TRG, 32
+1-loop) and the packed one at 8, 16, 32 and 64 lanes, at B = 64 and 128
+(--batches), both modes, in turns (the order reversed every other
+round, --rounds rounds, after one untimed run of each scheduler per
+mode): wall, the prepare / solve split, the packed loop's iterations,
+K3 rk_finish launches (one an attempt of the batch) and the controller
+attempts per cosmology.
+
 Prints each result and writes them all as JSON to PATH (default
-chiprun_out/profile_torch_port[_oneloop|_placements].json).  Imports
-nothing of JAX.
+chiprun_out/profile_torch_port[_oneloop|_placements|_schedulers].json;
+--schedulers rewrites it after every run).  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -268,19 +277,80 @@ def placements(batches, out: dict) -> None:
                     print(json.dumps(row))
 
 
+SCHED_LANES = (8, 16, 32, 64)       # the packed scheduler's lane counts
+
+
+def schedulers(batches, rounds: int, out: dict, out_path: str) -> None:
+    """run_batch walls of the chunked scheduler and of the packed one at
+    each of SCHED_LANES, at each batch, both modes, in turns."""
+    from redtime_tpu_torch.profiling import StageTimer
+
+    modes = {"full_trg": (SolverConfig(), RunSettings(
+                 one_loop=False, z_out=chip_smoke.Z_OUT)),
+             "oneloop": (SolverConfig(print_bias=True), RunSettings(
+                 one_loop=True, z_out=chip_smoke.Z_OUT_1L))}
+    runs = out["schedulers"] = []
+    plans = [("chunked", None)] + [("packed", n) for n in SCHED_LANES]
+    for mode, (cfg, settings) in modes.items():
+        cs, lins = chip_smoke.design_inputs(16)
+        t0 = time.perf_counter()
+        for sched in ("chunked", "packed"):
+            driver.run_batch(cfg, settings, cs, lins, device="cuda",
+                             scheduler=sched)
+        sync()
+        print(f"{mode} set-up (one untimed run of 16 of each scheduler): "
+              f"{time.perf_counter() - t0:.3f} s")
+        for B in batches:
+            cs, lins = chip_smoke.design_inputs(B)
+            for rnd in range(rounds):
+                for sched, lanes in plans if rnd % 2 == 0 else plans[::-1]:
+                    timer = StageTimer(enabled=False)
+                    counts.reset()
+                    t0 = time.perf_counter()
+                    res = driver.run_batch(cfg, settings, cs, lins,
+                                           device="cuda", timer=timer,
+                                           scheduler=sched, n_lanes=lanes)
+                    sync()
+                    wall = time.perf_counter() - t0
+                    bad = driver.finite_report(res)
+                    chip_smoke.check(len(bad) == 0, f"{mode} B={B} {sched} "
+                                     f"{lanes}: non-finite lanes {list(bad)}")
+                    att = timer.stats["attempts"]
+                    row = dict(
+                        mode=mode, batch=B, scheduler=sched, lanes=lanes,
+                        round=rnd, wall_s=wall,
+                        cosmologies_per_min=B / wall * 60.0,
+                        stages_s=dict(timer.times),
+                        iterations=timer.stats.get("iterations"),
+                        rk_finish_launches=counts.snapshot()["rk_finish"],
+                        attempts_min=min(att),
+                        attempts_median=float(np.median(att)),
+                        attempts_max=max(att), attempts_sum=sum(att))
+                    runs.append(row)
+                    print(json.dumps(row))
+                    with open(out_path, "w") as f:
+                        json.dump(out, f, indent=1)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--oneloop", action="store_true",
                     help="the 1-loop cell instead of the full-TRG one")
     ap.add_argument("--placements", action="store_true",
                     help="time the prepare placements instead")
-    ap.add_argument("--batches", default="16,64,128",
-                    help="batch sizes of --placements")
+    ap.add_argument("--schedulers", action="store_true",
+                    help="time the chunked and packed schedulers instead")
+    ap.add_argument("--batches", default=None,
+                    help="batch sizes of --placements (default 16,64,128) "
+                    "or --schedulers (default 64,128)")
+    ap.add_argument("--rounds", type=int, default=2,
+                    help="rounds of --schedulers")
     ap.add_argument("--out")
     args = ap.parse_args()
     out_path = args.out or os.path.join(
         ROOT, "chiprun_out", "profile_torch_port"
-        + ("_placements" if args.placements else "_oneloop" if args.oneloop
+        + ("_placements" if args.placements else "_schedulers"
+           if args.schedulers else "_oneloop" if args.oneloop
            else "") + ".json")
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
@@ -288,10 +358,15 @@ def main() -> int:
     out = {"card": chip_smoke.card_line()}
     print(out["card"])
     build.build()
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    if args.schedulers:
+        schedulers([int(b) for b in (args.batches or "64,128").split(",")],
+                   args.rounds, out, out_path)
+        return 0
     if args.placements:
         host_prepare_threads(out)
-        placements([int(b) for b in args.batches.split(",")], out)
-        os.makedirs(os.path.dirname(out_path), exist_ok=True)
+        placements([int(b) for b in (args.batches or "16,64,128")
+                    .split(",")], out)
         with open(out_path, "w") as f:
             json.dump(out, f, indent=1)
         return 0
@@ -316,7 +391,6 @@ def main() -> int:
     rhs_pieces(cfg, settings, m, ys, cs, ec, out)
     profile_attempt(cfg, settings, m, ys, ec, out)
     profile_phases(cfg, settings, m, cs, lins, ec, out)
-    os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(out, f, indent=1)
     return 0

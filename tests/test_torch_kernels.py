@@ -349,8 +349,9 @@ def test_launch_counts_by_phase():
 
 def test_rk_finish_plain_controller_and_frozen_lanes():
     """The GSL controller on hand-made lanes: reject (r > 1.1) shrinks h,
-    accept with r < 0.5 grows it, the final step lands on t1, and inactive
-    lanes keep their state."""
+    accept with r < 0.5 grows it, the final step lands on t1 (and only
+    it reaches its interval's end), and inactive lanes keep their
+    state."""
     B, D = 4, 3
     y = torch.ones((B, D), dtype=torch.float64)
     ks = torch.zeros((6, B, D), dtype=torch.float64)
@@ -365,7 +366,8 @@ def test_rk_finish_plain_controller_and_frozen_lanes():
     active = torch.tensor([True, True, True, False])
     consts = k3.attempt_consts(tode.RKF45, 1e-7, 1e-2, "cpu")
     before = counts.snapshot()
-    y2, t2, h2, n2, r = k3.rk_finish(y, ks, t, h, t1, n, active, consts)
+    y2, t2, h2, n2, r, reached = k3.rk_finish(y, ks, t, h, t1, n, active,
+                                              consts)
     assert counts.snapshot() == before
     assert float(r[0]) > 1.1 and float(t2[0]) == 0.0
     assert torch.equal(y2[0], y[0]) and float(h2[0]) < 0.1
@@ -374,12 +376,13 @@ def test_rk_finish_plain_controller_and_frozen_lanes():
     assert float(t2[2]) == 0.2                       # landed on t1
     assert torch.equal(y2[3], y[3]) and float(t2[3]) == 0.0
     assert float(h2[3]) == 0.1 and n2.tolist() == [1, 1, 1, 0]
+    assert reached.tolist() == [False, False, True, False]
 
 
 def test_chip_smoke_inputs_match_the_golden():
     """chip_smoke.py's design lanes 0-1, redshifts and linear inputs are
-    the ones each JAX golden (full TRG, 1-loop) was written from, and the
-    script imports no JAX."""
+    the ones each JAX golden (full TRG, 1-loop, the two presets) was
+    written from, and the script imports no JAX."""
     code = ("import sys, numpy as np, chip_smoke as s\n"
             "from redtime_tpu_torch.io.camb import LinearData\n"
             "g = np.load(s.GOLDEN)\n"
@@ -395,6 +398,13 @@ def test_chip_smoke_inputs_match_the_golden():
             "for name, x in zip(LinearData._fields, s.example_linear()):\n"
             "    assert np.array_equal(g[name], x), name\n"
             "assert g['table'].shape == (2, len(s.Z_OUT_1L), 128, 32)\n"
+            "for name, (nk, path) in s.GOLDEN_PRESETS.items():\n"
+            "    g = np.load(path)\n"
+            "    assert np.array_equal(g['params'], s.design_params()[:2])\n"
+            "    assert np.array_equal(g['z_out'], s.Z_OUT_PRESETS)\n"
+            "    for f, x in zip(LinearData._fields, s.example_linear()):\n"
+            "        assert np.array_equal(g[f], x), (name, f)\n"
+            "    assert g['table'].shape == (2, 2, nk, 17), name\n"
             "assert not [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'redtime_tpu')]\n"
             "print('ok')\n")
@@ -617,6 +627,41 @@ def test_cuda_rk_attempt_in_passes(cuda_device, name, D):
     for i in range(1, consts.s):
         assert torch.equal(k3.rk_stage(y, ks, h, consts, i),
                            k3.rk_stage_plain(y, ks, h, consts.a[i], i)), i
+
+
+# (tableau, D, eabs, erel) of the attempts whose final-step rule the
+# packed scheduler changes: the eta state at nk=128 and at the presets'
+# grids (nk = 512, 256), and the growth cases
+RK_RULE_CASES = [("DOP853", 2, 0.0, 1e-6), ("DOPRI5", 102, 0.0, 1e-6),
+                 ("RKF45", 41 * 128, 1e-7, 1e-2),
+                 ("RKF45", 41 * 512, 1e-15, 1e-6),
+                 ("RKF45", 41 * 256, 1e-15, 1e-6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,D,eabs,erel", RK_RULE_CASES)
+def test_cuda_rk_finish_final_rule(cuda_device, name, D, eabs, erel):
+    """On the card: K3's rk_finish under both final-step rules against
+    its plain version, all six outputs (reached included) bit for bit,
+    on chip_smoke's attempt with a lane that steps exactly onto t1 and
+    one where t + h rounds onto t1 short of it."""
+    import chip_smoke
+
+    tab = getattr(tode, name)
+    rng = np.random.default_rng(D)
+    args = chip_smoke.final_rule_lanes(
+        chip_smoke.rk_inputs(rng, tab, 16, D, eabs, cuda_device))
+    reached = {}
+    for ge in (False, True):
+        consts = k3.attempt_consts(tab, eabs, erel, cuda_device,
+                                   final_at_equal=ge)
+        out = k3.rk_finish(*args, consts)
+        ref = k3.rk_finish_plain(*args, consts.b, consts.e, consts.prm, ge)
+        for i, (a, b) in enumerate(zip(out, ref)):
+            assert torch.equal(a, b), (name, D, ge, i)
+        reached[ge] = out[5]
+    assert bool(reached[True][0]) and not bool(reached[False][0])
+    assert not bool(reached[True][1])
 
 
 @pytest.mark.cuda
