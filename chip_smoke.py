@@ -78,7 +78,20 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
      K1 and K2), against the port's own CPU run, and once more in chunks
      of one lane (whether a lane's bits depend on its chunk on the card:
      printed, not checked);
- 11. prints the kernels' JSON line, the card line and, last, the result.
+ 11. runs the emulator-production chain (run_production): a 16-model
+     Mira-Titan design through orchestrate.main with tests/mock_camb.py
+     (two CAMB passes a model), its 33 CAMB redshifts as outputs, one CLI
+     `batch --timing` on the card (full TRG, SolverConfig() defaults),
+     the CLI's `convert` at the 8 HACC steps and `convert-full` at step
+     499, emulator_check of each table against itself, and the injected
+     rerun of lanes 0-1 (inject.load_injected, run_batch(norm_override)),
+     against the JAX golden tests/data/torch_port_golden_production.npz
+     (gen_torch_port_golden --case production); prints each stage's
+     wall, cosmologies/min and attempts per cosmology;
+ 12. runs the off-by-default numerics (run_numerics: growth_dense and
+     quad_impl='gl', 1-loop, 2 lanes, prepare on the card) against
+     tests/data/torch_port_golden_numerics.npz (--case numerics);
+ 13. prints the kernels' JSON line, the card line and, last, the result.
 
 Every path from step 4 on runs with the launch counters set to 0 just
 before it and read just after, and must have launched K1-K3 (the probes:
@@ -90,6 +103,7 @@ It imports nothing of JAX.  Details go to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -122,6 +136,23 @@ HBM_BYTES_S = 3.35e12
 PEAK_FP64_TC, PEAK_FP64, PEAK_FP32, PEAK_INT8_TC = 67e12, 34e12, 67e12, \
     1979e12
 MAIN_KERNELS = ("out_leg", "pz_leg", "rk_stage", "rk_finish")
+# the production chain (run_production): a Latin-hypercube design of
+# N_PROD Mira-Titan cosmologies (design.generate_design, seed SEED),
+# tests/mock_camb.py as the CAMB binary, the 33 CAMB redshifts as the
+# output list, convert at every HACC step and convert-full at
+# PROD_STEP_FULL with N_PM PM realizations and one HACC spectrum a model
+# (write_nbody_spectra, seed NBODY_SEED); its JAX golden is
+# scripts/gen_torch_port_golden.py --case production
+GOLDEN_PROD = os.path.join(HERE, "tests", "data",
+                           "torch_port_golden_production.npz")
+MOCK_CAMB = os.path.join(HERE, "tests", "mock_camb.py")
+N_PROD, PROD_STEP_FULL, N_PM, NBODY_SEED = 16, 499, 16, 7
+# the numerics run (run_numerics): 1-loop, growth_dense and quad_impl='gl'
+# with prepare on the card; scripts/gen_torch_port_golden.py --case
+# numerics
+GOLDEN_NUMERICS = os.path.join(HERE, "tests", "data",
+                               "torch_port_golden_numerics.npz")
+NUMERICS = dict(growth_dense=True, quad_impl="gl")
 PROBE_KERNELS = ("affine", "int8_dot", "dd_mul", "oz_fused")
 
 
@@ -188,6 +219,49 @@ def write_cli_inputs(workdir: str, params: np.ndarray, z_out,
             list(CLI_STACK_Z)))
         paths.append(path)
     return paths
+
+
+def write_nbody_spectra(workdir: str, n_models: int,
+                        step: int = PROD_STEP_FULL, n_pm: int = N_PM,
+                        seed: int = NBODY_SEED) -> tuple:
+    """Synthetic N-body spectra for convert-full, made with numpy from
+    `seed`: per model 1..n_models, n_pm PM realizations of 64 rows and
+    one HACC spectrum of 96 rows, each '#'-headed (k [h/Mpc], P, counts),
+    a smooth P(k) with 2% scatter and mode counts growing as k^2.
+    Returns the (PM, HACC) path templates convert_pk_full takes."""
+    rng = np.random.default_rng(seed)
+    pm_t = os.path.join(workdir, "M{model:03d}_PM{pm:03d}.pk.{step}")
+    hacc_t = os.path.join(workdir, "M{model:03d}_HACC.pk.{step}")
+
+    def spectrum(path, n):
+        k = np.linspace(2e-3, 1.4, n)
+        P = 2e4 * (k / 0.02) / (1.0 + (k / 0.02) ** 2.6) * (
+            1.0 + 0.02 * rng.standard_normal(n))
+        counts = 10.0 + 1e4 * k * k * (1.0 + rng.random(n))
+        np.savetxt(path, np.column_stack([k, P, counts]),
+                   header="k P counts")
+
+    for mn in range(1, n_models + 1):
+        for pm in range(n_pm):
+            spectrum(pm_t.format(model=mn, pm=pm, step=step), 64)
+        spectrum(hacc_t.format(model=mn, step=step), 96)
+    return pm_t, hacc_t
+
+
+def read_headers(path: str) -> tuple:
+    """(H [n_z], sigma_v^2 [n_z], sigmaV2(z=0)) from the '###' header
+    lines of a redTime-format table."""
+    H, sv2, sv2_z0 = [], [], None
+    with open(path) as f:
+        for line in f:
+            if line.startswith("###main:"):
+                sv2_z0 = float(line.split("sigmaV2(z=0) =")[1])
+            elif line.startswith("### main: output at"):
+                fields = dict(kv.strip().split("=") for kv in
+                              line.split("output at", 1)[1].split(","))
+                H.append(float(fields["H"]))
+                sv2.append(float(fields["sigma_v^2"]))
+    return np.asarray(H), np.asarray(sv2), sv2_z0
 
 
 def card_line() -> str:
@@ -1536,6 +1610,328 @@ def run_presets(detail: dict, card: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def batch_timers():
+    """The StageTimer of every driver.run_batch call inside the block (the
+    CLI makes its own), so a run through the CLI can report its attempts
+    per cosmology."""
+    from redtime_tpu_torch import driver
+
+    inner, seen = driver.run_batch, []
+
+    def recorded(*args, **kw):
+        seen.append(kw.get("timer"))
+        return inner(*args, **kw)
+
+    driver.run_batch = recorded
+    try:
+        yield seen
+    finally:
+        driver.run_batch = inner
+
+
+# the linear columns' bounds of the injected rerun: dln beta/dln a
+# (column 5) differentiates the beta table that inject densifies from the
+# printed 12-digit P_lin_nu / P_lin_cb, so it carries the rounding of the
+# two packages' printed tables amplified (2.0e-10 on the CPU, port
+# against JAX); 1e-9 is the reference suite's z=0 bound on the injected
+# reconstruction (tests/test_golden_32models.py:139)
+INJECT_LIN_BOUNDS = (1e-10,) * 5 + (1e-9, 1e-10)
+
+
+def table_dev(got: np.ndarray, ref: np.ndarray, what: str,
+              lin_bounds=(1e-10,) * 7) -> tuple:
+    """(column-scale deviation over lanes and k, linear columns' relative
+    deviation) of tables [lanes, blocks, nk, ncol]; raises past 3e-5 or
+    past lin_bounds (one a linear column)."""
+    check(got.shape == ref.shape, f"{what}: table shape {got.shape}, golden "
+                                  f"{ref.shape}")
+    dev_col = band_dev(got, ref)
+    lin = np.max(np.abs(got[..., :7] - ref[..., :7])
+                 / (np.abs(ref[..., :7]) + 1e-300), axis=(0, 1, 2))
+    check(dev_col <= 3e-5, f"{what}: vs golden {dev_col:.3g} of column "
+                           "scale (bound 3e-5)")
+    check(bool(np.all(lin <= np.asarray(lin_bounds))),
+          f"{what}: linear columns vs golden {lin} relative (bounds "
+          f"{lin_bounds})")
+    return dev_col, float(lin.max())
+
+
+def header_dev(got: dict, gold: dict, prefix: str, what: str) -> float:
+    """Largest relative deviation of the H, sigma_v^2 and sigmaV2(z=0)
+    headers from the golden's `prefix`-named ones; raises past 1e-10."""
+    worst = 0.0
+    for name in ("H", "sigma_v2", "sigmaV2_z0"):
+        ref = gold[prefix + name]
+        rel = float(np.max(np.abs(np.asarray(got[name]) - ref) / np.abs(ref)))
+        check(rel <= 1e-10, f"{what}: {name} vs golden {rel:.3g} relative "
+                            "(bound 1e-10)")
+        worst = max(worst, rel)
+    return worst
+
+
+def output_dev(got: np.ndarray, ref: np.ndarray, axis: int,
+               what: str) -> float:
+    """max |got - ref| over max |ref| along `axis` (a convert output's
+    column scale); raises past 3e-5."""
+    check(got.shape == ref.shape, f"{what}: shape {got.shape}, golden "
+                                  f"{ref.shape}")
+    scale = np.max(np.abs(ref), axis=axis, keepdims=True) + 1e-300
+    dev = float(np.max(np.abs(got - ref) / scale))
+    check(dev <= 3e-5, f"{what}: vs golden {dev:.3g} of column scale "
+                       "(bound 3e-5)")
+    return dev
+
+
+def read_outputs(out_dir: str, tag: str, n: int = 2) -> np.ndarray:
+    """The convert outputs {tag}_M###_no_interp_test.dat of models 1..n."""
+    return np.stack([np.loadtxt(os.path.join(
+        out_dir, f"{tag}_M{mn:03d}_no_interp_test.dat"))
+        for mn in range(1, n + 1)])
+
+
+def run_production(detail: dict, card: str) -> tuple:
+    """The emulator-production chain on the card, through the entry points
+    a user calls, held to the JAX golden of its first two models
+    (GOLDEN_PROD):
+
+      1. design.generate_design writes N_PROD = 16 Mira-Titan cosmologies
+         (seed SEED); orchestrate.main runs each through two passes of
+         tests/mock_camb.py (the sigma_8 rescale), writes their params
+         files (switches 1 0 1 1, z_out the 33 CAMB redshifts) and ends in
+         one CLI `batch --timing` on the card at SolverConfig() defaults
+         (nk=128, np=512, RKF45, f64, scheduler auto), with the counters
+         set to 0 just before and read just after: K1-K3 launched in the
+         solve, none in host prepare; 16 x 33 finite blocks; lanes 0-1
+         at the 8 HACC blocks within 3e-5 of column scale of the golden,
+         linear columns and headers within 1e-10;
+      2. the CLI's `convert` at the 8 HACC steps of STEP_TO_ZBLOCK and
+         `convert-full` at PROD_STEP_FULL over write_nbody_spectra's PM
+         and HACC spectra, every model; models 1-2 within 3e-5 of column
+         scale of the golden's outputs; emulator_check.compare_outputs of
+         each table against itself through assert_reference_criteria;
+      3. inject.load_injected on the tables of lanes 0-1 and their rerun
+         through run_batch(norm_override=...) on the card (timed_run's
+         checks), at the 8 HACC blocks within 3e-5 of column scale of the
+         golden's injected tables, headers and linear columns within
+         1e-10 but dln beta/dln a within 1e-9 (INJECT_LIN_BOUNDS).
+
+    Prints each stage's wall (orchestration: orchestrate.main's wall less
+    the CLI's three --timing stages), cosmologies/min, attempts per
+    cosmology and the launches by phase.  Returns (the batch's launches,
+    the rerun's launches)."""
+    import io
+    import re
+    import tempfile
+
+    import torch
+
+    from redtime_tpu_torch import (cli, design, driver, emulator_check,
+                                   inject, orchestrate)
+    from redtime_tpu_torch.config import CosmoParams, SolverConfig
+    from redtime_tpu_torch.convert import (STEP_TO_ZBLOCK, read_models_file,
+                                           read_redtime_table)
+    from redtime_tpu_torch.io.camb import LinearData
+    from redtime_tpu_torch.kernels import counts
+
+    gold = dict(np.load(GOLDEN_PROD))
+    steps = sorted(STEP_TO_ZBLOCK)
+    blocks = [STEP_TO_ZBLOCK[s] for s in steps]
+    check(list(gold["blocks"]) == blocks and list(gold["steps"]) == steps,
+          "production: the golden's HACC blocks differ")
+    cfg = SolverConfig()
+    walls, out_detail = {}, {}
+    with tempfile.TemporaryDirectory() as work:
+        models = os.path.join(work, "models.dat")
+        design.generate_design(models, N_PROD, seed=SEED)
+        check(np.array_equal(np.loadtxt(models, usecols=range(1, 9))[:2],
+                             gold["design"]),
+              "production: design lanes 0-1 differ from the golden's")
+        zfile = os.path.join(work, "z.txt")
+        with open(zfile, "w") as f:
+            f.write(orchestrate.CAMB_Z_LIST + "\n")
+        check(np.array_equal(np.asarray(orchestrate.CAMB_Z_LIST.split(),
+                                        dtype=np.float64), gold["z_out"]),
+              "production: z_out differs from the golden's")
+        out = os.path.join(work, "out")
+        err = io.StringIO()
+        counts.reset()
+        t0 = time.perf_counter()
+        with batch_timers() as timers, contextlib.redirect_stderr(err):
+            rc = orchestrate.main(["--redshift-file", zfile, "--models-file",
+                                   models, "--output-dir", out, "--camb-exec",
+                                   MOCK_CAMB, "--timing"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log = err.getvalue()
+        sys.stderr.write(log)
+        check(rc == 0, f"production: orchestrate rc {rc}")
+        launches = dict(counts.snapshot(), by_phase=counts.phases())
+        for name in MAIN_KERNELS:
+            check(launches["by_phase"]["solve"][name] > 0,
+                  f"production: kernel {name} was not launched in the solve")
+            check(launches["by_phase"]["prepare"][name] == 0,
+                  f"production: host prepare launched {name} on the card")
+        stages = {k: float(v) for k, v in re.findall(
+            r"# \[timing\] (\S+): ([0-9.]+)s \(", log)}
+        cli_stages = ("load-inputs", "solve-batch", "write-outputs")
+        check(all(s in stages for s in cli_stages),
+              f"production: --timing stages {stages}")
+        walls.update({s: stages[s] for s in cli_stages})
+        walls["orchestration"] = wall - sum(stages[s] for s in cli_stages)
+        per_min = float(re.search(r"\(([0-9.]+) cosmologies/min\)",
+                                  log).group(1))
+        check(len(timers) == 1 and timers[0] is not None,
+              "production: the CLI ran run_batch without its timer")
+        att = timers[0].stats["attempts"]
+
+        paths = [os.path.join(out, f"redTime_M{i:03d}.dat")
+                 for i in range(1, N_PROD + 1)]
+        tables = np.stack([read_redtime_table(p, cfg.nk) for p in paths])
+        check(tables.shape == (N_PROD, 33, cfg.nk, 17)
+              and bool(np.isfinite(tables).all()),
+              f"production: tables {tables.shape} or non-finite")
+        dev_col, dev_lin = table_dev(tables[:2, blocks], gold["table"],
+                                     "production")
+        heads = [read_headers(p) for p in paths[:2]]
+        dev_head = header_dev(dict(
+            H=np.stack([h[0][blocks] for h in heads]),
+            sigma_v2=np.stack([h[1][blocks] for h in heads]),
+            sigmaV2_z0=np.array([h[2] for h in heads])), gold, "",
+            "production")
+
+        t0 = time.perf_counter()
+        for step in steps:
+            check(cli.main(["convert", "--n-models", str(N_PROD), "--step",
+                            str(step), "--nk", str(cfg.nk), "--models-file",
+                            models, "--red-dir", out]) == 0,
+                  f"production: convert --step {step} failed")
+        walls["convert"] = time.perf_counter() - t0
+        conv = [(read_outputs(os.path.join(out, f"STEP{s}"), "k"),
+                 read_outputs(os.path.join(out, f"STEP{s}"), "pk"))
+                for s in steps]
+        dev_conv = max(
+            output_dev(np.stack([c[0] for c in conv]), gold["convert_k"], 2,
+                       "production convert k"),
+            output_dev(np.stack([c[1] for c in conv]), gold["convert_pk"],
+                       2, "production convert pk"))
+        nbody = os.path.join(work, "nbody")
+        os.makedirs(nbody)
+        pm_t, hacc_t = write_nbody_spectra(nbody, N_PROD)
+        full = os.path.join(work, "full")
+        t0 = time.perf_counter()
+        check(cli.main(["convert-full", "--design", models, "--step",
+                        str(PROD_STEP_FULL), "-o", full, "--pt-template",
+                        os.path.join(out, "redTime_M{model:03d}.dat"),
+                        "--pm-template", pm_t, "--hacc-template", hacc_t,
+                        "--nk", str(cfg.nk), "--n-pm", str(N_PM)]) == 0,
+              "production: convert-full failed")
+        walls["convert_full"] = time.perf_counter() - t0
+        check(len(os.listdir(full)) == 3 * N_PROD,
+              f"production: convert-full wrote {len(os.listdir(full))} files")
+        dev_full = max(output_dev(read_outputs(full, tag), gold["full_" + tag],
+                                  1, f"production convert-full {tag}")
+                       for tag in ("k", "pk", "err"))
+        design_rows = read_models_file(models)
+        for path, m in zip(paths, design_rows):
+            res = emulator_check.compare_outputs(path, path, cfg.nk,
+                                                 om_nu=m["om_nu"],
+                                                 om_m=m["om_m"])
+            emulator_check.assert_reference_criteria(res,
+                                                     massive=m["om_nu"] > 0)
+            check(res.max_abs == 0.0, f"production: {path} against itself "
+                                      f"{res.max_abs}")
+
+        loaded = [inject.load_injected(
+            cfg, os.path.join(out, f"params_redTime_M{i:03d}.dat"), p)
+            for i, p in zip((1, 2), paths)]
+    norms = np.array([n for *_, n in loaded])
+    rel = float(np.max(np.abs(norms / gold["inject_norm"] - 1.0)))
+    check(rel <= 1e-10, f"production inject: norm vs golden {rel:.3g}")
+    settings = driver.settings_from_params(loaded[0][0])[0]
+    cosmos = [driver.settings_from_params(p)[1] for p, _, _ in loaded]
+    cs = CosmoParams(*[torch.stack([c[i] for c in cosmos]) for i in range(9)])
+    lins = LinearData(*[np.stack([lin[i] for _, lin, _ in loaded])
+                        for i in range(6)])
+    res, inj_launches, inj_wall, inj_timer = timed_run(
+        "inject_rerun", cfg, settings, cs, lins, detail, norm_override=norms)
+    walls["inject_rerun"] = inj_wall
+    inj_col, inj_lin = table_dev(res.table[:, blocks].cpu().numpy(),
+                                 gold["inject_table"], "inject rerun",
+                                 INJECT_LIN_BOUNDS)
+    inj_head = header_dev(dict(
+        H=res.H[:, blocks].cpu().numpy(),
+        sigma_v2=res.sigma_v2[:, blocks].cpu().numpy(),
+        sigmaV2_z0=res.sigmaV2_z0.cpu().numpy()), gold, "inject_",
+        "inject rerun")
+    out_detail.update(
+        cosmologies=N_PROD, redshifts=33, walls_s=walls, wall_s=wall,
+        cosmologies_per_min=per_min, attempts=att,
+        golden_dev_col_scale=dev_col, golden_dev_linear_rel=dev_lin,
+        golden_dev_headers_rel=dev_head, convert_dev=dev_conv,
+        convert_full_dev=dev_full, inject_norm_rel=rel,
+        inject_dev_col_scale=inj_col, inject_dev_linear_rel=inj_lin,
+        inject_dev_headers_rel=inj_head,
+        inject_attempts=inj_timer.stats["attempts"], launches=launches,
+        inject_launches=inj_launches)
+    detail["production"] = out_detail
+    print(f"production path on {card}: {N_PROD} cosmologies x 33 "
+          f"redshifts, full TRG, nk={cfg.nk}: orchestrate.main {wall:.3f} s "
+          f"(orchestration {walls['orchestration']:.3f} s, 2 mock CAMB "
+          f"passes a model; CLI load-inputs {walls['load-inputs']:.3f} s, "
+          f"solve-batch {walls['solve-batch']:.3f} s, write-outputs "
+          f"{walls['write-outputs']:.3f} s; {per_min:.2f} cosmologies/min); "
+          f"attempts per cosmology {spread(att)}; lanes 0-1 vs JAX golden "
+          f"{dev_col:.3g} of column scale, linear {dev_lin:.3g}, headers "
+          f"{dev_head:.3g}; launches by phase {launches['by_phase']}")
+    print(f"production convert on {card}: 8 HACC steps x {N_PROD} models "
+          f"{walls['convert']:.3f} s, vs golden {dev_conv:.3g}; convert-full "
+          f"step {PROD_STEP_FULL} ({N_PM} PM + HACC, {N_PROD} models) "
+          f"{walls['convert_full']:.3f} s, vs golden {dev_full:.3g}; every "
+          "table passes emulator_check against itself")
+    print(f"production inject rerun on {card}: 2 lanes x 33 redshifts "
+          f"{inj_wall:.3f} s (stages {dict(inj_timer.times)}; attempts "
+          f"{inj_timer.stats['attempts']}); norm vs golden {rel:.3g}; vs "
+          f"JAX golden {inj_col:.3g} of column scale, linear {inj_lin:.3g}, "
+          f"headers {inj_head:.3g}; launches by phase "
+          f"{inj_launches['by_phase']}")
+    return launches, inj_launches
+
+
+def run_numerics(detail: dict, card: str) -> dict:
+    """The off-by-default numerics: SolverConfig(growth_dense=True,
+    quad_impl='gl'), 1-loop at the 1-loop redshifts, 2 design lanes, with
+    prepare on the card (prepare_on_host=False: the dense growth
+    integration's attempts run K3, its dense fill plain torch), with the
+    counters set to 0 just before and read just after (timed_run: K3 in
+    prepare, K1-K3 in the solve); lanes 0-1 held to the JAX golden
+    (GOLDEN_NUMERICS) within 3e-5 of column scale, linear columns and
+    headers within 1e-10 (on the CPU the port is 2.6e-12 / 8.8e-13 from
+    it).  Returns the launch counts."""
+    from redtime_tpu_torch.config import RunSettings, SolverConfig
+
+    cfg = SolverConfig(**NUMERICS)
+    settings = RunSettings(one_loop=True, z_out=Z_OUT_1L)
+    params = design_params(N_DESIGN)
+    gold = load_golden(GOLDEN_NUMERICS, params, settings, "numerics")
+    cs, lins = design_inputs(2, params[:2])
+    res, launches, wall, timer = timed_run("numerics", cfg, settings, cs,
+                                           lins, detail,
+                                           prepare_on_host=False)
+    dev_col, dev_lin = golden_dev(res, gold, "numerics")
+    detail["numerics"] = dict(wall_s=wall, stages_s=dict(timer.times),
+                              attempts=timer.stats["attempts"],
+                              golden_dev_col_scale=dev_col,
+                              golden_dev_linear_rel=dev_lin,
+                              launches=launches)
+    print(f"numerics path on {card}: 2 cosmologies, 1-loop, growth_dense, "
+          f"quad_impl='gl', prepare on the card: {wall:.3f} s (stages "
+          f"{dict(timer.times)}); attempts {timer.stats['attempts']}; lanes "
+          f"0-1 vs JAX golden {dev_col:.3g} of column scale, linear "
+          f"{dev_lin:.3g}; launches by phase {launches['by_phase']}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1588,6 +1984,9 @@ def main() -> int:
                   cli_packed=run_cli_packed(detail, card))
     phases.update(run_presets(detail, card))
     phases.update(grid_nk48=run_ragged_grid(detail, card))
+    phases["production"], phases["inject_rerun"] = run_production(detail,
+                                                                  card)
+    phases.update(numerics=run_numerics(detail, card))
     for r in rows:
         r["launches_by_path"] = {k: p[r["name"]] for k, p in phases.items()}
         r["launches"] = sum(r["launches_by_path"].values())

@@ -46,6 +46,11 @@ def derived(c: CosmoParams) -> DerivedParams:
     return DerivedParams(Og, f_nu, f_cb, On_hot, a_nu, Or, OL)
 
 
+def w_de(c: CosmoParams, a):
+    """CPL dark-energy equation of state (reference :395)."""
+    return _b(c.w0, a) + _b(c.wa, a) * (1.0 - a)
+
+
 def E_de(c: CosmoParams, a):
     """rho_DE(a)/rho_DE(1) (reference :406-413)."""
     w0, wa = _b(c.w0, a), _b(c.wa, a)
@@ -91,6 +96,11 @@ def dlnH_dlna(c: CosmoParams, a, d: DerivedParams | None = None):
         * (-3.0 * (1.0 + Y_nu(c, a, d)) + a * dY_da(c, a, d)) / a ** 4
         + _b(d.Omega_L, a) * dE_da(c, a)
         - 4.0 * _b(d.Omega_gam, a) / a ** 5)
+
+
+def Omega_m_a(c: CosmoParams, a, d: DerivedParams | None = None):
+    """Time-dependent Omega_m(a) (reference :497-500)."""
+    return _b(c.Omega_m, a) / (a ** 3 * H2_H02(c, a, d))
 
 
 # --- range-bounded forms for deep-radiation-era evaluation -----------------

@@ -1,22 +1,32 @@
 """Command-line interface of the PyTorch port (the port of
-redtime_tpu/cli.py's `run` and `batch`).
+redtime_tpu/cli.py).
 
-`run`   — the redTime-binary equivalent: consume a params_redTime.dat (plus
-          its CAMB transfer files) and write the output table (reference
-          `src/redTime.cc` main()).
-`batch` — evolve many params files in one batched computation on the
-          card, chunked or (`--scheduler packed --lanes N`) through the
-          work queue: the replacement for the serial `runRedTimeBatch`
-          shell loop (reference scripts/runRedTimeBatch:91-99).
+`run`          — the redTime-binary equivalent: consume a
+                 params_redTime.dat (plus its CAMB transfer files) and
+                 write the output table (reference `src/redTime.cc` main()).
+`batch`        — evolve many params files in one batched computation on
+                 the card, chunked or (`--scheduler packed --lanes N`)
+                 through the work queue: the replacement for the serial
+                 `runRedTimeBatch` shell loop (reference
+                 scripts/runRedTimeBatch:91-99).
+`convert`      — emulator post-processing (convertPt): per-HACC-step k / P
+                 files from the output tables (convert.convert_pt).
+`convert-full` — merge PT + PM + HACC spectra (convertPkFull,
+                 convert.convert_pk_full).
 
     redtime-tpu-torch batch params_*.dat -o out/          # on the card
     redtime-tpu-torch batch params_*.dat -o out/ --scheduler packed --lanes 16
     python -m redtime_tpu_torch.cli run --params p.dat --platform cpu
+    redtime-tpu-torch convert --n-models 16 --step 499 \
+        --models-file models.dat --red-dir out/
 
-Both run on the card unless `--platform cpu` asks for the CPU; with no
-card they exit non-zero.  The JAX CLI's `--mode` and `--show-legs` (FFT
-and Ozaki backends), `--shard`, the segmented scheduler with its
-`--seg-breaks` and the `convert` commands have no counterpart here.
+`run` and `batch` run on the card unless `--platform cpu` asks for the
+CPU; with no card they exit non-zero.  `convert` and `convert-full` are
+numpy on the host.  The JAX CLI's `--mode` and `--show-legs` (FFT and
+Ozaki backends) and the segmented scheduler with its `--seg-breaks` have
+no counterpart here; `--shard` waits for the multi-GPU batch split
+(ROADMAP.md, queue 1 item 5).  scripts/run_redtime.py's two-pass CAMB
+orchestration is `python -m redtime_tpu_torch.orchestrate`.
 """
 
 from __future__ import annotations
@@ -229,6 +239,23 @@ def cmd_batch(args) -> int:
     return 0
 
 
+def cmd_convert(args) -> int:
+    from redtime_tpu_torch.convert import convert_pt
+
+    convert_pt(args.n_models, args.step, args.nk, args.models_file,
+               args.red_dir)
+    return 0
+
+
+def cmd_convert_full(args) -> int:
+    from redtime_tpu_torch.convert import convert_pk_full
+
+    convert_pk_full(args.design, args.step, args.output_dir,
+                    args.pt_template, args.pm_template, args.hacc_template,
+                    models=args.models, nk_pt=args.nk, n_pm=args.n_pm)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="redtime-tpu-torch",
@@ -289,6 +316,33 @@ def main(argv=None) -> int:
     b.add_argument("--lanes", type=int, default=None,
                    help="packed-scheduler lane count (default 8)")
     b.set_defaults(fn=cmd_batch)
+
+    cv = sub.add_parser("convert",
+                        help="emulator post-processing (convertPt)")
+    cv.add_argument("--n-models", type=int, required=True)
+    cv.add_argument("--step", type=int, required=True,
+                    help="HACC analysis step (163..499)")
+    cv.add_argument("--nk", type=int, default=128)
+    cv.add_argument("--models-file", required=True)
+    cv.add_argument("--red-dir", required=True)
+    cv.set_defaults(fn=cmd_convert)
+
+    cf = sub.add_parser(
+        "convert-full",
+        help="merge PT + PM + HACC spectra (convertPkFull equivalent; "
+             "path templates take {model}/{step}/{pm})")
+    cf.add_argument("--design", required=True, help="design/models file")
+    cf.add_argument("--step", type=int, required=True)
+    cf.add_argument("--output-dir", "-o", required=True)
+    cf.add_argument("--pt-template", required=True,
+                    help="e.g. runs/redTime_M{model:03d}.dat")
+    cf.add_argument("--pm-template", required=True,
+                    help="e.g. runs/M{model:03d}/PM{pm:03d}/m.pk.{step}")
+    cf.add_argument("--hacc-template", required=True)
+    cf.add_argument("--models", type=int, nargs="*", default=None)
+    cf.add_argument("--nk", type=int, default=128)
+    cf.add_argument("--n-pm", type=int, default=16)
+    cf.set_defaults(fn=cmd_convert_full)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -120,12 +120,8 @@ class SolverConfig:
                     "TPU's MXU; the port computes in native f64")
             if value not in ("auto", "dot"):
                 raise ValueError(f"unknown {leg} {value!r}")
-        if self.growth_dense:
-            raise ValueError("growth_dense=True (dense-output growth "
-                             "integration) is not ported yet")
-        if self.quad_impl != "qag":
-            raise ValueError(f"quad_impl={self.quad_impl!r}: only the "
-                             "GSL-replica 'qag' quadrature is ported")
+        if self.quad_impl not in ("qag", "gl"):
+            raise ValueError(f"unknown quad_impl {self.quad_impl!r}")
         if self.growth_ramp_tableau not in ("dop853", "dopri5"):
             raise ValueError(
                 f"unknown growth_ramp_tableau {self.growth_ramp_tableau!r}")

@@ -90,6 +90,29 @@ def interp1(nodes: torch.Tensor, values: torch.Tensor,
     return (w * f4).sum(-1)
 
 
+def interp1_vec(nodes: torch.Tensor, values: torch.Tensor,
+                xs: torch.Tensor) -> torch.Tensor:
+    """interp1 over a 1-D tensor of query points (the JAX package's vmapped
+    form; interp1 here is elementwise already)."""
+    return interp1(nodes, values, xs)
+
+
+def interp2(x_nodes: torch.Tensor, y_nodes: torch.Tensor,
+            table: torch.Tensor, x: torch.Tensor,
+            y: torch.Tensor) -> torch.Tensor:
+    """tabulated_function::f(x, y), elementwise over x and y of one shape.
+
+    `table` has shape [len(x_nodes), len(y_nodes)] (C layout of the
+    reference's fTable, AU_tabfun.h:435); each point reads its 4 x 4
+    stencil and contracts it as wx @ block @ wy."""
+    ix, wx = axis_weights(x_nodes, x)
+    iy, wy = axis_weights(y_nodes, y)
+    ar = torch.arange(4, device=x.device)
+    block = table[(ix[..., None] + ar)[..., :, None],
+                  (iy[..., None] + ar)[..., None, :]]       # [..., 4, 4]
+    return ((wx[..., :, None] * block).sum(-2) * wy).sum(-1)
+
+
 def axis_weights_np(nodes: np.ndarray, x: float):
     """numpy twin of axis_weights for a static point: (i0, w[4])."""
     nodes = np.asarray(nodes)

@@ -25,8 +25,8 @@ from redtime_tpu_torch import interp
 from redtime_tpu_torch.config import CosmoParams, SolverConfig
 from redtime_tpu_torch.grids import make_grids
 from redtime_tpu_torch.io.camb import LinearData
-from redtime_tpu_torch.ode import (DOP853, DOPRI5, integrate_interval,
-                                   lane_values)
+from redtime_tpu_torch.ode import (DOP853, DOPRI5, integrate_dense,
+                                   integrate_interval, lane_values)
 from redtime_tpu_torch.quadrature import qag_gk61
 
 F64 = torch.float64
@@ -89,6 +89,19 @@ def growth_k_reduction(cfg: SolverConfig) -> np.ndarray:
     lnk_q = np.clip(grids.lnk, np.log(cfg.growth_k_min),
                     np.log(cfg.growth_k_max))
     return interp.weight_matrix_np(lnk_nodes, lnk_q)
+
+
+@functools.lru_cache(maxsize=8)
+def quad_nodes(cfg: SolverConfig):
+    """Composite Gauss-Legendre nodes/weights on [quad_lnk_lo, quad_lnk_hi]
+    (quad_impl='gl': a fixed-order panel rule in place of the reference's
+    gsl_integration_qag, key=6, rel 1e-4, :849-874)."""
+    x, w = np.polynomial.legendre.leggauss(cfg.quad_order)
+    edges = np.linspace(cfg.quad_lnk_lo, cfg.quad_lnk_hi, cfg.quad_panels + 1)
+    lo, hi = edges[:-1, None], edges[1:, None]
+    nodes = (0.5 * (hi - lo) * x[None, :] + 0.5 * (hi + lo)).ravel()
+    weights = (0.5 * (hi - lo) * w[None, :]).ravel()
+    return nodes, weights
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +205,10 @@ def build_growth_tables(cfg: SolverConfig, c: CosmoParams,
       default);
     * the table region as one [n_lnk+1, 2] state per lane under one
       controller, node-stopped by DOPRI5 with the step carried across
-      segments (or reset to 1e-6 with growth_h_reset);
+      segments (or reset to 1e-6 with growth_h_reset), or, with
+      growth_dense (ignored under growth_h_reset), stepped freely over
+      the whole table range with DOPRI5's dense output at the lna nodes
+      (integrate_dense);
     * one k lane when the stack is empty (massless nu: no k dependence).
 
     Returns (lna_nodes numpy, G [B, n_lna+1, n_lnk+1], dDda [same])."""
@@ -227,13 +243,18 @@ def build_growth_tables(cfg: SolverConfig, c: CosmoParams,
     if x_share < x_min:
         y, h = integrate_interval(rhs, x_share, x_min, y, h, 0.0, rtol,
                                   ramp_tab)
-    rows = [y]
-    for x0, x1 in zip(lna_nodes[:-1], lna_nodes[1:]):
-        hseg = 1e-6 if cfg.growth_h_reset else h
-        y, h = integrate_interval(rhs, float(x0), float(x1), y, hseg, 0.0,
-                                  rtol, DOPRI5)
-        rows.append(y)
-    tabs = torch.stack(rows, dim=1)              # [B, n_lna+1, n_lanes, 2]
+    if cfg.growth_dense and not cfg.growth_h_reset:
+        rows, _, _ = integrate_dense(rhs, x_min, float(lna_nodes[-1]), y, h,
+                                     0.0, rtol, lna_nodes[1:], DOPRI5)
+        tabs = torch.cat([y[:, None], rows], dim=1)
+    else:
+        rows = [y]
+        for x0, x1 in zip(lna_nodes[:-1], lna_nodes[1:]):
+            hseg = 1e-6 if cfg.growth_h_reset else h
+            y, h = integrate_interval(rhs, float(x0), float(x1), y, hseg,
+                                      0.0, rtol, DOPRI5)
+            rows.append(y)
+        tabs = torch.stack(rows, dim=1)          # [B, n_lna+1, n_lanes, 2]
     G, dDda = tabs[..., 0], tabs[..., 1]
     if n_lanes != len(k_nodes):
         G = G.expand(B, G.shape[1], len(k_nodes))
@@ -244,17 +265,65 @@ def build_growth_tables(cfg: SolverConfig, c: CosmoParams,
 # ---------------------------------------------------------------------------
 # linear power spectrum pieces
 
+def _transfer_lnT(c: CosmoParams, lin: LinearData) -> torch.Tensor:
+    """ln T_cb(ln k) table [B, nT] from the z=0 transfer file (reference
+    :804-816): T_cb = f_b_cb*T_b + (1-f_b_cb)*T_c, normalized to the first
+    row."""
+    f_b_cb = _col(c.Omega_b / (c.Omega_m - c.Omega_nu))
+    T = f_b_cb * lin.t_Tb + (1.0 - f_b_cb) * lin.t_Tc
+    return torch.log(T / T[:, :1])
+
+
 def transfer_at(c: CosmoParams, lin: LinearData,
                 lnk_query: torch.Tensor) -> torch.Tensor:
     """T_cb at query points lnk_query [m] or [B, m] -> [B, m]
-    (tabulated_function 1-D rules on ln T = ln(T_cb/T_cb[0]), reference
-    :804-816; linear extrapolation of ln T beyond both table ends)."""
-    f_b_cb = _col(c.Omega_b / (c.Omega_m - c.Omega_nu))
-    T = f_b_cb * lin.t_Tb + (1.0 - f_b_cb) * lin.t_Tc
-    lnT = torch.log(T / T[:, :1])
-    B = T.shape[0]
-    q = lnk_query.expand(B, lnk_query.shape[-1])
+    (tabulated_function 1-D rules on _transfer_lnT; linear extrapolation
+    of ln T beyond both table ends)."""
+    lnT = _transfer_lnT(c, lin)
+    q = lnk_query.expand(lnT.shape[0], lnk_query.shape[-1])
     return torch.exp(interp.interp1(lin.t_lnk, lnT, q))
+
+
+def sigma8_normalization(cfg: SolverConfig, c: CosmoParams,
+                         lin: LinearData,
+                         beta_quad_a1: torch.Tensor) -> torch.Tensor:
+    """Norm = sigma_8^2 / integral [B] on the fixed Gauss-Legendre panels
+    (quad_impl='gl'; reference :849-875).
+
+    Integrand (reference :204-217): W(kR)^2 T^2 F^2 k^(ns+3) / (2 pi^2)
+    over ln kR in [-15, 15], R = 8, F = f_cb + beta_P(a=1, k) (beta_quad_a1
+    [B, m] at k = e^nodes / R), with the Taylor-switched window below
+    kR = 1e-2."""
+    nodes, weights = quad_nodes(cfg)
+    dev = lin.t_lnk.device
+    t = lambda x: torch.as_tensor(x, dtype=F64, device=dev)
+    R = 8.0
+    kR = np.exp(nodes)
+    k = kR / R
+    T = transfer_at(c, lin, t(np.log(k)))
+    F = 1.0 - _col(c.Omega_nu / c.Omega_m) + beta_quad_a1
+    W = np.where(kR > 1e-2,
+                 3.0 * (np.sin(kR) / kR ** 3 - np.cos(kR) / kR ** 2),
+                 1.0 - 0.1 * kR * kR)
+    integrand = t(W * W) * T * T * F * F * t(k) ** (_col(c.n_s) + 3.0) / \
+        (2.0 * np.pi ** 2)
+    return c.sigma_8 ** 2 / (integrand @ t(weights))
+
+
+def sigma_v2_z0(cfg: SolverConfig, c: CosmoParams, lin: LinearData, norm,
+                beta_quad_a1_full: torch.Tensor) -> torch.Tensor:
+    """sigma_v^2(z=0) = int k P_lin(0,k) dlnk / (6 pi^2) [B] on the fixed
+    Gauss-Legendre panels (quad_impl='gl'; reference :932-962), with
+    P_lin(0,k) = Norm k^ns T^2 F^2 since D(0,k) == 1; beta_quad_a1_full
+    [B, m] at k = e^nodes."""
+    nodes, weights = quad_nodes(cfg)
+    dev = lin.t_lnk.device
+    t = lambda x: torch.as_tensor(x, dtype=F64, device=dev)
+    k = t(np.exp(nodes))
+    T = transfer_at(c, lin, t(nodes))
+    F = 1.0 - _col(c.Omega_nu / c.Omega_m) + beta_quad_a1_full
+    P = _col(norm) * k ** _col(c.n_s) * T * T * F * F
+    return (k * P) @ t(weights) / (6.0 * np.pi ** 2)
 
 
 def _beta_a1_traced(cfg: SolverConfig, c: CosmoParams, lin: LinearData,
@@ -354,11 +423,20 @@ def prepare_model(cfg: SolverConfig, c: CosmoParams, lin: LinearData,
     beta_solver = _beta_reduce_k(lin, kq)         # [B, nz, nk]
     T_solver = transfer_at(c, lin, t(grids.lnk))
 
-    if norm_override is None:
-        norm = sigma8_normalization_qag(cfg, c, lin)
+    override = None if norm_override is None else lane_values(
+        norm_override, B, dev).clone()
+    if cfg.quad_impl == "qag":
+        norm = sigma8_normalization_qag(cfg, c, lin) if override is None \
+            else override
+        sv2 = sigma_v2_z0_qag(cfg, c, lin, norm)
     else:
-        norm = lane_values(norm_override, B, dev).clone()
-    sv2 = sigma_v2_z0_qag(cfg, c, lin, norm)
+        # beta_P(a=1, k) at the quadrature nodes, in the two k mappings
+        k_q = np.exp(quad_nodes(cfg)[0])
+        beta_s8 = _beta_a1_traced(cfg, c, lin, t(k_q / 8.0).expand(B, -1))
+        beta_sv = _beta_a1_traced(cfg, c, lin, t(k_q).expand(B, -1))
+        norm = sigma8_normalization(cfg, c, lin, beta_s8) if override is \
+            None else override
+        sv2 = sigma_v2_z0(cfg, c, lin, norm, beta_sv)
 
     return Model(cosmo=c, g_lna=t(lna_nodes).expand(B, -1).contiguous(),
                  g_G=G_red, g_dDda=dDda_red, g_Dnorm=Dnorm,
@@ -430,3 +508,41 @@ def sigma_v2(model: Model, z, lnk_sv2_weights=None) -> torch.Tensor:
     D, _ = growth_D_f(model, z)
     Dv = D[:, 0] if lnk_sv2_weights is None else D @ lnk_sv2_weights
     return Dv * Dv * model.sigmaV2_z0
+
+
+def comoving_distance_table(cfg: SolverConfig, c: CosmoParams,
+                            a_in: float, n: int = 1000):
+    """H0*chi(eta) table (reference H0chi_eta_init, :742-784): cumulative
+    integral of dz/(H/H0) over a 1000-point log-z grid in [1e-4, 1e4],
+    16-point Gauss-Legendre per panel in place of gsl qag (rel 1e-4).
+    Returns (eta_nodes ascending [n], H0chi [B, n]).  The reference never
+    calls it from main(); it is library surface."""
+    dev = c.h.device
+    zmin, zmax = 1e-4, 1e4
+    dlnz = np.log(zmax / zmin) / (n - 1)
+    z_nodes = zmin * np.exp(dlnz * np.arange(n))
+    edges = np.concatenate([[0.0], z_nodes])
+    x, w = np.polynomial.legendre.leggauss(16)
+    lo, hi = edges[:-1, None], edges[1:, None]
+    zq = 0.5 * (hi - lo) * x[None, :] + 0.5 * (hi + lo)   # [n, 16]
+    wq = torch.as_tensor(0.5 * (hi - lo) * w[None, :], device=dev)
+    a = torch.as_tensor(1.0 / (1.0 + zq), device=dev).expand(
+        c.h.shape[0], n, 16)
+    panels = torch.sum(wq * (1.0 / bg.H_H0(c, a)), dim=-1)   # [B, n]
+    chi = torch.cumsum(panels, dim=-1)                    # H0chi(z_nodes)
+    eta = np.log((1.0 / (1.0 + z_nodes)) / a_in)
+    # ascending eta = descending z
+    return (torch.as_tensor(eta[::-1].copy(), device=dev),
+            torch.flip(chi, dims=[-1]))
+
+
+def h0_chi(cfg: SolverConfig, c: CosmoParams, a_in: float, eta):
+    """H0*chi at eta = ln(a/a_in), one eta (float or [B]) per lane
+    (reference H0chi, :773-784): z itself below z = 1e-4, the table's
+    interpolation otherwise.  Builds the 1000-node table per call; a
+    caller looping over eta builds comoving_distance_table once."""
+    eta_nodes, chi = comoving_distance_table(cfg, c, a_in)
+    e = lane_values(eta, chi.shape[0], chi.device).contiguous()
+    z = 1.0 / (a_in * torch.exp(e)) - 1.0
+    val = interp.interp1(eta_nodes, chi, e)
+    return torch.where(z <= 1e-4, z, val)

@@ -30,7 +30,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from redtime_tpu_torch.kernels.rk_finish import (AttemptConsts,
+from redtime_tpu_torch.kernels.rk_finish import (REJECT_ABOVE,
+                                                 AttemptConsts,
                                                  attempt_consts, rk_finish,
                                                  rk_stage)
 
@@ -139,6 +140,14 @@ def rk_step(rhs: Callable, t, h, y, tab: Tableau):
     return y + hy * acc_b, hy * acc_e
 
 
+def _clipped_stages(rhs: Callable, t, h, y, t1, consts: AttemptConsts):
+    """(ks, h_try): the stages of an attempt at the step h clipped to the
+    interval end t1 (the same step under either final-step rule)."""
+    dt = t1 - t
+    h_try = torch.where(h > dt, dt, h)
+    return rk_stages(rhs, t, h_try, y, consts), h_try
+
+
 def attempt(rhs: Callable, t, h, y, t1, n, active, consts: AttemptConsts):
     """One controller attempt on every lane (frozen where not active).
 
@@ -147,9 +156,7 @@ def attempt(rhs: Callable, t, h, y, t1, n, active, consts: AttemptConsts):
     rule (h > t1 - t, the chunked path's, redtime_tpu/ode.py:164, or
     h >= t1 - t, the packed lanes', redtime_tpu/trg.py:446: the clipped
     step is the same under both).  Returns (y, t, h, n, r, reached)."""
-    dt = t1 - t
-    h_try = torch.where(h > dt, dt, h)
-    ks = rk_stages(rhs, t, h_try, y, consts)
+    ks, _ = _clipped_stages(rhs, t, h, y, t1, consts)
     return rk_finish(y, ks, t, h, t1, n, active, consts)
 
 
@@ -208,3 +215,150 @@ def integrate_interval(rhs: Callable, t0, t1, y0: torch.Tensor, h0,
     if return_stats:
         return y, h, n
     return y, h
+
+
+def _rejected(r: torch.Tensor) -> torch.Tensor:
+    """The controller's reject decision on K3's error norms r [B] (a NaN
+    norm accepts, as in JAX's `r > 1.1`)."""
+    return r > REJECT_ABOVE
+
+
+def integrate_nodes(rhs: Callable, t0, nodes, y0: torch.Tensor, h0,
+                    eps_abs: float, eps_rel: float,
+                    tab: Tableau = RKF45,
+                    max_steps: int = 1_000_000,
+                    return_stats: bool = False):
+    """Integrate from t0 through the sorted stop `nodes` [m] (all > t0) on
+    every lane, recording y at every node, in one loop of attempts (the
+    port of redtime_tpu/ode.py:199-295).
+
+    Each lane runs its own controller, with the arithmetic and boundary
+    clipping of a chain of `integrate_interval` calls over the node
+    segments with the step suggestion carried across: a lane's segment
+    ends on an accepted attempt that reaches (or, by rounding of a
+    non-final step, passes) its node, and t is then pinned to the node.
+    Returns (rows [B, m, ...], h_suggest [B][, n_attempts [B]]); rows from
+    the first node a lane did not reach (max_steps exhausted or h -> 0)
+    on are NaN."""
+    shape = y0.shape
+    B, dev = shape[0], y0.device
+    nodes = torch.as_tensor(nodes, dtype=torch.float64, device=dev)
+    m = nodes.shape[0]
+    y = y0.reshape(B, -1).contiguous()
+    t = lane_values(t0, B, dev).contiguous()
+    h = lane_values(h0, B, dev).contiguous()
+    n = torch.zeros(B, dtype=torch.int64, device=dev)
+    seg = torch.zeros(B, dtype=torch.int64, device=dev)
+    rows = y.new_zeros((B, m, y.shape[1]))
+    lanes = torch.arange(B, device=dev)
+    consts = attempt_consts(tab, eps_abs, eps_rel, dev)
+
+    def flat_rhs(tt, yy):
+        return rhs(tt, yy.reshape(shape)).reshape(B, -1)
+
+    def running():
+        return (seg < m) & (n < max_steps)
+
+    active = running()
+    while bool(active.any()):
+        for _ in range(CHECK_EVERY):
+            at = torch.clamp(seg, max=m - 1)
+            t1 = nodes[at]
+            y, t, h, n, r, _ = attempt(flat_rhs, t, h, y, t1, n, active,
+                                       consts)
+            reached = active & ~_rejected(r) & (t >= t1)
+            rows[lanes, at] = torch.where(reached[:, None], y,
+                                          rows[lanes, at])
+            t = torch.where(reached, t1, t)
+            seg = seg + reached.to(seg.dtype)
+            active = running()
+    done = torch.arange(m, device=dev)[None, :] < seg[:, None]
+    rows = torch.where(done[..., None], rows, torch.full_like(rows, np.nan))
+    rows = rows.reshape((B, m) + tuple(shape[1:]))
+    if return_stats:
+        return rows, h, n
+    return rows, h
+
+
+# Dormand-Prince 5(4) continuous extension (4th-order dense output): the
+# published d-coefficients of Hairer/Norsett/Wanner's DOPRI5 (Solving ODEs
+# I; dopri5.f's CONTD5), as in redtime_tpu/ode.py:282-295.  Over an
+# accepted step [t, t+h]:
+#   y(t + theta h) = y + theta (dy + (1-theta)(r3 + theta (r4 + (1-theta) r5)))
+DOPRI5_D = np.array([
+    _frac(-12715105075.0, 11282082432.0),
+    0.0,
+    _frac(87487479700.0, 32700410799.0),
+    _frac(-10690763975.0, 1880347072.0),
+    _frac(701980252875.0, 199316789632.0),
+    _frac(-1453857185.0, 822651844.0),
+    _frac(69997945.0, 29380423.0),
+])
+
+
+def integrate_dense(rhs: Callable, t0, t1, y0: torch.Tensor, h0,
+                    eps_abs: float, eps_rel: float, xs,
+                    tab: Tableau = DOPRI5,
+                    max_steps: int = 1_000_000,
+                    return_stats: bool = False):
+    """Integrate t0 -> t1 with free adaptive stepping on every lane and
+    fill y at the output nodes `xs` [m] (sorted, all in (t0, t1]) from the
+    4th-order continuous extension of each accepted step (the port of
+    redtime_tpu/ode.py:296-372).
+
+    The attempts are integrate_interval's (K3 forms the stage inputs and
+    finishes each attempt); the dense fill of the nodes inside an
+    accepted step is plain torch.  Returns (ys [B, m, ...], y(t1),
+    h_suggest [B][, n_attempts [B]]); a lane that did not reach t1 has
+    NaN in both.  Only DOPRI5 has a continuous extension here."""
+    if tab is not DOPRI5:
+        raise ValueError("integrate_dense: dense output is implemented for "
+                         "DOPRI5 only")
+    shape = y0.shape
+    B, dev = shape[0], y0.device
+    xs = torch.as_tensor(xs, dtype=torch.float64, device=dev)
+    m = xs.shape[0]
+    y = y0.reshape(B, -1).contiguous()
+    t = lane_values(t0, B, dev).contiguous()
+    t1v = lane_values(t1, B, dev).contiguous()
+    h = lane_values(h0, B, dev).contiguous()
+    n = torch.zeros(B, dtype=torch.int64, device=dev)
+    table = torch.full((B, m, y.shape[1]), np.nan, dtype=y.dtype,
+                       device=dev)
+    d_vec = torch.as_tensor(DOPRI5_D, dtype=y.dtype, device=dev)
+    consts = attempt_consts(tab, eps_abs, eps_rel, dev)
+
+    def flat_rhs(tt, yy):
+        return rhs(tt, yy.reshape(shape)).reshape(B, -1)
+
+    def running():
+        return (t < t1v) & (n < max_steps)
+
+    active = running()
+    while bool(active.any()):
+        for _ in range(CHECK_EVERY):
+            ks, h_try = _clipped_stages(flat_rhs, t, h, y, t1v, consts)
+            y_out, t_out, h, n, r, _ = rk_finish(y, ks, t, h, t1v, n, active,
+                                                 consts)
+            # dense fill of every node inside the accepted step (t, t_out]
+            hy = h_try[:, None]
+            dy = y_out - y
+            r3 = hy * ks[0] - dy
+            r4 = dy - hy * ks[-1] - r3
+            r5 = hy * torch.einsum("s,sbd->bd", d_vec, ks)
+            th = ((xs[None, :] - t[:, None]) / h_try[:, None])[..., None]
+            vals = y[:, None] + th * (dy[:, None] + (1.0 - th) * (
+                r3[:, None] + th * (r4[:, None] + (1.0 - th) * r5[:, None])))
+            fill = ((active & ~_rejected(r))[:, None]
+                    & (xs[None, :] > t[:, None])
+                    & (xs[None, :] <= t_out[:, None]))
+            table = torch.where(fill[..., None], vals, table)
+            y, t = y_out, t_out
+            active = running()
+    ok = (t >= t1v)[:, None]
+    y = torch.where(ok, y, torch.full_like(y, np.nan)).reshape(shape)
+    table = torch.where(ok[..., None], table, torch.full_like(table, np.nan))
+    table = table.reshape((B, m) + tuple(shape[1:]))
+    if return_stats:
+        return table, y, h, n
+    return table, y, h

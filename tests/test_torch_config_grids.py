@@ -72,8 +72,8 @@ def test_grids_bit_identical(preset):
 @pytest.mark.parametrize("kw", [
     dict(dtype="float32"), dict(engine_transform_dtype="float32"),
     dict(out_leg="ozaki"), dict(tab_leg="ozaki"), dict(fwd_leg="ozaki"),
-    dict(pz_leg="ozaki"), dict(growth_dense=True), dict(quad_impl="gl"),
-    dict(eta_tableau="rk4")])
+    dict(pz_leg="ozaki"), dict(eta_tableau="rk4"),
+    dict(quad_impl="simpson")])
 def test_config_rejects_what_the_port_does_not_run(kw):
     with pytest.raises(ValueError):
         tcfg.SolverConfig(**kw)

@@ -381,8 +381,9 @@ def test_rk_finish_plain_controller_and_frozen_lanes():
 
 def test_chip_smoke_inputs_match_the_golden():
     """chip_smoke.py's design lanes 0-1, redshifts and linear inputs are
-    the ones each JAX golden (full TRG, 1-loop, the two presets) was
-    written from, and the script imports no JAX."""
+    the ones each JAX golden (full TRG, 1-loop, the two presets, the
+    numerics run, the production chain) was written from, and the script
+    imports no JAX."""
     code = ("import sys, numpy as np, chip_smoke as s\n"
             "from redtime_tpu_torch.io.camb import LinearData\n"
             "g = np.load(s.GOLDEN)\n"
@@ -405,6 +406,24 @@ def test_chip_smoke_inputs_match_the_golden():
             "    for f, x in zip(LinearData._fields, s.example_linear()):\n"
             "        assert np.array_equal(g[f], x), (name, f)\n"
             "    assert g['table'].shape == (2, 2, nk, 17), name\n"
+            "g = np.load(s.GOLDEN_NUMERICS)\n"
+            "assert np.array_equal(g['params'], s.design_params()[:2])\n"
+            "assert np.array_equal(g['z_out'], s.Z_OUT_1L)\n"
+            "for name, x in zip(LinearData._fields, s.example_linear()):\n"
+            "    assert np.array_equal(g[name], x), name\n"
+            "assert g['table'].shape == (2, len(s.Z_OUT_1L), 128, 17)\n"
+            "from redtime_tpu_torch import design, orchestrate\n"
+            "from redtime_tpu_torch.convert import STEP_TO_ZBLOCK\n"
+            "g = np.load(s.GOLDEN_PROD)\n"
+            "rows = design.models_from_unit_cube(design.latin_hypercube("
+            "s.N_PROD, 8, s.SEED))\n"
+            "assert np.array_equal(g['design'], rows[:2])\n"
+            "assert np.array_equal(g['z_out'], np.asarray("
+            "orchestrate.CAMB_Z_LIST.split(), dtype=float))\n"
+            "assert list(g['steps']) == sorted(STEP_TO_ZBLOCK)\n"
+            "assert g['table'].shape == (2, 8, 128, 17)\n"
+            "assert g['inject_table'].shape == (2, 8, 128, 17)\n"
+            "assert g['full_pk'].shape[2] == s.N_PM + 2\n"
             "assert not [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'redtime_tpu')]\n"
             "print('ok')\n")
