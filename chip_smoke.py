@@ -7,7 +7,8 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the CUDA kernels from redtime_tpu_torch/csrc with nvcc
      (sm_90a) and checks that K1's and K2's SASS holds FP64 tensor-core
-     instructions (DMMA) and K5's and K7's int8 ones (IMMA), by cuobjdump;
+     instructions (DMMA), K5's int8 mma.sync (IMMA) and K7's int8 wgmma
+     (IGMMA), by cuobjdump;
   3. checks each hand kernel against its plain PyTorch version on the card
      at the main path's shapes (nk=128, np=512, 16 lanes, inputs from a
      seeded numpy generator; K3's rk_finish and rk_stage at each tableau
@@ -33,10 +34,15 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
      probes' shapes, at one larger shape each and on ragged sizes, and
      times both, and an empty kernel beside them (the launch floor under
      the probes' small shapes); K7 oz_fused the same way at P4's shape,
-     on ragged shapes and on rows at the edges of the row exponent; then
+     with its W pack (oz_pack_w, a row of its own) and with the L2
+     flushed before each call too (cold_ms: its share of the bound is
+     taken cold), on the tiling's edges (OZ_CASES) and on rows at the
+     edges of the row exponent, with its registers, spills and shared
+     memory; then
      runs redtime_tpu_torch.probes (probe1-probe4 and probe4_out_leg) on
      the card, with the launch counters reset just before and read just
-     after, checks that K4-K7 (and K1, at probe4's shape) were launched,
+     after, checks that K4-K7 and K7's pack (and K1, at probe4's shape)
+     were launched,
      and times probe4's two paths in a loop as the JAX probe does;
   5. runs the main path: driver.run_batch over 16 cosmologies of the
      bench's Mira-Titan Latin-hypercube design, full Time-RG at
@@ -153,7 +159,7 @@ N_PROD, PROD_STEP_FULL, N_PM, NBODY_SEED = 16, 499, 16, 7
 GOLDEN_NUMERICS = os.path.join(HERE, "tests", "data",
                                "torch_port_golden_numerics.npz")
 NUMERICS = dict(growth_dense=True, quad_impl="gl")
-PROBE_KERNELS = ("affine", "int8_dot", "dd_mul", "oz_fused")
+PROBE_KERNELS = ("affine", "int8_dot", "dd_mul", "oz_pack_w", "oz_fused")
 
 
 def check(ok: bool, what: str) -> None:
@@ -319,6 +325,38 @@ def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (calls * replays)
+
+
+def cold_ms(fn, calls: int = 21, flush_mb: int = 256) -> tuple:
+    """Device time of fn() in ms with the L2 cache cold: one call captured
+    in a CUDA graph, replayed between CUDA events right after a write of
+    flush_mb MB (it evicts the card's 50 MB L2, and lasts long enough that
+    the host has queued the replay before the device reaches it).  Returns
+    the median over `calls` replays and every reading."""
+    import torch
+    flush = torch.empty(flush_mb * 2 ** 18, dtype=torch.float32,
+                        device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(calls):
+        flush.fill_(1.0)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), times
 
 
 def measure(kernel, plain, library=None, rounds: int = 3) -> tuple:
@@ -809,15 +847,19 @@ def check_kernels(rng, detail: dict) -> list:
 
 
 # the tensor-core instruction each kernel's SASS must hold: FP64 (DMMA)
-# for K1 and K2, int8 (IMMA) for K5 and K7
+# for K1 and K2, int8 mma.sync (IMMA) for K5, int8 wgmma (IGMMA, the
+# opcode of K7's wgmma m64n64k32 s8 in the SASS of its first build) for
+# K7's main kernel as it runs (oz_fused_kernel<0>, mangled ...ILi0E; the
+# other instantiations are rt_oz_fused_ablate's measurement variants)
 TENSOR_CORE_OPS = {"out_leg_kernel": "DMMA", "pz_leg_kernel": "DMMA",
-                   "int8_dot_kernel": "IMMA", "oz_fused_kernel": "IMMA"}
+                   "int8_dot_kernel": "IMMA",
+                   "oz_fused_kernelILi0E": "IGMMA"}
 
 
 def check_tensor_cores(lib, detail: dict) -> None:
     """K1 and K2 run on the FP64 tensor cores, K5 and K7 on the int8 ones:
-    their SASS (cuobjdump -sass of the built library) holds DMMA and IMMA
-    instructions."""
+    their SASS (cuobjdump -sass of the built library) holds DMMA, IMMA
+    (K5's mma.sync) and IGMMA (K7's wgmma) instructions."""
     from redtime_tpu_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -831,7 +873,8 @@ def check_tensor_cores(lib, detail: dict) -> None:
                 counts[kernel] = counts.get(kernel, 0) + part.count(op)
     for kernel, op in TENSOR_CORE_OPS.items():
         check(counts.get(kernel, 0) > 0, f"{kernel}: no {op} in its SASS")
-    print(f"tensor cores: DMMA / IMMA instructions in the SASS {counts}")
+    print(f"tensor cores: DMMA / IMMA / IGMMA instructions in the SASS "
+          f"{counts}")
     detail["tensor_core_ops_in_sass"] = counts
 
 
@@ -1013,7 +1056,7 @@ def check_probe_kernels(rng, detail: dict) -> list:
         detail["int8_dot_plans"][str((m, k, n))] = dict(tile=plan[0],
                                                       split=plan[1])
     print(f"int8_dot plans at (M, K, N): {detail['int8_dot_plans']}")
-    rows.append(check_oz_fused(rng, detail))
+    rows += check_oz_fused(rng, detail)
     return rows
 
 
@@ -1036,15 +1079,42 @@ def oz_edge_rows(x: np.ndarray, rng) -> np.ndarray:
     return x
 
 
-def check_oz_fused(rng, detail: dict) -> dict:
-    """K7 against oz_fused_plain on the card, bit for bit in oh and ol: at
-    P4's shape with probe4's inputs (timed), with the rows of oz_edge_rows,
-    and at ragged shapes (M not a multiple of the 32-row tile, K not of
-    32, O not of 8; K % 4 != 0 and O % 16 != 0 take the loaders' scalar
-    paths).  Returns its row for the kernels' line."""
+# K7's cases beyond P4's inputs and its edge rows, (M, K, O): the earlier
+# ragged ones (M not a multiple of the 64-row tile, K % 4 != 0 on the
+# plain x loads, O odd on the scalar stores), then the tiling's edges: one
+# row and a ragged last tile at P4's K and O, K below one round of the
+# peelers and below one K-step, O of 8 (three ranks of the tile have no
+# columns) and above one tile (264, 520: a second and third group of
+# columns), K over one x panel (the row maxima from global memory)
+OZ_CASES = ((77, 1000, 100), (300, 999, 129), (1, 1024, 256),
+            (2017, 1024, 256), (70, 4, 64), (70, 40, 264), (33, 1024, 8),
+            (130, 520, 520), (70, 3000, 72))
+
+
+def ptxas_of(log: str, kernel: str) -> str:
+    """The `-Xptxas -v` lines (registers, spills) of the first kernel whose
+    mangled name holds `kernel`, from the build log."""
+    for block in log.split("ptxas info    : Compiling entry function")[1:]:
+        if kernel in block.split("\n", 1)[0]:
+            lines = [ln.replace("ptxas info    :", "").strip()
+                     for ln in block.splitlines()[1:4]
+                     if "registers" in ln or "spill" in ln]
+            return "; ".join(lines)
+    return "not in the build log"
+
+
+def check_oz_fused(rng, detail: dict) -> list:
+    """K7 against its plain versions on the card, bit for bit: the W pack
+    against oz_pack_w_plain, and the whole call against oz_fused_plain in
+    oh and ol, at P4's shape with probe4's inputs (timed warm, and with
+    the L2 flushed before each call: cold_ms), with the rows of
+    oz_edge_rows, and at OZ_CASES; the tiling the kernel computes
+    (rt_oz_fused_plan) against oz_plan at every case.  Returns the rows of
+    the pack kernel and of the main kernel for the kernels' line."""
     import torch
 
     from redtime_tpu_torch import dd, probes
+    from redtime_tpu_torch.kernels import build
     from redtime_tpu_torch.kernels import probes as kp
 
     def split(x, ws):
@@ -1060,39 +1130,69 @@ def check_oz_fused(rng, detail: dict) -> dict:
     O = ws.shape[2]
     cases = [("P4", (xh, xl, ws)),
              ("edge rows", split(oz_edge_rows(x.cpu().numpy(), rng),
-                                 ws.cpu().numpy())),
-             ("ragged (77, 1000, 100)", ragged(77, 1000, 100)),
-             ("ragged (300, 999, 129)", ragged(300, 999, 129))]
+                                 ws.cpu().numpy()))]
+    cases += [(f"ragged {s}", ragged(*s)) for s in OZ_CASES]
     err = 0.0
     for case, args in cases:
+        wp = kp.oz_pack_w(args[2])
+        check(bool(torch.equal(wp, kp.oz_pack_w_plain(args[2]))),
+              f"oz_pack_w {case}: not bit-equal to plain")
+        m, k, o = args[0].shape[0], args[0].shape[1], args[2].shape[2]
+        on_card = kp.oz_plan_on_card(m, k, o)
+        check(all(on_card[key] == v for key, v in kp.oz_plan(m, k, o).items()),
+              f"oz_fused {case}: rt_oz_fused_plan {on_card} differs from "
+              f"oz_plan")
         out, ref = kp.oz_fused(*args), kp.oz_fused_plain(*args)
-        for o, r, name in zip(out, ref, ("oh", "ol")):
-            check(o.dtype == r.dtype and o.shape == r.shape,
+        for got, want, name in zip(out, ref, ("oh", "ol")):
+            check(got.dtype == want.dtype and got.shape == want.shape,
                   f"oz_fused {case}: {name} dtype or shape")
-            delta = float((o.double() - r.double()).abs().max())
+            delta = float((got.double() - want.double()).abs().max())
             err = max(err, delta)
-            check(bool(torch.equal(o, r)),
+            check(bool(torch.equal(got, want)),
                   f"oz_fused {case}: {name} not bit-equal to plain, max "
                   f"|delta| {delta:.3g}")
     edge = cases[1][1]
     exi = kp._oz_row_exponent(edge[0])[:5, 0].tolist()
     check(exi == [-125, 125, 125, -124, -125],
           f"oz_fused edge rows: exponents {exi}")
+    plan = kp.oz_plan_on_card(M, K, O)
+    log = build.BUILD_LOG.get("output", "")
+    ptxas = {name: ptxas_of(log, mangled) for name, mangled in
+             (("oz_pack_w", "oz_pack_w_kernel"),
+              ("oz_fused", "oz_fused_kernelILi0E"))}
+    print(f"oz_fused at P4's shape: {plan['threads']} threads, "
+          f"{plan['smem_bytes']} bytes of dynamic shared memory, "
+          f"{plan['row_tiles'] * plan['col_groups'] * 4} CTAs; ptxas "
+          f"{ptxas}")
     t, runs = measure(lambda: kp.oz_fused(xh, xl, ws),
                       lambda: kp.oz_fused_plain(xh, xl, ws))
-    detail["oz_fused_timing"] = runs
-    detail["oz_fused_cases"] = [c for c, _ in cases]
-    print(f"kernel oz_fused: bit-equal to plain in oh and ol at "
-          f"{[c for c, _ in cases]}; at P4's shape {t['ms']:.4f} ms eager, "
-          f"{t['device_ms']:.4f} ms device (plain {t['plain_ms']:.4f} / "
-          f"{t['plain_device_ms']:.4f} ms)")
+    cold, cold_runs = cold_ms(lambda: kp.oz_fused(xh, xl, ws))
+    tp, runs_p = measure(lambda: kp.oz_pack_w(ws),
+                         lambda: kp.oz_pack_w_plain(ws))
+    detail.update(oz_fused_timing=runs, oz_fused_cold_ms=cold_runs,
+                  oz_pack_w_timing=runs_p, oz_fused_plan=plan,
+                  oz_fused_ptxas=ptxas,
+                  oz_fused_cases=[c for c, _ in cases])
     # xh, xl and W read once, oh and ol written once; six int8 dots
-    return dict(
-        name="oz_fused", route="cuda",
-        source="redtime_tpu_torch/csrc/oz_fused.cu",
-        replaces="scripts/probe_pallas.py:145", max_abs_err=err, **t,
-        **least_time(float(2 * 4 * M * K + 4 * K * O + 2 * 4 * M * O),
-                     6.0 * 2.0 * M * K * O, PEAK_INT8_TC))
+    bound = least_time(float(2 * 4 * M * K + 4 * K * O + 2 * 4 * M * O),
+                       6.0 * 2.0 * M * K * O, PEAK_INT8_TC)
+    # the pack: W read once, the packed W written once
+    bound_p = least_time(float(4 * K * O + plan["wp_bytes"]), 0.0,
+                         PEAK_INT8_TC)
+    print(f"kernel oz_fused: bit-equal to plain in oh and ol (and the pack "
+          f"to oz_pack_w_plain) at {[c for c, _ in cases]}; at P4's shape "
+          f"{t['ms']:.4f} ms eager, {t['device_ms']:.5f} ms device warm, "
+          f"{cold:.5f} ms device with the L2 cold (plain {t['plain_ms']:.4f}"
+          f" / {t['plain_device_ms']:.4f} ms); bound {bound['bound_ms']:.5f}"
+          f" ms, share {bound['bound_ms'] / cold:.3f} of it cold; the pack "
+          f"{tp['device_ms']:.5f} ms device")
+    common = dict(route="cuda", source="redtime_tpu_torch/csrc/oz_fused.cu",
+                  replaces="scripts/probe_pallas.py:145")
+    return [dict(name="oz_pack_w", max_abs_err=0.0, **common, **tp,
+                 **bound_p),
+            dict(name="oz_fused", max_abs_err=err, **common, **t,
+                 cold_device_ms=cold, warm_device_ms=t["device_ms"],
+                 share=bound["bound_ms"] / cold, **bound)]
 
 
 def run_probes(detail: dict) -> dict:

@@ -1,7 +1,7 @@
-// The int8 tensor-core main loop of K5 int8_dot (probes.cu) and K7 oz_fused
-// (oz_fused.cu).
+// The int8 tensor-core main loop of K5 int8_dot (probes.cu).  (K7 oz_fused
+// has its own, on wgmma: oz_fused.cu and sm90.cuh.)
 //
-// Both multiply an int8 A [M, K] (row-major, K-contiguous) by an int8 B
+// It multiplies an int8 A [M, K] (row-major, K-contiguous) by an int8 B
 // [K, N] (row-major, N-contiguous) with int32 sums, on the tensor cores
 // through mma.sync m16n8k32 s8 x s8 -> s32 (wgmma takes 8-bit operands
 // K-major only; that form is later work).  The mma's B fragment ("col")
@@ -14,9 +14,9 @@
 //
 // The ring (ring): STAGES slots of raw tiles filled by 16-byte cp.async
 // (STAGES - 2 K-steps in flight while one computes), then a convert step
-// that makes the operand tiles of the next K-step (B packed along K; in
-// K7 the int8 slices of the f32 inputs) into one of two operand slots
-// while the tensor cores work on the other.  One barrier a K-step.
+// that makes the operand tiles of the next K-step (B packed along K) into
+// one of two operand slots while the tensor cores work on the other.  One
+// barrier a K-step.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -101,8 +101,7 @@ __device__ __forceinline__ void store_b4x4(unsigned* Bs, int kw, int n,
 // K-step kt into raw slot `raw` (cp.async, or plain stores for ragged
 // shapes); convert(raw, op) makes the operand tiles of a landed raw slot
 // in operand slot `op`; compute(raw, op) multiplies one K-step.  start()
-// runs once the first copies are in flight (K7 finds its row exponents
-// there).  Each K-step: wait for step kt + 1, one barrier (so every
+// runs once the first copies are in flight.  Each K-step: wait for step kt + 1, one barrier (so every
 // thread's copies of step kt + 1 have landed, the convert of step kt is
 // visible, and the raw slot of step kt - 1 and the operand slot of step
 // kt - 1 are free), issue step kt + STAGES - 1 into the raw slot of step

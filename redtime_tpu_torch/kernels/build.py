@@ -121,8 +121,15 @@ def lib() -> ctypes.CDLL:
         handle.rt_int8_dot.restype = i
         handle.rt_int8_dot_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
         handle.rt_int8_dot_plan.restype = None
-        handle.rt_oz_fused.argtypes = [p] * 5 + [i] * 3 + [p]
+        handle.rt_oz_fused.argtypes = [p] * 7 + [i] * 3 + [p]
         handle.rt_oz_fused.restype = i
+        handle.rt_oz_fused_ablate.argtypes = [p] * 7 + [i] * 4 + [p]
+        handle.rt_oz_fused_ablate.restype = i
+        handle.rt_oz_pack_w.argtypes = [p, p, i, i, p, n, p]
+        handle.rt_oz_pack_w.restype = i
+        handle.rt_oz_fused_plan.argtypes = [i, i, i,
+                                            ctypes.POINTER(ctypes.c_longlong)]
+        handle.rt_oz_fused_plan.restype = None
         handle.rt_dd_mul.argtypes = [p, p, p, p, p, p, n, p]
         handle.rt_dd_mul.restype = i
         handle.rt_launch_floor.argtypes = [p]

@@ -11,7 +11,8 @@ that several phases launch can be told apart.
 from __future__ import annotations
 
 LAUNCHES = {"out_leg": 0, "pz_leg": 0, "rk_finish": 0, "rk_stage": 0,
-            "affine": 0, "int8_dot": 0, "dd_mul": 0, "oz_fused": 0}
+            "affine": 0, "int8_dot": 0, "dd_mul": 0, "oz_pack_w": 0,
+            "oz_fused": 0}
 
 PHASES: dict = {}        # phase -> launches booked to it by mark()
 _marked = dict(LAUNCHES)

@@ -9,7 +9,9 @@ csrc/oz_fused.cu).
                          dd.mul of f32 (hi, lo) pairs;
   * oz_fused(xh, xl, ws) — P4 (:145-181): the fused Ozaki product of an
                          f32 pair [M,K] with four int8 [K,O]: six 7-bit
-                         slices, six int8 dots, a double-double f32 sum.
+                         slices, six int8 dots, a double-double f32 sum;
+                         on the card each call first packs W into the
+                         operand tiles of its main loop (oz_pack_w).
 
 Each kernel equals its plain version bit for bit (K7 for finite inputs).
 oz_xla_path is P4's reference path (:120-142), in f64.
@@ -98,6 +100,73 @@ def oz_fused_plain(xh: torch.Tensor, xl: torch.Tensor,
         totl = e - (toth - sh)
     unscale = _pow2(exi + 127)
     return toth * unscale, totl * unscale
+
+
+# K7's tiling (csrc/oz_fused.cu): K-steps of 32; a group of OZ_RANKS CTAs
+# owns a tile of OZ_ROWS rows and OZ_RANKS * OZ_COLS columns; rank r peels
+# rows 16r..16r+15 of the tile and multiplies all of them by its OZ_COLS
+# columns; x is held in panels of up to OZ_PANEL columns; a tile's ring
+# holds the slices of OZ_SLOTS K-steps (6 x OZ_ROWS x 32 bytes each), and
+# its sync words are the ranks' two progress counters and the exponents
+OZ_BK, OZ_RANKS, OZ_ROWS, OZ_COLS, OZ_PANEL, OZ_SLOTS = 32, 4, 64, 64, 1024, 16
+OZ_SYNC = 2 * OZ_RANKS + OZ_ROWS
+
+
+def oz_plan(M: int, K: int, O: int) -> dict:
+    """K7's tiling at (M, K, O), as rt_oz_fused_plan computes it: K-steps
+    KT, column groups, row tiles, O padded to whole column groups, the x
+    panel's columns and the number of panels (one panel: x stays in shared
+    memory and the row maxima come from it), and the sizes of the packed W
+    and of the slice ring (bytes) and of the sync buffer (int32)."""
+    kt = -(-K // OZ_BK)
+    groups = -(-O // (OZ_RANKS * OZ_COLS))
+    tiles = -(-M // OZ_ROWS)
+    panel = OZ_BK if kt == 0 else min(kt * OZ_BK, OZ_PANEL)
+    return dict(KT=kt, col_groups=groups, row_tiles=tiles,
+                OP=groups * OZ_RANKS * OZ_COLS, panel=panel,
+                npanel=1 if kt == 0 else -(-kt * OZ_BK // panel),
+                wp_bytes=4 * kt * groups * OZ_RANKS * OZ_COLS * OZ_BK,
+                ring_bytes=tiles * groups * OZ_SLOTS * OZ_SLICES * OZ_ROWS
+                * OZ_BK,
+                sync_words=tiles * groups * OZ_SYNC)
+
+
+OZ_PLAN_KEYS = ("KT", "col_groups", "row_tiles", "OP", "panel", "npanel",
+                "wp_bytes", "ring_bytes", "sync_words")
+
+
+def oz_plan_on_card(M: int, K: int, O: int) -> dict:
+    """rt_oz_fused_plan of the built library: oz_plan's keys as the kernel
+    computes them, and the main kernel's threads and shared memory."""
+    import ctypes
+
+    out = (ctypes.c_longlong * 11)()
+    build.lib().rt_oz_fused_plan(M, K, O, out)
+    return dict(zip(OZ_PLAN_KEYS + ("threads", "smem_bytes"), out))
+
+
+def oz_tile_byte(row, k):
+    """The byte of (row, k) in one K-step's operand tile of K7's main loop
+    (csrc/sm90.cuh tile_byte): K-major core matrices of 8 rows x 16 bytes,
+    the two halves of a row's 32 K 128 bytes apart, groups of 8 rows 256
+    bytes apart."""
+    return (row // 8) * 256 + (k // 16) * 128 + (row % 8) * 16 + k % 16
+
+
+def oz_pack_w_plain(ws: torch.Tensor) -> torch.Tensor:
+    """ws [4, K, O] (any dtype) in the layout K7's main loop reads, as
+    oz_pack_w_kernel writes it: [OP / 64, KT, 4, 8, 2, 8, 16], zero-padded
+    to K-steps of 32 and to OP columns; element (b, kt, v, g, h, c, j) is
+    ws[v, 32 kt + 16 h + j, 64 b + 8 g + c], so the four W tiles of 64
+    columns a CTA takes in a K-step are one run of 8 KB, each the tile of
+    oz_tile_byte (rows = columns)."""
+    _, K, O = ws.shape
+    plan = oz_plan(1, K, O)
+    kt, op = plan["KT"], plan["OP"]
+    w = torch.zeros((4, kt * OZ_BK, op), dtype=ws.dtype, device=ws.device)
+    w[:, :K, :O] = ws
+    return (w.reshape(4, kt, 2, 16, op // OZ_COLS, 8, 8)
+            .permute(4, 1, 0, 5, 2, 6, 3).contiguous())
 
 
 def oz_xla_path(x: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
@@ -212,15 +281,50 @@ def oz_fused(xh: torch.Tensor, xl: torch.Tensor,
                          f"(K * 2^13 must stay below 2^31)")
     if not _device("oz_fused", xh):
         return oz_fused_plain(xh, xl, ws)
+    # W is packed on every call (it is an input like x); the pack kernel
+    # also zeroes the main kernel's sync words
+    plan = oz_plan(M, K, O)
+    sync = torch.empty(plan["sync_words"], dtype=torch.int32,
+                       device=xh.device)
+    wp = oz_pack_w(ws, sync)
+    ring = torch.empty(plan["ring_bytes"], dtype=torch.uint8,
+                       device=xh.device)
     oh = torch.empty((M, O), dtype=torch.float32, device=xh.device)
     ol = torch.empty_like(oh)
     with torch.cuda.device(xh.device):
         status = build.lib().rt_oz_fused(
-            xh.data_ptr(), xl.data_ptr(), ws.data_ptr(), oh.data_ptr(),
-            ol.data_ptr(), M, K, O, _stream(xh))
+            xh.data_ptr(), xl.data_ptr(), wp.data_ptr(), ring.data_ptr(),
+            sync.data_ptr(), oh.data_ptr(), ol.data_ptr(), M, K, O,
+            _stream(xh))
     build.check(status, "oz_fused")
     counts.LAUNCHES["oz_fused"] += 1
     return oh, ol
+
+
+def oz_pack_w(ws: torch.Tensor,
+              zero: torch.Tensor | None = None) -> torch.Tensor:
+    """ws int8 [4, K, O] -> the packed W of K7's main loop (the layout of
+    oz_pack_w_plain, int8); on the card by oz_pack_w_kernel, which also
+    sets the int32 tensor `zero` (oz_fused's sync words) to 0."""
+    if ws.dtype != torch.int8:
+        raise TypeError(f"oz_pack_w: ws must be int8, got {ws.dtype}")
+    if ws.dim() != 3 or ws.shape[0] != 4 or not ws.is_contiguous():
+        raise ValueError(f"oz_pack_w: ws must be a contiguous [4, K, O], "
+                         f"got {tuple(ws.shape)}")
+    if not _device("oz_pack_w", ws):
+        return oz_pack_w_plain(ws)
+    _, K, O = ws.shape
+    plan = oz_plan(1, K, O)
+    wp = torch.empty((plan["OP"] // OZ_COLS, plan["KT"], 4, 8, 2, 8, 16),
+                     dtype=torch.int8, device=ws.device)
+    with torch.cuda.device(ws.device):
+        status = build.lib().rt_oz_pack_w(
+            ws.data_ptr(), wp.data_ptr(), K, O,
+            0 if zero is None else zero.data_ptr(),
+            0 if zero is None else zero.numel(), _stream(ws))
+    build.check(status, "oz_pack_w")
+    counts.LAUNCHES["oz_pack_w"] += 1
+    return wp
 
 
 def dd_mul(ah: torch.Tensor, al: torch.Tensor, bh: torch.Tensor,

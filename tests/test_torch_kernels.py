@@ -179,6 +179,144 @@ def test_oz_edge_rows_reach_the_exponent_bounds():
     assert bool(torch.isfinite(oh).all() and torch.isfinite(ol).all())
 
 
+@pytest.mark.parametrize("M", [1, 15, 16, 17, 63, 64, 65, 2016, 2017])
+def test_oz_plan_peels_every_row_once(M):
+    """K7's row tiles: rank r of tile t peels rows 64 t + 16 r .. + 15;
+    every row of [0, M) falls to exactly one (tile, rank), ranks past M
+    peel none (M = 1: ranks 1-3), and the tiles are as few as can be."""
+    plan = kp.oz_plan(M, 32, 8)
+    hits = np.zeros(plan["row_tiles"] * kp.OZ_ROWS, dtype=int)
+    peel = kp.OZ_ROWS // kp.OZ_RANKS
+    for t in range(plan["row_tiles"]):
+        for r in range(kp.OZ_RANKS):
+            lo = t * kp.OZ_ROWS + r * peel
+            hits[lo:lo + peel] += 1
+    assert (hits == 1).all()
+    assert (plan["row_tiles"] - 1) * kp.OZ_ROWS < M <= len(hits)
+
+
+@pytest.mark.parametrize("O", [1, 8, 63, 64, 65, 255, 256, 257, 264, 520])
+def test_oz_plan_covers_every_column_once(O):
+    """K7's columns: rank r of column group g multiplies columns 256 g +
+    64 r .. + 63; every column of [0, OP) falls to exactly one (group,
+    rank), OP covers O with as few groups as can be, ranks past O have no
+    column (O = 8: ranks 1-3), and the packed W is OP columns wide."""
+    plan = kp.oz_plan(64, 32, O)
+    hits = np.zeros(plan["OP"], dtype=int)
+    for g in range(plan["col_groups"]):
+        for r in range(kp.OZ_RANKS):
+            lo = (g * kp.OZ_RANKS + r) * kp.OZ_COLS
+            hits[lo:lo + kp.OZ_COLS] += 1
+    assert (hits == 1).all()
+    assert plan["OP"] == plan["col_groups"] * kp.OZ_RANKS * kp.OZ_COLS
+    assert plan["OP"] - kp.OZ_RANKS * kp.OZ_COLS < O <= plan["OP"]
+    assert plan["wp_bytes"] == 4 * plan["KT"] * plan["OP"] * kp.OZ_BK
+
+
+def test_oz_plan_covers_every_k_once():
+    """K7's K: for every K in 1..2100, each k falls in exactly one K-step
+    of 32 and each K-step in exactly one panel of at most 1024 columns
+    (one panel: x stays in shared memory and the row maxima come from it;
+    more: a first pass over xh); each round of the peelers takes four
+    K-steps, a warp each, and the last round's extra warps have none."""
+    for K in range(1, 2101):
+        plan = kp.oz_plan(64, K, 8)
+        kt = plan["KT"]
+        assert (kt - 1) * kp.OZ_BK < K <= kt * kp.OZ_BK
+        per = plan["panel"] // kp.OZ_BK
+        hits = np.zeros(kt, dtype=int)
+        for p in range(plan["npanel"]):
+            steps = min(per, kt - p * per)
+            assert steps > 0
+            for j in range(0, steps, 4):
+                for w in range(4):
+                    if j + w < steps:
+                        hits[p * per + j + w] += 1
+        assert (hits == 1).all(), K
+        assert plan["npanel"] == (1 if kt * kp.OZ_BK <= kp.OZ_PANEL
+                                  else -(-K // kp.OZ_PANEL))
+
+
+@pytest.mark.parametrize("K,O", [(1, 1), (4, 8), (40, 264), (999, 129),
+                                 (1024, 256), (33, 520)])
+def test_oz_pack_w_plain_is_a_permutation_of_w(K, O):
+    """The packed W holds every element of W exactly once, zeros
+    elsewhere (the padding of K and O), in wp_bytes elements."""
+    n = 4 * K * O
+    idx = torch.arange(1, n + 1, dtype=torch.int64).reshape(4, K, O)
+    packed = kp.oz_pack_w_plain(idx).flatten()
+    assert packed.numel() == kp.oz_plan(1, K, O)["wp_bytes"]
+    nz = packed[packed != 0]
+    assert torch.equal(torch.sort(nz).values, torch.arange(1, n + 1))
+    assert int((packed == 0).sum()) == packed.numel() - n
+
+
+def _tile_index() -> np.ndarray:
+    """[64, 32] byte offsets of (row, k) in a K-step's operand tile."""
+    rows, ks = np.meshgrid(np.arange(64), np.arange(kp.OZ_BK), indexing="ij")
+    return kp.oz_tile_byte(rows, ks)
+
+
+@pytest.mark.parametrize("M,K,O", [(64, 32, 64), (70, 100, 130),
+                                   (130, 64, 300), (5, 7, 8)])
+def test_oz_main_loop_model_equals_int8_dot(M, K, O):
+    """A model of K7's main loop over its operand layouts: the slice tiles
+    as the peelers write them (oz_tile_byte over 64 rows) and the W tiles
+    as the pack lays them out (oz_pack_w_plain, read at the offset the
+    producer copies for column block b, K-step kt, W v), multiplied as
+    wgmma reads them (byte (n, k) of B at oz_tile_byte(n, k)) and summed
+    over the K-steps, give int8_dot_plain exactly for each W."""
+    rng = np.random.default_rng(M + K + O)
+    t = rng.integers(-64, 65, (M, K)).astype(np.int8)
+    ws = rng.integers(-128, 128, (4, K, O)).astype(np.int8)
+    plan = kp.oz_plan(M, K, O)
+    kt_n, tiles, op = plan["KT"], plan["row_tiles"], plan["OP"]
+    wp = kp.oz_pack_w_plain(torch.as_tensor(ws)).flatten().numpy()
+    ta = np.zeros((tiles * 64, kt_n * kp.OZ_BK), dtype=np.int8)
+    ta[:M, :K] = t
+    idx = _tile_index()
+    for v in range(4):
+        got = np.zeros((tiles * 64, op), dtype=np.int64)
+        for kt in range(kt_n):
+            for tile in range(tiles):
+                a_tile = np.zeros(64 * kp.OZ_BK, dtype=np.int8)
+                a_tile[idx] = ta[tile * 64:(tile + 1) * 64,
+                                 kt * kp.OZ_BK:(kt + 1) * kp.OZ_BK]
+                a = a_tile[idx].astype(np.int64)           # [64 rows, 32 k]
+                for b in range(op // kp.OZ_COLS):
+                    off = ((b * kt_n + kt) * 4 + v) * 64 * kp.OZ_BK
+                    w_tile = wp[off:off + 64 * kp.OZ_BK]
+                    bt = w_tile[idx].astype(np.int64)      # [64 cols, 32 k]
+                    got[tile * 64:(tile + 1) * 64,
+                        b * 64:(b + 1) * 64] += a @ bt.T
+        want = kp.int8_dot_plain(torch.as_tensor(t), torch.as_tensor(ws[v]))
+        assert np.array_equal(got[:M, :O], want.numpy().astype(np.int64))
+
+
+def test_oz_pack_w_validates_and_cpu_takes_plain():
+    ws = torch.as_tensor(np.arange(4 * 5 * 3, dtype=np.int8).reshape(4, 5, 3))
+    before = counts.snapshot()
+    assert torch.equal(kp.oz_pack_w(ws), kp.oz_pack_w_plain(ws))
+    assert counts.snapshot() == before
+    with pytest.raises(TypeError):
+        kp.oz_pack_w(ws.int())
+    with pytest.raises(ValueError, match=r"\[4, K, O\]"):
+        kp.oz_pack_w(ws[:3])
+
+
+def test_oz_fold_split_is_the_conversion():
+    """The fold's fast path: for |o| < 2^22 the f32 of 0x4B400000 + o,
+    less 1.5 2^23, is float(o) exactly, and o - int(that) is 0, as the
+    plain version's f32 conversion and residual."""
+    rng = np.random.default_rng(3)
+    o = np.concatenate([rng.integers(-(2 ** 22) + 1, 2 ** 22, 100000),
+                        [-(2 ** 22) + 1, -1, 0, 1, 2 ** 22 - 1]])
+    o = o.astype(np.int32)
+    hi = (np.int32(0x4B400000) + o).view(np.float32) - np.float32(12582912.0)
+    assert np.array_equal(hi, o.astype(np.float32))
+    assert np.array_equal(o - hi.astype(np.int32), np.zeros_like(o))
+
+
 def test_probe_wrappers_raise_off_the_cpu_without_a_kernel():
     meta = torch.device("meta")
     f = torch.empty(8, dtype=torch.float32, device=meta)
@@ -743,8 +881,9 @@ def test_cuda_probe_kernels_equal_plain(cuda_device):
 @pytest.mark.cuda
 def test_cuda_oz_fused_equals_plain(cuda_device):
     """On the card: K7 bit for bit against oz_fused_plain in oh and ol at
-    chip_smoke's shapes: probe4's inputs, its edge rows and two ragged
-    shapes; one launch counted per call."""
+    chip_smoke's shapes: probe4's inputs, its edge rows and OZ_CASES (the
+    tiling's edges); its pack bit for bit against oz_pack_w_plain; one
+    launch of each kernel counted per call."""
     import chip_smoke
 
     rng = np.random.default_rng(9)
@@ -754,7 +893,7 @@ def test_cuda_oz_fused_equals_plain(cuda_device):
              (*(torch.as_tensor(a, device=cuda_device) for a in (
                  edge.astype(np.float32),
                  (edge - edge.astype(np.float32)).astype(np.float32))), ws)]
-    for M, K, O in ((77, 1000, 100), (300, 999, 129)):
+    for M, K, O in chip_smoke.OZ_CASES:
         xr = rng.standard_normal((M, K))
         cases.append((
             torch.as_tensor(xr.astype(np.float32), device=cuda_device),
@@ -762,11 +901,15 @@ def test_cuda_oz_fused_equals_plain(cuda_device):
                             device=cuda_device),
             torch.as_tensor(rng.integers(-64, 64, (4, K, O)).astype(np.int8),
                             device=cuda_device)))
-    before = counts.LAUNCHES["oz_fused"]
+    before = counts.snapshot()
     for args in cases:
         for got, ref in zip(kp.oz_fused(*args), kp.oz_fused_plain(*args)):
             assert torch.equal(got, ref), tuple(args[0].shape)
-    assert counts.LAUNCHES["oz_fused"] == before + len(cases)
+        assert torch.equal(kp.oz_pack_w(args[2]),
+                           kp.oz_pack_w_plain(args[2]))
+    after = counts.snapshot()
+    assert after["oz_fused"] == before["oz_fused"] + len(cases)
+    assert after["oz_pack_w"] == before["oz_pack_w"] + 2 * len(cases)
     with pytest.raises(ValueError, match="devices"):
         kp.oz_fused(xh, xl, ws.cpu())
 
