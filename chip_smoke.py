@@ -64,18 +64,29 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
      the redshifts (5, 4, 3, 2, 1, 0.5, 0); the same checks against
      tests/data/torch_port_golden_oneloop_nk128.npz (gen_torch_port_golden
      --case oneloop), and the PT and PMR columns must be populated;
-  7. runs full TRG over the bench's batch of 64 (4 chunks, each
-     prepared on the host, then solved), lanes 0-1 against the golden,
-     with its wall and the host time in prepare;
+  7. runs full TRG over the bench's batch of 64 (4 chunks) and 1-loop
+     over 64 (2 chunks of 32), each chunk prepared on the host: chunk 0
+     by the caller, later ones by the prepare worker process
+     (redtime_tpu_torch/worker.py) while the previous chunk is solved;
+     lanes 0-1 against the goldens, with the wall, the time the solve
+     waited for prepare and the prepare seconds hidden behind the solve;
   8. runs the packed scheduler (run_batch(scheduler="packed")): full TRG
      over the same 64 on 16 lanes and 1-loop over step 6's 32 on 8
      lanes, each against its golden and within the controller band (3e-5
      of column scale) of the chunked table on the same inputs, with its
      wall, prepare / solve split, iterations and attempts per cosmology;
+     then the device split (run_batch(devices=...): every card, or the
+     one card named twice, one worker process a shard of 32) over the
+     full-TRG 64, chunked and packed (32 lanes a shard), against the
+     golden and the in-process chunked table, with each shard's wall,
+     each worker's start and the launches the workers sent back;
   9. runs the CLI (`batch` over 4 params files written with the port's
      io, `run` over one) at nk=128, against run_batch on the same inputs,
-     and `batch --scheduler packed --lanes 2` against
-     run_batch(scheduler="packed", n_lanes=2);
+     `batch --scheduler packed --lanes 2` against
+     run_batch(scheduler="packed", n_lanes=2), and `batch --shard`
+     against the CLI's `batch` (byte-equal with one shard); then a
+     device list naming a card the machine lacks, which must raise in
+     this process with the worker's message and leave no worker;
  10. runs the presets at their full settings, SolverConfig.high_accuracy()
      and v01_compat(), 2 design lanes, 1-loop, z_out (1, 0), against
      their JAX goldens (tests/data/torch_port_golden_{high_accuracy,
@@ -101,7 +112,7 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
 
 Every path from step 4 on runs with the launch counters set to 0 just
 before it and read just after, and must have launched K1-K3 (the probes:
-K4-K7 and K1).
+K4-K7 and K1); a worker process's launches come back with its answer.
 
 Any failed phase raises, and the script exits non-zero without a result.
 It imports nothing of JAX.  Details go to chiprun_out/chip_smoke.json.
@@ -1402,38 +1413,201 @@ def run_oneloop(detail: dict, card: str) -> tuple:
     return launches, res
 
 
-def run_batch64(detail: dict, card: str) -> tuple:
-    """Full TRG over the bench's batch (bench.py:65): 64 cosmologies of
-    the design latin_hypercube(64, seed=42), with the golden's two
-    cosmologies in lanes 0-1, in 4 chunks of 16 at the default placement
-    (each chunk prepared on the host, then solved).  Every lane finite,
-    lanes 0-1 held to the golden; prints the wall and the host time in
-    prepare, which the solve does not hide.  Returns the launch counts and
-    the result."""
+def bench_params(n_golden: int) -> np.ndarray:
+    """The bench's batch (bench.py:65): 64 cosmologies of the design
+    latin_hypercube(64, seed=42), with the golden's two cosmologies (lanes
+    0-1 of design_params(n_golden)) in lanes 0-1."""
+    params = design_params(BATCH_BENCH)
+    params[:2] = design_params(n_golden)[:2]
+    return params
+
+
+def overlap_line(timer) -> str:
+    """The host-prepare overlap of a chunked run: the time the solve
+    waited for prepared chunks, the prepare worker's own seconds, the part
+    of them hidden behind the solve, the worker's start and which process
+    prepared each chunk."""
+    st = timer.stats
+    start = st.get("worker_start_s")
+    return (f"prepare waited {timer.times['prepare']:.3f} s; the prepare "
+            f"worker prepared {st.get('prepare_worker_s', 0.0):.3f} s, "
+            f"{st.get('prepare_hidden_s', 0.0):.3f} s of it hidden behind "
+            f"the solve; worker start "
+            f"{'not reached' if start is None else f'{start:.3f} s'}; "
+            f"chunks prepared by {st.get('prepared_by')}")
+
+
+def run_batch64(what: str, cfg, settings, golden: str, n_golden: int,
+                detail: dict, card: str) -> tuple:
+    """A chunked run over the bench's batch of 64 at the default placement
+    (each chunk prepared on the host; from the second chunk on by the
+    prepare worker while the previous chunk is solved): full TRG in 4
+    chunks of 16, 1-loop in 2 of 32.  Every lane finite, lanes 0-1 held to
+    the golden; prints the wall, the time the solve waited for prepare
+    and the prepare seconds hidden behind the solve.  Returns the launch
+    counts and the result."""
+    params = bench_params(n_golden)
+    gold = load_golden(golden, params, settings, what)
+    cs, lins = design_inputs(BATCH_BENCH, params)
+    res, launches, wall, timer = timed_run(what, cfg, settings, cs, lins,
+                                           detail)
+    times, att = dict(timer.times), timer.stats["attempts"]
+    check(timer.stats["prepared_by"][0] == "caller",
+          f"{what}: chunk 0 was not prepared by the caller")
+    dev_col, dev_lin = golden_dev(res, gold, what)
+    per_min = BATCH_BENCH / wall * 60.0
+    n_chunks = len(timer.stats["prepared_by"])
+    detail[what] = dict(
+        wall_s=wall, cosmologies=BATCH_BENCH, chunks=n_chunks,
+        cosmologies_per_min=per_min, stages_s=times,
+        overlap={k: timer.stats.get(k) for k in (
+            "prepared_by", "prepare_worker_s", "prepare_hidden_s",
+            "worker_start_s")},
+        golden_dev_col_scale=dev_col, golden_dev_linear_rel=dev_lin,
+        attempts=att, launches=launches)
+    print(f"{what} path on {card}: {BATCH_BENCH} cosmologies in {n_chunks} "
+          f"chunks, {wall:.3f} s = {per_min:.2f} cosmologies/min; "
+          f"{overlap_line(timer)}; solve {times['solve']:.3f} s; attempts "
+          f"per cosmology {spread(att)}; lanes 0-1 vs JAX golden "
+          f"{dev_col:.3g} of column scale, linear {dev_lin:.3g}")
+    return launches, res
+
+
+def run_batch64_paths(detail: dict, card: str) -> tuple:
+    """Full TRG (the bench's headline) and 1-loop (print_bias, its 7
+    redshifts) over the bench's batch of 64 through run_batch64.  Returns
+    the launch counts of both and the full-TRG result."""
+    from redtime_tpu_torch.config import RunSettings, SolverConfig
+
+    launches, res = run_batch64(
+        "batch64", SolverConfig(), RunSettings(one_loop=False, z_out=Z_OUT),
+        GOLDEN, N_DESIGN, detail, card)
+    launches_1l, _ = run_batch64(
+        "oneloop64", SolverConfig(print_bias=True),
+        RunSettings(one_loop=True, z_out=Z_OUT_1L), GOLDEN_1L, N_DESIGN_1L,
+        detail, card)
+    return dict(batch64=launches, oneloop64=launches_1l), res
+
+
+def shard_devices() -> list:
+    """The split's device list: every card when there are several, else
+    the one card named twice (two worker processes, two CUDA contexts on
+    one card)."""
+    import torch
+
+    count = torch.cuda.device_count()
+    return ([f"cuda:{i}" for i in range(count)] if count > 1
+            else ["cuda:0", "cuda:0"])
+
+
+def child_pids() -> list:
+    """The pids of this process's living children (Linux /proc)."""
+    me, out = os.getpid(), []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:          # it exited while we looked
+            continue
+        state, ppid = stat.rsplit(")", 1)[1].split()[:2]
+        if int(ppid) == me and state != "Z":
+            out.append(int(entry))
+    return out
+
+
+def run_shard(chunked64, detail: dict, card: str) -> dict:
+    """The device split, run_batch(devices=shard_devices()): the bench's
+    batch of 64 in full TRG (run_batch64's inputs), one worker process a
+    shard of 32, chunked (the JAX rule: max_chunk 16 across the devices,
+    so each worker solves 16 // nd lanes at a time, with its own prepare
+    worker) and packed (32 lanes a shard), each with the counters set to
+    0 just before and read just after (timed_run: the launches the
+    workers sent back, K1-K3 in their solve, none in their host
+    prepare).  Every lane finite, lanes 0-1 held to the golden, every
+    lane within the controller band (3e-5 of column scale) of the
+    in-process chunked run; no worker left running.  Prints the wall,
+    each shard's wall and each worker's start.  Returns the launch counts
+    of both runs."""
     from redtime_tpu_torch.config import RunSettings, SolverConfig
 
     cfg, settings = SolverConfig(), RunSettings(one_loop=False, z_out=Z_OUT)
-    params = design_params(BATCH_BENCH)
-    params[:2] = design_params(N_DESIGN)[:2]
-    gold = load_golden(GOLDEN, params, settings, "batch64")
+    params = bench_params(N_DESIGN)
+    gold = load_golden(GOLDEN, params, settings, "shard")
     cs, lins = design_inputs(BATCH_BENCH, params)
-    res, launches, wall, timer = timed_run("batch64", cfg, settings, cs,
-                                           lins, detail)
-    times, att = dict(timer.times), timer.stats["attempts"]
-    dev_col, dev_lin = golden_dev(res, gold, "batch64")
-    per_min = BATCH_BENCH / wall * 60.0
-    detail["batch64"] = dict(wall_s=wall, cosmologies=BATCH_BENCH,
-                             cosmologies_per_min=per_min, stages_s=times,
-                             golden_dev_col_scale=dev_col,
-                             golden_dev_linear_rel=dev_lin,
-                             attempts=att, launches=launches)
-    print(f"batch64 path on {card}: {BATCH_BENCH} cosmologies in 4 chunks, "
-          f"{wall:.3f} s = {per_min:.2f} cosmologies/min; host prepare "
-          f"{times['prepare']:.3f} s (copies included, not hidden behind "
-          f"the solve); solve {times['solve']:.3f} "
-          f"s; attempts per cosmology {spread(att)}; lanes 0-1 vs JAX "
-          f"golden {dev_col:.3g} of column scale, linear {dev_lin:.3g}")
-    return launches, res
+    devices = shard_devices()
+    ref = chunked64.table.cpu().numpy()
+    out = {}
+    for what, kw in (("shard", {}),
+                     ("shard_packed", dict(scheduler="packed", n_lanes=32))):
+        res, launches, wall, timer = timed_run(what, cfg, settings, cs, lins,
+                                               detail, devices=devices, **kw)
+        check(not child_pids(), f"{what}: worker processes left running")
+        dev_col, dev_lin = golden_dev(res, gold, what)
+        dev_band = band_dev(res.table.cpu().numpy(), ref)
+        check(dev_band <= 3e-5, f"{what}: vs the in-process chunked table "
+                                f"{dev_band:.3g} of column scale (bound "
+                                "3e-5)")
+        shards = timer.stats["shards"]
+        att = timer.stats["attempts"]
+        check(len(att) == BATCH_BENCH, f"{what}: {len(att)} attempts")
+        per_min = BATCH_BENCH / wall * 60.0
+        detail[what] = dict(
+            wall_s=wall, devices=devices, cosmologies=BATCH_BENCH,
+            cosmologies_per_min=per_min, stages_s=dict(timer.times),
+            shards=shards, iterations=timer.stats.get("iterations"),
+            attempts=att, golden_dev_col_scale=dev_col,
+            golden_dev_linear_rel=dev_lin, chunked_dev_col_scale=dev_band,
+            launches=launches)
+        print(f"{what} path on {card}: {BATCH_BENCH} cosmologies over "
+              f"{devices}, {wall:.3f} s = {per_min:.2f} cosmologies/min "
+              f"(workers started in {timer.times['start']:.3f} s); shard "
+              f"walls {[round(s['wall_s'], 3) for s in shards]} s, worker "
+              f"starts {[round(s['start_s'], 3) for s in shards]} s, shard "
+              f"stages {[s['times'] for s in shards]}, iterations "
+              f"{timer.stats.get('iterations')}; lanes 0-1 vs JAX golden "
+              f"{dev_col:.3g} of column scale, linear {dev_lin:.3g}; vs the "
+              f"in-process chunked table {dev_band:.3g}; launches the "
+              f"workers sent back {launches['by_phase']}")
+        out[what] = launches
+    return out
+
+
+def run_worker_fault(detail: dict, card: str) -> None:
+    """A device list that names a card the machine does not have
+    (cuda:{count}): run_batch must raise WorkerError in this process with
+    the worker's message, and leave no worker running.  Anything else
+    fails the script."""
+    import torch
+
+    from redtime_tpu_torch import driver, worker
+    from redtime_tpu_torch.config import RunSettings, SolverConfig
+
+    missing = f"cuda:{torch.cuda.device_count()}"
+    cs, lins = design_inputs(2)
+    t0 = time.perf_counter()
+    try:
+        driver.run_batch(SolverConfig(), RunSettings(one_loop=False,
+                                                     z_out=Z_OUT),
+                         cs, lins, devices=[missing])
+    except worker.WorkerError as err:
+        msg = str(err)
+    else:
+        msg = None
+    wall = time.perf_counter() - t0
+    check(msg is not None, f"worker fault: run_batch on {missing} did not "
+                           "raise")
+    check(f"shard 0 of 1 on {missing}" in msg and "the worker raised" in msg
+          and "CUDA card(s)" in msg,
+          f"worker fault: not the worker's message: {msg!r}")
+    left = child_pids()
+    check(not left, f"worker fault: worker processes left running {left}")
+    detail["worker_fault"] = dict(device=missing, wall_s=wall,
+                                  message=msg.splitlines()[-1])
+    print(f"worker fault on {card}: run_batch(devices=[{missing!r}]) raised "
+          f"in {wall:.3f} s with the worker's message "
+          f"{msg.splitlines()[-1]!r}; no worker left running")
 
 
 def run_cli(detail: dict, card: str) -> dict:
@@ -1469,8 +1643,10 @@ def run_cli(detail: dict, card: str) -> dict:
         check(rc == 0 and rc_run == 0, f"cli: batch rc {rc}, run rc {rc_run}")
         for name in MAIN_KERNELS:
             check(launches[name] > 0, f"cli: kernel {name} was not launched")
-        tables = [np.loadtxt(os.path.join(
-            out_dir, f"redTime_M{i:03d}.dat")) for i in range(n)]
+        files = [os.path.join(out_dir, f"redTime_M{i:03d}.dat")
+                 for i in range(n)]
+        texts = [open(f, "rb").read() for f in files]
+        tables = [np.loadtxt(f) for f in files]
         tables.append(np.loadtxt(os.path.join(work, "one.dat")))
         loaded = [cli._load(p, False) for p in paths]
         cs = CosmoParams(*[torch.stack([c[i] for *_, c in loaded])
@@ -1499,6 +1675,69 @@ def run_cli(detail: dict, card: str) -> dict:
           f"run of one, {wall:.3f} s in all; tables vs run_batch "
           f"{max(devs):.3g} of column scale (the printed 12 digits); "
           f"launches {launches}")
+    return launches, texts
+
+
+def run_cli_shard(cli_texts: list, detail: dict, card: str) -> dict:
+    """`batch --shard` over the CLI phase's 4 params files (the same
+    write_cli_inputs), with the counters set to 0 just before and read
+    just after: rc 0, the sharding line on stderr with nd the largest
+    divisor of 4 at most the card count, K1-K3 launched (by the workers),
+    no worker left running, and the tables byte-equal to the CLI phase's
+    `batch` when nd = 1, else within 3e-5 of column scale (linear columns
+    1e-10 relative)."""
+    import io
+    import tempfile
+
+    import torch
+
+    from redtime_tpu_torch import cli
+    from redtime_tpu_torch.kernels import counts
+
+    n = len(cli_texts)
+    nd = len(cli.shard_devices(n, list(range(torch.cuda.device_count()))))
+    err = io.StringIO()
+    with tempfile.TemporaryDirectory() as work:
+        paths = write_cli_inputs(work, design_params(n), Z_OUT)
+        out_dir = os.path.join(work, "out")
+        counts.reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["batch", "--shard", "-o", out_dir] + paths)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts.snapshot()
+        texts = [open(os.path.join(out_dir, f"redTime_M{i:03d}.dat"),
+                      "rb").read() for i in range(n)]
+    sys.stderr.write(err.getvalue())
+    check(rc == 0, f"cli shard: batch --shard rc {rc}")
+    line = f"# sharding batch of {n} over {nd} devices"
+    check(line in err.getvalue(), f"cli shard: no line {line!r} on stderr")
+    check(not child_pids(), "cli shard: worker processes left running")
+    for name in MAIN_KERNELS:
+        check(launches[name] > 0, f"cli shard: kernel {name} was not "
+                                  "launched")
+    same = [a == b for a, b in zip(texts, cli_texts)]
+    devs = []
+    for i, (a, b) in enumerate(zip(texts, cli_texts)):
+        t = np.loadtxt(io.BytesIO(a))
+        r = np.loadtxt(io.BytesIO(b))
+        dev = float(np.max(np.abs(t - r) / (np.max(np.abs(r), axis=0)
+                                            + 1e-300)))
+        lin = float(np.max(np.abs(t[:, :7] - r[:, :7])
+                           / (np.abs(r[:, :7]) + 1e-300)))
+        check(bool(np.isfinite(t).all()) and t.shape == r.shape,
+              f"cli shard: table {i} shape {t.shape} or non-finite")
+        check(same[i] if nd == 1 else dev <= 3e-5 and lin <= 1e-10,
+              f"cli shard: table {i} vs batch: same bytes {same[i]}, "
+              f"{dev:.3g} of column scale, linear {lin:.3g} (nd {nd})")
+        devs.append(dev)
+    detail["cli_shard"] = dict(wall_s=wall, files=n, nd=nd,
+                               byte_equal=same, dev_col_scale=devs,
+                               launches=launches)
+    print(f"cli_shard path on {card}: batch --shard of {n} files over {nd} "
+          f"device(s), {wall:.3f} s; tables byte-equal to batch's {same}, "
+          f"{max(devs):.3g} of column scale; launches {launches}")
     return launches
 
 
@@ -1597,8 +1836,7 @@ def run_packed_paths(chunked64, chunked1l, detail: dict, card: str) -> dict:
     each through run_packed against its chunked result."""
     from redtime_tpu_torch.config import RunSettings, SolverConfig
 
-    params = design_params(BATCH_BENCH)
-    params[:2] = design_params(N_DESIGN)[:2]
+    params = bench_params(N_DESIGN)
     return dict(
         packed64=run_packed(
             "packed64", SolverConfig(),
@@ -2050,20 +2288,32 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     detail: dict = {"card": card}
 
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     lib = build.build()
-    build_s = time.perf_counter() - t0
+    build_s = time.perf_counter() - t_start
     print(f"build: nvcc {build_s:.3f} s ({lib.name})")
     detail["build"] = dict(build.BUILD_LOG, wall_s=build_s)
-    check_tensor_cores(lib, detail)
+    phase_s = detail["phase_s"] = {}
 
-    rows = check_kernels(np.random.default_rng(1234), detail)
-    check_leg_shapes(np.random.default_rng(2468), detail)
-    presets = preset_rows(np.random.default_rng(1357), detail)
+    def timed(name: str, fn, *args):
+        """fn(*args), its wall booked to phase_s[name]."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    timed("tensor_cores", check_tensor_cores, lib, detail)
+    rows = timed("kernels", check_kernels, np.random.default_rng(1234),
+                 detail)
+    timed("leg_shapes", check_leg_shapes, np.random.default_rng(2468),
+          detail)
+    presets = timed("preset_rows", preset_rows, np.random.default_rng(1357),
+                    detail)
     for r in rows:
         if r["name"] in presets:
             r["preset_shapes"] = presets[r["name"]]
-    rows += check_probe_kernels(np.random.default_rng(4321), detail)
+    rows += timed("probe_kernels", check_probe_kernels,
+                  np.random.default_rng(4321), detail)
     for r in rows:
         lib_ms = r["library_ms"]
         print(f"kernel {r['name']}: {r['ms']:.4f} ms eager, "
@@ -2074,19 +2324,28 @@ def main() -> int:
               f"{r['max_abs_err']:.3g}")
     # each path runs with the counters set to 0 just before it; a
     # kernel's launches are the sum over the paths that ran it
-    phases = dict(probes=run_probes(detail))
-    phases.update(run_main_path(detail, card))
-    launches_1l, res_1l = run_oneloop(detail, card)
+    phases = dict(probes=timed("probes", run_probes, detail))
+    phases.update(timed("main_path", run_main_path, detail, card))
+    launches_1l, res_1l = timed("oneloop", run_oneloop, detail, card)
     phases.update(launches_1l)
-    phases["batch64"], res_64 = run_batch64(detail, card)
-    phases.update(run_packed_paths(res_64, res_1l, detail, card))
-    phases.update(cli=run_cli(detail, card),
-                  cli_packed=run_cli_packed(detail, card))
-    phases.update(run_presets(detail, card))
-    phases.update(grid_nk48=run_ragged_grid(detail, card))
-    phases["production"], phases["inject_rerun"] = run_production(detail,
-                                                                  card)
-    phases.update(numerics=run_numerics(detail, card))
+    launches_64, res_64 = timed("batch64", run_batch64_paths, detail, card)
+    phases.update(launches_64)
+    phases.update(timed("packed", run_packed_paths, res_64, res_1l, detail,
+                        card))
+    phases.update(timed("shard", run_shard, res_64, detail, card))
+    phases["cli"], cli_texts = timed("cli", run_cli, detail, card)
+    phases.update(
+        cli_packed=timed("cli_packed", run_cli_packed, detail, card),
+        cli_shard=timed("cli_shard", run_cli_shard, cli_texts, detail, card))
+    timed("worker_fault", run_worker_fault, detail, card)
+    phases.update(timed("presets", run_presets, detail, card))
+    phases.update(grid_nk48=timed("grid_nk48", run_ragged_grid, detail,
+                                  card))
+    phases["production"], phases["inject_rerun"] = timed(
+        "production", run_production, detail, card)
+    phases.update(numerics=timed("numerics", run_numerics, detail, card))
+    print(f"phase walls (s): { {k: round(v, 1) for k, v in phase_s.items()} }"
+          f"; {time.perf_counter() - t_start:.1f} s since the build began")
     for r in rows:
         r["launches_by_path"] = {k: p[r["name"]] for k, p in phases.items()}
         r["launches"] = sum(r["launches_by_path"].values())

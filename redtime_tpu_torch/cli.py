@@ -16,17 +16,20 @@ redtime_tpu/cli.py).
 
     redtime-tpu-torch batch params_*.dat -o out/          # on the card
     redtime-tpu-torch batch params_*.dat -o out/ --scheduler packed --lanes 16
+    redtime-tpu-torch batch params_*.dat -o out/ --shard   # every card
     python -m redtime_tpu_torch.cli run --params p.dat --platform cpu
     redtime-tpu-torch convert --n-models 16 --step 499 \
         --models-file models.dat --red-dir out/
 
 `run` and `batch` run on the card unless `--platform cpu` asks for the
-CPU; with no card they exit non-zero.  `convert` and `convert-full` are
-numpy on the host.  The JAX CLI's `--mode` and `--show-legs` (FFT and
-Ozaki backends) and the segmented scheduler with its `--seg-breaks` have
-no counterpart here; `--shard` waits for the multi-GPU batch split
-(ROADMAP.md, queue 1 item 5).  scripts/run_redtime.py's two-pass CAMB
-orchestration is `python -m redtime_tpu_torch.orchestrate`.
+CPU; with no card they exit non-zero.  `batch --shard` splits the batch
+over the visible cards (the CPU under `--platform cpu`), one worker
+process a card, as many cards as the largest divisor of the file count
+allows (the JAX CLI's rule).  `convert` and `convert-full` are numpy on
+the host.  The JAX CLI's `--mode` and `--show-legs` (FFT and Ozaki
+backends) and the segmented scheduler with its `--seg-breaks` have no
+counterpart here.  scripts/run_redtime.py's two-pass CAMB orchestration
+is `python -m redtime_tpu_torch.orchestrate`.
 """
 
 from __future__ import annotations
@@ -51,6 +54,13 @@ def _device(args) -> str:
     except RuntimeError as err:
         raise SystemExit(f"redtime-tpu-torch: {err}") from None
     return dev
+
+
+def shard_devices(n: int, devices: list) -> list:
+    """The first nd of `devices`, nd the largest divisor of the batch
+    size n that is at most len(devices) (redtime_tpu/cli.py:226-229)."""
+    nd = max(d for d in range(1, len(devices) + 1) if n % d == 0)
+    return devices[:nd]
 
 
 def _load(params_path: str, modern: bool):
@@ -198,6 +208,14 @@ def cmd_batch(args) -> int:
     lins = LinearData(*[np.stack([lin[i] for _, lin, _, _ in loaded])
                         for i in range(len(LinearData._fields))])
 
+    devices = None
+    if args.shard:
+        visible = (["cpu"] if dev == "cpu" else
+                   [f"cuda:{i}" for i in range(torch.cuda.device_count())])
+        devices = shard_devices(len(loaded), visible)
+        print(f"# sharding batch of {len(loaded)} over {len(devices)} "
+              "devices", file=sys.stderr)
+
     t0 = time.time()
     with device_trace(args.trace_dir):
         with timer.stage("solve-batch"):
@@ -206,7 +224,8 @@ def cmd_batch(args) -> int:
             res = run_batch(cfg, settings, cosmos, lins, device=dev,
                             max_chunk=args.chunk,
                             timer=timer if args.timing else None,
-                            scheduler=args.scheduler, n_lanes=args.lanes)
+                            scheduler=args.scheduler, n_lanes=args.lanes,
+                            devices=devices)
             sync(res.table)
     dt = time.time() - t0
 
@@ -298,6 +317,9 @@ def main(argv=None) -> int:
                        help="solve many params files in one batched run")
     b.add_argument("params_files", nargs="+")
     b.add_argument("--output-dir", "-o", default=".")
+    b.add_argument("--shard", action="store_true",
+                   help="split the batch over the visible cards, one "
+                   "worker process each (the CPU under --platform cpu)")
     b.add_argument("--skip-existing", action="store_true",
                    help="skip models whose output file already exists")
     b.add_argument("--timing", action="store_true",

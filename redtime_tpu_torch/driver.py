@@ -16,12 +16,20 @@ Prepare placement, as in the JAX package: on the card, each chunk is
 prepared on the host CPU (`prepare_on_host`, the default there) and the
 prepared `Model` is copied to the card; the solve runs on the card.
 Prepare is some 700,000 small kernels a chunk, bound by launches on the
-card and by per-op overhead on the host.
+card and by per-op overhead on the host.  With more than one chunk, a
+prepare worker process (`worker.py`) prepares chunk i+1 while the caller
+launches chunk i's solve (redtime_tpu/driver.py:520-531).
+
+`run_batch(devices=[...])` is the counterpart of the JAX package's
+`mesh`: the batch is padded to a multiple of the device count and cut
+into one contiguous shard per device, each run by a worker process with
+its own queue or chunks (redtime_tpu/driver.py:542-600, 603-710).
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -38,7 +46,8 @@ from redtime_tpu_torch.io.camb import LinearData
 from redtime_tpu_torch.io.params import ParamsFile
 from redtime_tpu_torch.kernels import counts
 from redtime_tpu_torch.profiling import StageTimer, sync
-from redtime_tpu_torch.state import cosmo_from_numpy, linear_from_numpy
+from redtime_tpu_torch.state import (cosmo_from_numpy, linear_from_numpy,
+                                     model_from_numpy)
 
 F64 = torch.float64
 
@@ -310,7 +319,7 @@ def run_batch(cfg: SolverConfig, settings: RunSettings, cs: CosmoParams,
               lins: LinearData, device="cuda", max_chunk: int | None = None,
               norm_override=None, prepare_on_host: bool | None = None,
               timer: StageTimer | None = None, scheduler: str = "auto",
-              n_lanes: int | None = None) -> RunResult:
+              n_lanes: int | None = None, devices=None) -> RunResult:
     """Batched pipeline on `device`: the card unless the caller asks for
     the CPU (device="cpu"); with no card a call without `device` raises.
 
@@ -329,11 +338,36 @@ def run_batch(cfg: SolverConfig, settings: RunSettings, cs: CosmoParams,
 
     prepare_on_host: prepare on the host CPU, on one torch thread, and
     copy the Model to `device` (default: on the card, yes; on the CPU the
-    placement is the same either way).
-    timer: a profiling.StageTimer that books "prepare" and "solve" (with
-    a timer, the device is synchronized after each solve) and, in its
-    stats, each cosmology's controller attempts ("attempts") and the
-    packed scheduler's loop iterations ("iterations")."""
+    placement is the same either way).  Chunked with host prepare and
+    more than one chunk, a prepare worker process prepares chunk i+1
+    while the caller launches chunk i's solve; the caller prepares chunks
+    itself until the worker has started.  Prepare on the card
+    (prepare_on_host=False) runs inline before each solve: the JAX
+    package overlaps it only through asynchronous dispatch, and a child
+    process cannot hand CUDA tensors over cheaply.
+
+    devices: None runs in this process on `device`.  A sequence of
+    devices (the JAX package's `mesh`; a device may appear more than once,
+    as two workers on one card) runs one worker process per entry, and
+    `device` is not used: the batch is padded to a multiple of nd =
+    len(devices) by repeating its first lane and cut into nd contiguous
+    shards; packed, each shard runs its own queue on min(n_lanes or 8,
+    shard size) lanes; chunked, max_chunk counts lanes across all devices
+    (rounded down to a multiple of nd), so each worker solves max_chunk //
+    nd at a time.  The result, without the padding, is on devices[0]; the
+    workers' kernel launches are added to `kernels.counts`.
+
+    timer: a profiling.StageTimer that books "prepare" (the time the solve
+    waited for a prepared chunk) and "solve" (with a timer, the device is
+    synchronized after each solve) and, in its stats, each cosmology's
+    controller attempts ("attempts"), the packed scheduler's loop
+    iterations ("iterations") and, when a prepare worker ran, which
+    process prepared each chunk ("prepared_by"), the worker's own prepare
+    seconds ("prepare_worker_s"), the part of them the solve did not wait
+    for ("prepare_hidden_s") and its start ("worker_start_s").  With
+    devices, it books "start" (until every worker is ready) and "solve",
+    "attempts" in batch order, "iterations" per shard (packed) and each
+    shard's device, start, wall, stages and stats ("shards")."""
     _check_settings(settings, cfg)
     if scheduler == "segmented":
         raise ValueError("scheduler='segmented' is not ported: it works "
@@ -342,44 +376,180 @@ def run_batch(cfg: SolverConfig, settings: RunSettings, cs: CosmoParams,
     if scheduler not in ("auto", "chunked", "packed"):
         raise ValueError(f"unknown scheduler {scheduler!r}; choose "
                          "'auto', 'chunked', 'packed', or 'segmented'")
+    timed = timer is not None
+    timer = timer if timed else StageTimer(enabled=False)
+    inputs = ([_host(x) for x in cs], [_host(x) for x in lins],
+              None if norm_override is None else _host(norm_override))
+    if devices is not None:
+        return _run_batch_split(cfg, settings, inputs, list(devices),
+                                max_chunk, prepare_on_host, timer, timed,
+                                scheduler, n_lanes)
     device = device_of(device)
     n = _batch_size(cs)
     if max_chunk is None:
-        max_chunk = n if device.type == "cpu" else (
-            DEFAULT_GPU_CHUNK_FULL if settings.nonlinear
-            and not settings.one_loop else DEFAULT_GPU_CHUNK)
+        max_chunk = _default_chunk(settings, device, n)
     if prepare_on_host is None:
         prepare_on_host = device.type != "cpu"
-    timed = timer is not None
-    timer = timer if timed else StageTimer(enabled=False)
-    cs_np = [_host(x) for x in cs]
-    lin_np = [_host(x) for x in lins]
-    nrm_np = None if norm_override is None else _host(norm_override)
     ec = engine_consts(cfg, device)
     size = min(max_chunk, n)
     if scheduler == "packed":
         return _run_batch_packed(
-            cfg, settings, (cs_np, lin_np, nrm_np), device, ec,
-            prepare_on_host, timer, timed,
+            cfg, settings, inputs, device, ec, prepare_on_host, timer, timed,
             DEFAULT_LANES if n_lanes is None else n_lanes, size)
-    outs, attempts = [], []
-    for i0 in range(0, n, size):
-        with timer.stage("prepare"):
-            chunk = ([_take(x, i0, size) for x in cs_np],
-                     [_take(x, i0, size) for x in lin_np],
-                     None if nrm_np is None else _take(nrm_np, i0, size))
-            m = _prepare(cfg, chunk, device, prepare_on_host)
-        counts.mark("prepare")
-        with timer.stage("solve"):
-            res, att = _solve(cfg, settings, m, ec)
-            outs.append(res)
-            attempts.append(att)
-            if timed:
-                sync(outs[-1].table)
-        counts.mark("solve")
+    return _run_batch_chunked(cfg, settings, inputs, device, ec, size,
+                              prepare_on_host, timer, timed)
+
+
+def _default_chunk(settings: RunSettings, device: torch.device,
+                   n: int) -> int:
+    """max_chunk's default: the whole batch on the CPU, on a GPU the JAX
+    package's accelerator chunk for the mode."""
+    if device.type == "cpu":
+        return n
+    if settings.nonlinear and not settings.one_loop:
+        return DEFAULT_GPU_CHUNK_FULL
+    return DEFAULT_GPU_CHUNK
+
+
+def _run_batch_chunked(cfg: SolverConfig, settings: RunSettings, inputs,
+                       device: torch.device, ec, size: int,
+                       prepare_on_host: bool, timer: StageTimer,
+                       timed: bool) -> RunResult:
+    """The chunked scheduler over inputs (cs, lins, norm: numpy rows) in
+    chunks of `size`: each chunk prepared, then solved.  With host prepare
+    and more than one chunk, a prepare worker prepares chunk i+1 while
+    chunk i's solve is launched (redtime_tpu/driver.py:520-531): whenever
+    the worker is ready and holds no chunk, it is handed the next one,
+    before the caller prepares a chunk itself and before each solve.  The
+    caller prepares every chunk not handed over.  The worker's Model has
+    the same bits as the caller's: the same code on one torch thread on
+    the same host."""
+    # imported here: `python -m redtime_tpu_torch.worker` runs the module
+    # as __main__ after the package (and this module) is imported
+    from redtime_tpu_torch import worker
+
+    cs_np, lin_np, nrm_np = inputs
+    n = cs_np[0].shape[0]
+    chunks = [([_take(x, i0, size) for x in cs_np],
+               [_take(x, i0, size) for x in lin_np],
+               None if nrm_np is None else _take(nrm_np, i0, size))
+              for i0 in range(0, n, size)]
+    overlap = prepare_on_host and len(chunks) > 1
+    outs, attempts, by = [], [], []
+    waited = worker_s = 0.0
+    with contextlib.ExitStack() as stack:
+        helper = (stack.enter_context(worker.Worker("prepare worker"))
+                  if overlap else None)
+        held = None            # the chunk the worker is preparing
+
+        def hand_over(i: int):
+            if (overlap and held is None and i < len(chunks)
+                    and helper.ready()):
+                helper.send("prepare", cfg=cfg, chunk=chunks[i])
+                return i
+            return held
+
+        for i, chunk in enumerate(chunks):
+            with timer.stage("prepare"):
+                if held != i:
+                    held = hand_over(i + 1)
+                    m = _prepare(cfg, chunk, device, prepare_on_host)
+                    by.append("caller")
+                else:
+                    t0 = time.perf_counter()
+                    m_np, secs = helper.receive()
+                    m = _on_device(model_from_numpy(m_np), device)
+                    waited += time.perf_counter() - t0
+                    worker_s += secs
+                    held = None
+                    by.append("worker")
+            counts.mark("prepare")
+            held = hand_over(i + 1)
+            with timer.stage("solve"):
+                res, att = _solve(cfg, settings, m, ec)
+                outs.append(res)
+                attempts.append(att)
+                if timed:
+                    sync(outs[-1].table)
+            counts.mark("solve")
     if timed:
         timer.stats["attempts"] = torch.cat(attempts)[:n].tolist()
+        if overlap:
+            timer.stats.update(
+                prepared_by=by, prepare_worker_s=worker_s,
+                prepare_hidden_s=max(0.0, worker_s - waited),
+                worker_start_s=helper.start_s)
     return RunResult(*[torch.cat(xs, dim=0)[:n] for xs in zip(*outs)])
+
+
+def _run_batch_split(cfg: SolverConfig, settings: RunSettings, inputs,
+                     devices: list, max_chunk: int | None,
+                     prepare_on_host: bool | None, timer: StageTimer,
+                     timed: bool, scheduler: str,
+                     n_lanes: int | None) -> RunResult:
+    """run_batch over `devices`, one worker process a shard (the JAX
+    package's mesh: redtime_tpu/driver.py:542-600 packed, 603-710
+    chunked); see run_batch.  On the card the kernels are built here
+    first, so the workers do not run nvcc at once."""
+    from redtime_tpu_torch import worker
+
+    if not devices:
+        raise ValueError("devices is empty")
+    devs = [device_of(d) for d in devices]
+    nd = len(devs)
+    cs_np, lin_np, nrm_np = inputs
+    n = cs_np[0].shape[0]
+    pad = (-n) % nd
+    size = (n + pad) // nd
+    grow = lambda x: np.concatenate([x, np.repeat(x[:1], pad, axis=0)])
+    cs_np, lin_np = [grow(x) for x in cs_np], [grow(x) for x in lin_np]
+    nrm_np = None if nrm_np is None else grow(nrm_np)
+    if max_chunk is None:
+        max_chunk = _default_chunk(settings, devs[0], n + pad)
+    max_chunk = max_chunk - max_chunk % nd or nd
+    kw = dict(max_chunk=max_chunk // nd, prepare_on_host=prepare_on_host,
+              scheduler=scheduler)
+    if scheduler == "packed":
+        kw["n_lanes"] = min(n_lanes or DEFAULT_LANES, size)
+    if any(d.type == "cuda" for d in devs):
+        from redtime_tpu_torch.kernels import build
+
+        build.build()
+    part = lambda x, j: None if x is None else x[j * size:(j + 1) * size]
+    with contextlib.ExitStack() as stack:
+        with timer.stage("start"):
+            workers = [stack.enter_context(
+                worker.Worker(f"shard {j} of {nd} on {d}"))
+                for j, d in enumerate(devs)]
+            for w in workers:
+                w.ready(None)
+        with timer.stage("solve"):
+            for j, (w, d) in enumerate(zip(workers, devs)):
+                w.send("run", cfg=cfg, settings=settings,
+                       inputs=([part(x, j) for x in cs_np],
+                               [part(x, j) for x in lin_np],
+                               part(nrm_np, j)),
+                       device=str(d), threads=torch.get_num_threads(), **kw)
+            answers = worker.gather(workers)
+        for w in workers:          # let them all exit at once
+            w.stop()
+    for a in answers:
+        counts.add(a["launches"], a["phases"])
+    if timed:
+        stats = [a["stats"] for a in answers]
+        timer.stats["attempts"] = [x for s in stats
+                                   for x in s["attempts"]][:n]
+        if scheduler == "packed":
+            timer.stats["iterations"] = [s["iterations"] for s in stats]
+        timer.stats["shards"] = [
+            dict(device=str(d), start_s=w.start_s, wall_s=a["wall_s"],
+                 times=a["times"],
+                 stats={k: v for k, v in a["stats"].items()
+                        if k not in ("attempts", "iterations")})
+            for d, w, a in zip(devs, workers, answers)]
+    return RunResult(*[torch.as_tensor(np.concatenate(xs)[:n],
+                                       device=devs[0])
+                       for xs in zip(*[a["result"] for a in answers])])
 
 
 def _run_batch_packed(cfg: SolverConfig, settings: RunSettings, inputs,

@@ -5,7 +5,8 @@ card, and nowhere else (the plain PyTorch path on CPU tensors does not
 count), so a run can show that the main path went through the kernels.
 `mark(phase)` books the launches since the last mark to a phase of the
 run (run_batch marks "prepare" and "solve"), so the counts of a kernel
-that several phases launch can be told apart.
+that several phases launch can be told apart.  `add` books the launches
+that a worker process counted (driver.run_batch(devices=...)) here.
 """
 
 from __future__ import annotations
@@ -31,6 +32,18 @@ def mark(phase: str) -> None:
     for name, count in LAUNCHES.items():
         booked[name] += count - _marked[name]
     _marked.update(LAUNCHES)
+
+
+def add(launches: dict, by_phase: dict) -> None:
+    """Add another process's launches, and its launches by phase, to the
+    counts here (they do not count again at the next mark)."""
+    for name, count in launches.items():
+        LAUNCHES[name] += count
+        _marked[name] += count
+    for phase, booked in by_phase.items():
+        mine = PHASES.setdefault(phase, dict.fromkeys(LAUNCHES, 0))
+        for name, count in booked.items():
+            mine[name] += count
 
 
 def snapshot() -> dict:

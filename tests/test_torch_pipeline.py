@@ -131,7 +131,10 @@ def test_host_prepare_matches_device_prepare(mode):
 @pytest.mark.parametrize("on_host", [True, False])
 def test_host_prepare_runs_on_one_torch_thread(on_host, monkeypatch):
     """Host prepare runs on one torch thread and gives the count back;
-    prepare in place keeps the caller's count."""
+    prepare in place keeps the caller's count.  With host prepare the
+    prepare worker may take chunk 1 (it prepares on one thread too,
+    tests/test_torch_overlap.py): every chunk the caller prepared here
+    ran on one thread, chunk 0 among them."""
     cs, lins, _ = _batch3()
     threads = torch.get_num_threads()
     seen = []
@@ -142,9 +145,12 @@ def test_host_prepare_runs_on_one_torch_thread(on_host, monkeypatch):
         return prepare(*args)
 
     monkeypatch.setattr(td, "_prepare_chunk", counting)
+    timer = StageTimer(enabled=False)
     td.run_batch(TCfg(nk=NK), TSet(**FULL), cs, lins, device="cpu",
-                 max_chunk=2, prepare_on_host=on_host)
-    assert seen == [1 if on_host else threads] * 2
+                 max_chunk=2, prepare_on_host=on_host, timer=timer)
+    by = timer.stats.get("prepared_by", ["caller"] * 2)
+    assert len(by) == 2 and by[0] == "caller"
+    assert seen == [1 if on_host else threads] * by.count("caller")
     assert torch.get_num_threads() == threads
 
 

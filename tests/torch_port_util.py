@@ -7,11 +7,15 @@ linear data.  Data moves between the frameworks only as numpy arrays.
 
 JAX is imported only by `jax_batch`, so the kernel tests
 (tests/test_torch_kernels.py) also run on a GPU machine without JAX.
+`deadline` is the time limit of the worker tests' waits
+(tests/test_torch_sharding.py, tests/test_torch_overlap.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import signal
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
@@ -58,3 +62,25 @@ def cuda_device():
         pytest.skip("needs a CUDA GPU (on the card: python -m pytest "
                     "--noconftest tests/test_torch_kernels.py -m cuda)")
     return torch.device("cuda")
+
+
+class Deadline(Exception):
+    """A test's wait outlived its time limit (see `deadline`)."""
+
+
+@contextlib.contextmanager
+def deadline(seconds: float):
+    """Raise Deadline in the block once `seconds` have passed: the time
+    limit of a test's wait on worker processes, so a hung worker fails
+    the test instead of the suite (pytest runs tests on the main thread,
+    where the alarm signal is delivered)."""
+    def expire(signum, frame):
+        raise Deadline(f"no result within {seconds} s")
+
+    before = signal.signal(signal.SIGALRM, expire)
+    signal.setitimer(signal.ITIMER_REAL, seconds)
+    try:
+        yield
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, before)
