@@ -28,7 +28,15 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
      outputs bit for bit, reached included; then K1, K2 and K3 at the
      shapes of
      the presets' phase (nk, np = 512, 2048 and 256, 2048; 2 lanes),
-     checked and timed with their bounds (preset_rows);
+     checked and timed with their bounds (preset_rows); K8 rhs_tail on
+     the inputs trg.rhs_prologue builds from design models and generated
+     states, at every (nk, lanes) the main paths give it (RT_SHAPES) in
+     full TRG with and without RSD, 1-loop and linear, with a NaN lane
+     and a frozen lane: within 1e-11 of each (lane, row)'s scale of its
+     plain version, NaN and inf in the same places, two calls the same
+     bits; timed (full TRG 16 lanes, 1-loop 32) with its bound and the
+     launch floor, with the device kernels of one RHS evaluation
+     (torch.profiler; at most 250 full TRG, 150 1-loop) and its host ms;
   4. checks the probe kernels K4 affine, K5 int8_dot and K6 dd_mul
      against their plain versions on the card, bit for bit, at the
      probes' shapes, at one larger shape each and on ragged sizes, and
@@ -52,7 +60,8 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
      prepare_on_host=False (prepared on the card), each with every
      launch counter reset just before it and read just after (split into
      run_batch's prepare and solve phases); checks that every table is
-     finite, that the solve launched K1-K3 (rk_stage and rk_finish), that
+     finite, that the solve launched K1-K3 (rk_stage and rk_finish) and
+     K8, that
      host prepare launched no kernel on the card and card prepare K3, and
      that lanes 0-1 match the JAX golden
      (tests/data/torch_port_golden_nk128.npz, written by
@@ -111,8 +120,9 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
  13. prints the kernels' JSON line, the card line and, last, the result.
 
 Every path from step 4 on runs with the launch counters set to 0 just
-before it and read just after, and must have launched K1-K3 (the probes:
-K4-K7 and K1); a worker process's launches come back with its answer.
+before it and read just after, and must have launched K1-K3 and K8 (the
+probes: K4-K7 and K1); a worker process's launches come back with its
+answer.
 
 Any failed phase raises, and the script exits non-zero without a result.
 It imports nothing of JAX.  Details go to chiprun_out/chip_smoke.json.
@@ -152,7 +162,8 @@ EPS = float(np.finfo(np.float64).eps)
 HBM_BYTES_S = 3.35e12
 PEAK_FP64_TC, PEAK_FP64, PEAK_FP32, PEAK_INT8_TC = 67e12, 34e12, 67e12, \
     1979e12
-MAIN_KERNELS = ("out_leg", "pz_leg", "rk_stage", "rk_finish")
+MAIN_KERNELS = ("out_leg", "pz_leg", "rk_stage", "rk_finish",
+                "rhs_tail")
 # the production chain (run_production): a Latin-hypercube design of
 # N_PROD Mira-Titan cosmologies (design.generate_design, seed SEED),
 # tests/mock_camb.py as the CAMB binary, the 33 CAMB redshifts as the
@@ -857,6 +868,214 @@ def check_kernels(rng, detail: dict) -> list:
     return rows
 
 
+# K8 rhs_tail at the main paths' (nk, lanes): full-TRG chunks (16), 1-loop
+# chunks (32), packed lanes (64), the split's shards (8, 32), the ragged
+# grid (48, 2) and the presets (512, 256; 2 lanes); its modes as
+# RunSettings; the bound against K8's plain version (of each (lane, row)'s
+# max |plain| over k) and the device kernels of one RHS evaluation
+RT_SHAPES = ((128, 16), (128, 32), (128, 64), (128, 8), (48, 2), (512, 2),
+             (256, 2))
+RT_MODES = {"full": dict(one_loop=False),
+            "full_no_rsd": dict(one_loop=False, print_rsd=False),
+            "oneloop": dict(one_loop=True),
+            "linear": dict(one_loop=False, nonlinear=False)}
+RT_BOUND = 1e-11
+RHS_KERNELS_MAX = {"full": 250, "oneloop": 150}
+
+
+def rt_config(nk: int):
+    """The SolverConfig the main path runs at nk."""
+    from redtime_tpu_torch.config import SolverConfig
+    return {512: SolverConfig.high_accuracy, 256: SolverConfig.v01_compat,
+            128: SolverConfig}.get(nk, lambda: SolverConfig(nk=nk))()
+
+
+def rt_state(rng, cfg, settings, m, B: int):
+    """(eta [B], y [B, 41 nk]) on the card: the initial lnP rows grown by
+    e^eta and I/Q rows of the spectrum's scale from the generator; lane 1
+    (when B > 2) frozen at its initial state, the last lane NaN (as the
+    chunked scheduler poisons an unfinished lane)."""
+    import torch
+
+    from redtime_tpu_torch import trg
+
+    nk = cfg.nk
+    eta = rng.uniform(0.5, 4.0, B)
+    y = trg.initial_state(cfg, settings, m).reshape(B, 41, nk).cpu().numpy()
+    y0 = y.copy()
+    y[:, :3] += 2.0 * eta[:, None, None]
+    y[:, 3:] = 1e-3 * np.exp(y[:, :1]) * rng.standard_normal((B, 38, nk))
+    if B > 2:
+        y[1], eta[1] = y0[1], 0.0
+    y[-1] = np.nan
+    t = lambda x: torch.as_tensor(x, dtype=torch.float64, device="cuda")
+    return t(eta), t(y.reshape(B, -1))
+
+
+def rt_dev(got, ref) -> float:
+    """max |got - ref| over each (lane, row)'s max |ref| over k, on the
+    elements where ref is finite."""
+    import torch
+
+    fin = torch.isfinite(ref)
+    scale = torch.where(fin, ref.abs(), 0.0).amax(-1, keepdim=True)
+    d = torch.where(fin, (got - ref).abs(), 0.0) / (scale + 1e-300)
+    return float(d.max())
+
+
+def rt_cost(args) -> dict:
+    """least_time of one rhs_tail: each input read once (Jw as K1 wrote
+    it), dy written once; the operations the kernel does a k point."""
+    from redtime_tpu_torch import assembly
+    from redtime_tpu_torch.kernels import rhs_tail as rt
+
+    y, eta, k, om, src, evolve_q = args
+    B, _, nk = y.shape
+    ins = [y, eta, k, *om, *([] if src is None else src)]
+    nbytes = 8.0 * (sum(x.numel() for x in ins) + y.numel())
+    nout = 0 if src is None else 14 + (24 if evolve_q else 0)
+    ints, _ = rt.kernel_table()
+    omega = int(ints[8 + 3 * nout - 2]) if nout else 0   # Omega terms
+    if isinstance(src, rt.FullSrc):
+        prog = assembly.ar_program()
+        ops_pt = sum(len(rt._deps(prog.ops, o)) for o in prog.outs[:nout])
+    else:
+        ops_pt = 12 + 3 * nout
+    ops_pt += 2 * omega + 40                       # Omega terms, dlnP
+    return least_time(nbytes, float(ops_pt) * B * nk, PEAK_FP64)
+
+
+def rhs_device_kernels(rhs, eta, y) -> tuple:
+    """(device kernels, device busy ms) of one rhs(eta, y) under
+    torch.profiler (CUDA activity, as profile_torch_port.device_profile
+    counts them), after one untimed call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    rhs(eta, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rhs(eta, y)
+        torch.cuda.synchronize()
+    cuda = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.count for e in cuda),
+            sum(e.self_device_time_total for e in cuda) / 1e3)
+
+
+def check_rhs_tail(rng, detail: dict) -> dict:
+    """K8 rhs_tail against its plain version on the card, on the inputs
+    trg.rhs_prologue builds from design models and generated states, at
+    every (nk, lanes) of RT_SHAPES in every mode of RT_MODES: within
+    RT_BOUND of each (lane, row)'s scale, NaN and inf in the same places
+    (a NaN lane, a frozen lane), two calls the same bits.  Times it
+    (full TRG at 16 lanes, 1-loop at 32) with its bound, the launch floor
+    beside; counts the device kernels of one full-TRG and one 1-loop RHS
+    evaluation and times the evaluation on the host clock.  Returns the
+    kernels' line row."""
+    import torch
+
+    from redtime_tpu_torch import driver, fastpt, trg
+    from redtime_tpu_torch import model as mdl
+    from redtime_tpu_torch.config import RunSettings
+    from redtime_tpu_torch.kernels import build
+    from redtime_tpu_torch.kernels import rhs_tail as rt
+
+    dev = torch.device("cuda")
+    cs, lins = design_inputs(2)
+    chunk = ([x.numpy() for x in cs], list(lins), None)
+    cases, timed, max_err = [], {}, 0.0
+    for nk, B in RT_SHAPES:
+        cfg = rt_config(nk)
+        m2 = driver._prepare(cfg, chunk, dev, True)
+        m = mdl.take_lanes(m2, torch.arange(B, device=dev) % 2)
+        ec = fastpt.engine_consts(cfg, dev)
+        for mode, kw in RT_MODES.items():
+            settings = RunSettings(z_out=Z_OUT_1L, **kw)
+            cache = (trg.build_oneloop_cache(cfg, settings, m, ec)
+                     if settings.one_loop else None)
+            eta, y = rt_state(rng, cfg, settings, m, B)
+            args = trg.rhs_prologue(cfg, settings, m, ec, cache)(eta, y)
+            got = rt.rhs_tail(*args)
+            ref = rt.rhs_tail_plain(*args)
+            what = f"rhs_tail {mode} nk={nk} B={B}"
+            check(same_bits(got, rt.rhs_tail(*args)),
+                  f"{what}: two calls on the same inputs differ")
+            check(bool(torch.equal(got.isnan(), ref.isnan())
+                       and torch.equal(got.isinf(), ref.isinf())),
+                  f"{what}: NaN or inf where the plain version has none")
+            check(bool(got[-1, :3].isnan().all()),
+                  f"{what}: the NaN lane's dlnP is not NaN")
+            err = rt_dev(got, ref)
+            fin = torch.isfinite(ref)
+            case = dict(mode=mode, nk=nk, B=B, dev_row_scale=err,
+                        bit_equal_share=float((got == ref)[fin].double()
+                                              .mean()))
+            check(err <= RT_BOUND, f"{what}: {err:.3g} of row scale from "
+                                   f"plain (bound {RT_BOUND:g})")
+            max_err = max(max_err, float(torch.where(
+                fin, (got - ref).abs(), 0.0).max()))
+            cases.append(case)
+            print(f"{what}: {err:.3g} of row scale from plain, "
+                  f"{case['bit_equal_share']:.4f} of the finite elements "
+                  "bit-equal")
+            if (nk, B, mode) in ((128, 16, "full"), (128, 32, "oneloop")):
+                t, runs = measure(lambda: rt.rhs_tail(*args),
+                                  lambda: rt.rhs_tail_plain(*args))
+                rhs = trg.make_rhs(cfg, settings, m, ec, cache)
+                n_kernels, busy = rhs_device_kernels(rhs, eta, y)
+                key = "full" if mode == "full" else "oneloop"
+                host = rhs_host_ms(rhs, eta, y)
+                check(n_kernels <= RHS_KERNELS_MAX[key],
+                      f"{what}: one RHS evaluation ran {n_kernels} device "
+                      f"kernels (at most {RHS_KERNELS_MAX[key]})")
+                timed[key] = dict(t, **rt_cost(args), B=B, nk=nk,
+                                  rhs_device_kernels=n_kernels,
+                                  rhs_device_busy_ms=busy,
+                                  rhs_host_ms=host)
+                detail[f"rhs_tail_timing_{key}"] = runs
+                print(f"rhs_tail {key} (B={B}): {t['ms']:.4f} ms eager, "
+                      f"{t['device_ms']:.5f} ms device (plain "
+                      f"{t['plain_ms']:.4f} / {t['plain_device_ms']:.4f}); "
+                      f"bound {timed[key]['bound_ms']:.5f} ms by "
+                      f"{timed[key]['bound_by']}; one RHS evaluation "
+                      f"{n_kernels} device kernels, {busy:.4f} ms busy, "
+                      f"{host:.3f} ms host")
+    stream = torch.cuda.current_stream
+    floor = graph_ms(lambda: build.check(
+        build.lib().rt_launch_floor(stream().cuda_stream), "launch_floor"))
+    detail["rhs_tail_cases"] = cases
+    full = timed["full"]
+    return dict(
+        name="rhs_tail", route="cuda",
+        source="redtime_tpu_torch/csrc/rhs_tail.cu",
+        replaces="redtime_tpu/trg.py:178",
+        also_replaces="redtime_tpu/trg.py:84 (omega_matrix), :136 "
+                      "(oneloop_rescale), redtime_tpu/assembly.py:172 (A/R)",
+        max_abs_err=max_err,
+        max_dev_row_scale=max(c["dev_row_scale"] for c in cases),
+        launch_floor_ms=floor, oneloop=timed["oneloop"],
+        **{k: full[k] for k in ("ms", "device_ms", "plain_ms",
+                                "plain_device_ms", "library_ms", "bound_ms",
+                                "bound_by", "bound_bytes", "bound_ops",
+                                "rhs_device_kernels", "rhs_device_busy_ms",
+                                "rhs_host_ms")})
+
+
+def rhs_host_ms(rhs, eta, y, n: int = 20) -> float:
+    """Host-clock ms of one rhs(eta, y), the device synchronized, over n
+    calls after one untimed call."""
+    import torch
+
+    rhs(eta, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        rhs(eta, y)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
 # the tensor-core instruction each kernel's SASS must hold: FP64 (DMMA)
 # for K1 and K2, int8 mma.sync (IMMA) for K5, int8 wgmma (IGMMA, the
 # opcode of K7's wgmma m64n64k32 s8 in the SASS of its first build) for
@@ -1297,7 +1516,7 @@ def band_dev(got, ref) -> float:
 def timed_run(what: str, cfg, settings, cs, lins, detail: dict, **kw):
     """One run_batch on the card with every launch counter set to 0 just
     before it and read just after; checks that every lane is finite, that
-    the launches by phase add up and that the solve launched K1-K3; with
+    the launches by phase add up and that the solve launched K1-K3 and K8; with
     host prepare (the default) that prepare launched none of them, with
     card prepare that it ran K3.  kw goes to run_batch.  Returns (result,
     launches with by_phase, wall seconds, the run's StageTimer: its
@@ -2305,6 +2524,8 @@ def main() -> int:
     timed("tensor_cores", check_tensor_cores, lib, detail)
     rows = timed("kernels", check_kernels, np.random.default_rng(1234),
                  detail)
+    rows.append(timed("rhs_tail", check_rhs_tail,
+                      np.random.default_rng(3579), detail))
     timed("leg_shapes", check_leg_shapes, np.random.default_rng(2468),
           detail)
     presets = timed("preset_rows", preset_rows, np.random.default_rng(1357),

@@ -23,6 +23,9 @@ bit-identical.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -171,17 +174,9 @@ def _omega_bilinear_mats():
 OMEGA_BILINEAR = _omega_bilinear_mats()
 
 
-def assemble(Jf, PZf, Jn0f, J_lo, k, with_rsd: bool):
-    """Assemble A/R/PT/PMR on the solver grid.
-
-    Jf, PZf, Jn0f: [..., 7, 3, 3, nk] transforms windowed to the solver
-    grid (leading batch dimensions allowed).
-    J_lo: [...] — J[0, 0, 0] at the low-k index nloMR (reference :1252).
-    k: [nk] solver grid.
-
-    Returns (A_unique [..., 14, nk], R [..., 3, 8, nk], PT [..., 9, nk],
-    PMR [..., 8, nk]).
-    """
+def _readers(Jf, PZf, Jn0f):
+    """Element readers of the windowed transforms: J(n, idx) is
+    Jf[..., n, idx // 3, idx % 3, :], likewise PZ and Jn0."""
     def J(n, idx):
         return Jf[..., n, idx // 3, idx % 3, :]
 
@@ -191,9 +186,29 @@ def assemble(Jf, PZf, Jn0f, J_lo, k, with_rsd: bool):
     def Jn0(n, idx):
         return Jn0f[..., n, idx // 3, idx % 3, :]
 
-    J_lo = J_lo[..., None]
-    lead = Jf.shape[:-4]
+    return J, PZ, Jn0
 
+
+def assemble_ar(Jf, PZf, Jn0f, k, with_rsd: bool):
+    """The A/R half of `assemble`, the part the RHS reads: returns
+    (A_unique [..., 14, nk], R [..., 3, 8, nk]); R is zero unless
+    with_rsd.  Same arguments as `assemble` (no J_lo: only P_MR reads
+    it)."""
+    A, R = ar_rows(*_readers(Jf, PZf, Jn0f), k, with_rsd)
+    A_unique = torch.stack(A, dim=-2)           # [..., 14, nk]
+    if with_rsd:
+        Rarr = torch.stack([torch.stack(Rl, dim=-2) for Rl in R],
+                           dim=-3)                      # [..., 3, 8, nk]
+    else:
+        Rarr = Jf.new_zeros(Jf.shape[:-4] + (3, 8) + k.shape)
+    return A_unique, Rarr
+
+
+def ar_rows(J, PZ, Jn0, k, with_rsd: bool):
+    """A_unique's 14 rows and, with_rsd, R's rows [ell-1][4a+2b+c] (else
+    None), as lists, from the element readers J(n, idx), PZ(n, idx),
+    Jn0(n, idx) and k.  Arithmetic operators only, so that ar_program can
+    trace it."""
     k2 = k * k
     pre_A = k / (4.0 * np.pi)
     pre_R = 1.0 / (2.0 * np.pi * k)
@@ -299,9 +314,8 @@ def assemble(Jf, PZf, Jn0f, J_lo, k, with_rsd: bool):
           J(1, 8) / 12 + J(1, 8) / 12)
     A.append(pre_A * Jt)
 
-    A_unique = torch.stack(A, dim=-2)           # [..., 14, nk]
-
     # ---------------- R^ell_{abc} (reference :980-1161)
+    R = None
     if with_rsd:
         R = [[None] * 8 for _ in range(3)]
         for a in range(2):
@@ -460,11 +474,25 @@ def assemble(Jf, PZf, Jn0f, J_lo, k, with_rsd: bool):
                     else:
                         PZt = -(1.0 / 3.0) * PZ(0, 3 * b + a + 4)
                     R[2][j] = r3 + pre_R * PZt
+    return A, R
 
-        Rarr = torch.stack([torch.stack(Rl, dim=-2) for Rl in R],
-                           dim=-3)                      # [..., 3, 8, nk]
-    else:
-        Rarr = Jf.new_zeros(lead + (3, 8) + k.shape)
+
+def assemble(Jf, PZf, Jn0f, J_lo, k, with_rsd: bool):
+    """Assemble A/R/PT/PMR on the solver grid.
+
+    Jf, PZf, Jn0f: [..., 7, 3, 3, nk] transforms windowed to the solver
+    grid (leading batch dimensions allowed).
+    J_lo: [...] — J[0, 0, 0] at the low-k index nloMR (reference :1252).
+    k: [nk] solver grid.
+
+    Returns (A_unique [..., 14, nk], R [..., 3, 8, nk], PT [..., 9, nk],
+    PMR [..., 8, nk]).
+    """
+    A_unique, Rarr = assemble_ar(Jf, PZf, Jn0f, k, with_rsd)
+    J, PZ, Jn0 = _readers(Jf, PZf, Jn0f)
+    J_lo = J_lo[..., None]
+    lead = Jf.shape[:-4]
+    k2 = k * k
 
     # ---------------- P_{T,jm} (reference :1168-1243)
     if with_rsd:
@@ -530,3 +558,95 @@ def assemble(Jf, PZf, Jn0f, J_lo, k, with_rsd: bool):
     PMRarr = torch.stack(PMR, dim=-2)
 
     return A_unique, Rarr, PTarr, PMRarr
+
+
+# ---------------------------------------------------------------------------
+# The A/R half as a straight-line program (K8 rhs_tail's assembly)
+#
+# K8 runs `ar_rows` on the card as straight-line code generated from
+# `ar_rows` itself (kernels/rhs_tail.py ar_source): ar_program traces it
+# with values that record each arithmetic operation, so the kernel does
+# the plain version's operations in its order, and the two cannot drift
+# apart.  The order matters: A and R are small differences of terms up to
+# ~1e4 times larger, so merged coefficients or another order of the sums
+# move a row by ~1e-12 of its scale (a coefficient table read off
+# `assemble` by probing, the JAX package's asm_consts route,
+# redtime_tpu/assembly.py:526-648, gave 6.5e-12 on evolved nk=128 states).
+
+AR_NFEAT = 3 * 63    # features: J (0-62), Jn0 (63-125), PZ (126-188)
+AR_NOUT = 14 + 24    # A_unique's rows, then R's ((ell-1) 8 + 4a+2b+c)
+
+
+class ARProgram(NamedTuple):
+    """`ar_rows` as operations in order: ops[i] = (op, a, b) is value i,
+        ("f", feat, None)          feature feat (9 n + idx in its block)
+        ("k", None, None)          k
+        ("add" | "sub" | "mul" | "div", i, j)   value i op value j
+        ("muls" | "divs", i, c)    value i times / over the constant c
+        ("recip", i, None)         1 / value i (torch's c / x is
+                                   reciprocal(x) * c)
+        ("neg", i, None)           -value i
+    and outs, the values of A_unique's 14 rows, then R's 24."""
+
+    ops: tuple
+    outs: tuple
+
+
+class _Traced:
+    """A value of the traced program; its operators append operations."""
+
+    __slots__ = ("node", "i")
+
+    def __init__(self, node, i: int):
+        self.node, self.i = node, i
+
+    def _bin(self, op: str, other):
+        if isinstance(other, _Traced):
+            return self.node(op, self.i, other.i)
+        if op in ("mul", "div") and isinstance(other, (int, float)):
+            return self.node(op + "s", self.i, float(other))
+        raise TypeError(f"ar_program: no traced form of {op} with "
+                        f"{type(other).__name__}")
+
+    def __add__(self, other):
+        return self._bin("add", other)
+
+    def __sub__(self, other):
+        return self._bin("sub", other)
+
+    def __mul__(self, other):
+        return self._bin("mul", other)
+
+    def __rmul__(self, other):
+        return self._bin("mul", other)
+
+    def __truediv__(self, other):
+        return self._bin("div", other)
+
+    def __rtruediv__(self, other):
+        return self.node("recip", self.i, None)._bin("mul", other)
+
+    def __neg__(self):
+        return self.node("neg", self.i, None)
+
+
+@functools.lru_cache(maxsize=1)
+def ar_program() -> ARProgram:
+    """`ar_rows` (with RSD) traced once into an ARProgram."""
+    ops, leaves = [], {}
+
+    def node(op, a=None, b=None):
+        ops.append((op, a, b))
+        return _Traced(node, len(ops) - 1)
+
+    def reader(base):
+        def read(n, idx):
+            f = base + 9 * n + idx
+            if f not in leaves:
+                leaves[f] = node("f", f)
+            return leaves[f]
+        return read
+
+    A, R = ar_rows(reader(0), reader(126), reader(63), node("k"), True)
+    outs = [v.i for v in A] + [v.i for Rl in R for v in Rl]
+    return ARProgram(tuple(ops), tuple(outs))

@@ -98,6 +98,54 @@ def dlnH_dlna(c: CosmoParams, a, d: DerivedParams | None = None):
         - 4.0 * _b(d.Omega_gam, a) / a ** 5)
 
 
+class OmegaConsts(NamedTuple):
+    """The per-lane constants [B] of omega_scalars (the cosmology's), each
+    computed as H2_H02 and dlnH_dlna compute it."""
+
+    f_cb: torch.Tensor
+    fcb_om: torch.Tensor    # f_cb Omega_m
+    OL: torch.Tensor        # Omega_L
+    Og: torch.Tensor        # Omega_gam
+    og4: torch.Tensor       # 4 Omega_gam
+    a_nu: torch.Tensor
+    y_cold: torch.Tensor    # Y_nu's f_nu / f_cb
+    y_hot: torch.Tensor     # Y_nu's C_NU_HOT Omega_gam
+    dy_hot: torch.Tensor    # dY_da's -C_NU_HOT Omega_gam
+    wa: torch.Tensor
+    w1: torch.Tensor        # 1 + w0 + wa
+    e_pow: torch.Tensor     # E_de's -3 (1 + w0 + wa)
+    e_wa: torch.Tensor      # E_de's -3 wa
+
+
+def omega_consts(c: CosmoParams,
+                 d: DerivedParams | None = None) -> OmegaConsts:
+    d = derived(c) if d is None else d
+    return OmegaConsts(
+        d.f_cb, d.f_cb * c.Omega_m, d.Omega_L, d.Omega_gam,
+        4.0 * d.Omega_gam, d.a_nu, d.f_nu / d.f_cb, C_NU_HOT * d.Omega_gam,
+        -C_NU_HOT * d.Omega_gam, c.wa, 1.0 + c.w0 + c.wa,
+        -3.0 * (1.0 + c.w0 + c.wa), -3.0 * c.wa)
+
+
+def omega_scalars(a, k: OmegaConsts):
+    """(a^3 H^2/H0^2, 3 + dlnH/dlna) at per-lane a [B], the RHS's Omega
+    scalars: the operations of H2_H02 and dlnH_dlna in their order, with
+    the cosmology's constants (omega_consts) and the values the two share
+    (a^3, a^4, E_de, 1 + Y_nu, a >= a_nu, H^2/H0^2) computed once, so the
+    bits are theirs in fewer operations."""
+    a3, a4 = a ** 3, a ** 4
+    E = a ** k.e_pow * torch.exp(k.e_wa * (1.0 - a))
+    cold = a >= k.a_nu
+    Y1 = 1.0 + torch.where(cold, k.y_cold, k.y_hot / (k.fcb_om * a))
+    H2 = k.fcb_om * Y1 / a3 + k.OL * E + k.Og / a4
+    dE = 3.0 * E * (k.wa - k.w1 / a)
+    dY_hot = k.dy_hot / (k.fcb_om * a * a)
+    dY = torch.where(cold, torch.zeros_like(dY_hot), dY_hot)
+    dlnH = 0.5 * a / H2 * (k.fcb_om * (-3.0 * Y1 + a * dY) / a4
+                           + k.OL * dE - k.og4 / a ** 5)
+    return a3 * H2, 3.0 + dlnH
+
+
 def Omega_m_a(c: CosmoParams, a, d: DerivedParams | None = None):
     """Time-dependent Omega_m(a) (reference :497-500)."""
     return _b(c.Omega_m, a) / (a ** 3 * H2_H02(c, a, d))

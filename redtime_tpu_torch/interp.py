@@ -18,21 +18,35 @@ Two flavors:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 
+@functools.lru_cache(maxsize=16)
+def _consts(device: torch.device, dtype: torch.dtype):
+    """Small constants on device, made once: arange(4); the rows
+    (eye(4)[o], eye(4)[o + 1]) of each offset o = 0, 1, 2 [3, 2, 4]; and
+    [4, 3] whose row j lists the nodes l != j in increasing order (the
+    factors of _lagrange4's weight j)."""
+    eye = torch.eye(4, dtype=dtype, device=device)
+    return (torch.arange(4, device=device),
+            torch.stack([eye[:3], eye[1:]], dim=1),
+            torch.tensor([[l for l in range(4) if l != j] for j in range(4)],
+                         device=device))
+
+
 def _lagrange4(xs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Weights [..., 4] of 4-point Lagrange interpolation at x [...] on
-    nodes xs [..., 4] (same operation order as the JAX package)."""
-    w = []
-    for j in range(4):
-        num = torch.ones_like(x)
-        for l in range(4):
-            if l != j:
-                num = num * (x - xs[..., l]) / (xs[..., j] - xs[..., l])
-        w.append(num)
-    return torch.stack(w, dim=-1)
+    nodes xs [..., 4] (same operation order as the JAX package: weight j
+    is ((1 (x - xs_l) / (xs_j - xs_l)) ...) over l != j in increasing
+    order), the four weights at once."""
+    xl = xs[..., _consts(x.device, xs.dtype)[2]]          # [..., 4, 3]
+    num = torch.ones_like(xs)
+    for s in range(3):
+        num = num * (x[..., None] - xl[..., s]) / (xs - xl[..., s])
+    return num
 
 
 def _take(nodes: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -59,14 +73,13 @@ def axis_weights(nodes: torch.Tensor, x: torch.Tensor):
     n = torch.clamp(pos - 1, 0, nn - 2)
     cubic = (n > 0) & (n < nn - 2)
     i0 = torch.clamp(n - 1, 0, nn - 4)
-    ar = torch.arange(4, device=x.device)
+    ar, eye_pairs, _ = _consts(x.device, nodes.dtype)
     xs = _take(nodes, i0[..., None] + ar)
     wc = _lagrange4(xs, x)
     xn, xn1 = _take(nodes, n), _take(nodes, n + 1)
     t = (x - xn) / (xn1 - xn)
-    off = n - i0
-    eye = torch.eye(4, dtype=nodes.dtype, device=x.device)
-    wl = (1.0 - t)[..., None] * eye[off] + t[..., None] * eye[off + 1]
+    eye = eye_pairs[n - i0]        # eye(4)[off], eye(4)[off + 1], off = n - i0
+    wl = (1.0 - t)[..., None] * eye[..., 0, :] + t[..., None] * eye[..., 1, :]
     return i0, torch.where(cubic[..., None], wc, wl)
 
 
@@ -77,7 +90,7 @@ def axis_weights_full(nodes: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     nn = nodes.shape[-1]
     i0, w = axis_weights(nodes, x)
     full = torch.zeros(x.shape + (nn,), dtype=w.dtype, device=x.device)
-    idx = i0[..., None] + torch.arange(4, device=x.device)
+    idx = i0[..., None] + _consts(x.device, w.dtype)[0]
     return full.scatter_(-1, idx, w)
 
 

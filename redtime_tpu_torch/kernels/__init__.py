@@ -7,6 +7,9 @@
   * `rk_finish` — K3, CUDA C++ (csrc/rk_attempt.cu): `rk_stage`, one
                   stage input of an RK attempt, and `rk_finish`, the
                   attempt's tail with the GSL step controller;
+  * `rhs_tail`  — K8, CUDA C++ (csrc/rhs_tail.cu): the Time-RG RHS after
+                  the engine (Omega, the A/R assembly or the 1-loop
+                  rescale, dlnP / dI / dQ);
   * `probes`    — K4 `affine`, K5 `int8_dot`, K6 `dd_mul`, CUDA C++
                   (csrc/probes.cu): the Pallas feasibility probes P1-P3.
 

@@ -3,10 +3,12 @@
 The sources in `redtime_tpu_torch/csrc/` have a plain C interface and are
 compiled by `nvcc` for Hopper (`sm_90a`), one `nvcc` per source and all
 of them at once, then linked into one shared library, loaded with
-ctypes.  The library is built at first use into
-`build/redtime_tpu_torch/` at the repository root, under a name that
-carries the hash of the sources and flags, so an edited source rebuilds
-and an unchanged one is reused.
+ctypes.  Headers generated from the package's Python (`generated`: K8's
+A/R code) are written beside them in the build's scratch directory.  The
+library is built at first use into `build/redtime_tpu_torch/` at the
+repository root, under a name that carries the hash of the sources, the
+generated headers and the flags, so an edited source rebuilds and an
+unchanged one is reused.
 
 Every C entry point takes device pointers, sizes and the CUDA stream, and
 returns `cudaGetLastError()` after its launch; the Python wrappers raise
@@ -16,6 +18,7 @@ when that is not 0.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -49,11 +52,23 @@ def nvcc_path() -> str:
                        "source with the CUDA toolkit")
 
 
+@functools.lru_cache(maxsize=1)
+def generated() -> dict:
+    """Headers generated from the package's Python, name -> text, written
+    beside the sources at build time: K8's A/R code (rhs_tail.ar_source,
+    traced from assembly.ar_rows)."""
+    from redtime_tpu_torch.kernels import rhs_tail
+    return {"rhs_tail_ar.cuh": rhs_tail.ar_source()}
+
+
 def source_hash() -> str:
     h = hashlib.sha256()
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
+    for name, text in sorted(generated().items()):
+        h.update(name.encode())
+        h.update(text.encode())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -72,10 +87,12 @@ def build() -> Path:
     nvcc = nvcc_path()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        for name, text in generated().items():
+            Path(tmp, name).write_text(text)
         objs = [(p, os.path.join(tmp, p.stem + ".o"))
                 for p in _sources() if p.suffix == ".cu"]
-        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(p), "-o", o]
-                for p, o in objs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-I", tmp, "-c", str(p),
+                 "-o", o] for p, o in objs]
         # nvcc's output goes to files: a full pipe would block one nvcc
         # while another is waited for
         procs = []
@@ -139,6 +156,8 @@ def lib() -> ctypes.CDLL:
         handle.rt_rk_finish.restype = i
         handle.rt_rk_stage.argtypes = [p] * 5 + [i] * 5 + [p]
         handle.rt_rk_stage.restype = i
+        handle.rt_rhs_tail.argtypes = [p] * 16 + [i] * 2 + [p] + [i] * 6 + [p]
+        handle.rt_rhs_tail.restype = i
         _lib = handle
     return _lib
 

@@ -470,7 +470,7 @@ def growth_D_f(model: Model, z):
     (reference :727-730).  z: float or [B]."""
     B = model.batch
     z = lane_values(z, B, model.norm.device)
-    a = 1.0 / (1.0 + z)
+    a = torch.reciprocal(1.0 + z)       # 1 / (1 + z), as torch divides so
     wx = interp.axis_weights_full(model.g_lna, torch.log(a))   # [B, nn]
     Gv = torch.einsum("bn,bnk->bk", wx, model.g_G)
     dDv = torch.einsum("bn,bnk->bk", wx, model.g_dDda)

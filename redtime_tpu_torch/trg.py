@@ -26,31 +26,18 @@ from redtime_tpu_torch import background as bg
 from redtime_tpu_torch import model as mdl
 from redtime_tpu_torch.config import RunSettings, SolverConfig
 from redtime_tpu_torch.grids import make_grids
+from redtime_tpu_torch.kernels import rhs_tail as rt
+from redtime_tpu_torch.kernels.rhs_tail import (ABC_IDX, BEF_IDX, LNP_MAX,
+                                                LNP_MIN, NU_STATE, NUI, NUP,
+                                                NUQ)
 from redtime_tpu_torch.kernels.rk_finish import attempt_consts
 from redtime_tpu_torch.ode import (DOP853, DOPRI5, RKF45, attempt,
                                    integrate_interval)
 
-NUP, NUI, NELL, NUQ = 3, 14, 3, 24
-NU_STATE = NUP + NUI + NUQ  # 41
-
-# Finite-range guards (redtime_tpu/trg.py:34-51): an adaptive TRIAL step
-# can overshoot lnP far beyond any physical value.  The caps sit ~7
-# e-folds outside any physical trajectory, so accepted steps are
-# untouched; they bind only inside rejected trials — and so decide which
-# trials are rejected, which is why the port keeps them: the step
-# sequence follows the JAX package's.
-LNP_MIN, LNP_MAX = -80.0, 20.0
-DLNP_GUARD = 1e4
+NELL = 3
 
 F64 = torch.float64
 
-# fz exponents of the 1-loop rescale (reference :1322-1336), as indices
-# into fpow = (fz, fz^2, fz^3, fz^4).  The JAX package picks these rows
-# with one-hot matmuls (redtime_tpu/trg.py:59-70); a one-hot product of
-# finite f64 values is exact, so indexing gives the same bits.
-_BEF_IDX = [(j % 8) // 4 + ((j % 8) % 4) // 2 + (j % 8) % 2
-            for j in range(64)]
-_ABC_IDX = [(j // 4) + (j % 4) // 2 + (j % 2) for j in range(8)]
 _PT_IDX = [3 - m for m in assembly.M_N]
 
 
@@ -65,20 +52,23 @@ class OneLoopCache(NamedTuple):
     D_z1l: torch.Tensor   # [B, nk]
 
 
+def omega_inputs(model: mdl.Model, a: torch.Tensor,
+                 consts: bg.OmegaConsts | None = None) -> rt.OmegaIn:
+    """What Omega(a, k) is built from at per-lane a [B]: beta_P [B, nk]
+    and the lane scalars Omega_m, f_cb, a^3 H^2/H0^2, 3 + dlnH/dlna.
+    consts (bg.omega_consts of the model's cosmology) may come
+    precomputed."""
+    c = model.cosmo
+    consts = bg.omega_consts(c) if consts is None else consts
+    beta = mdl.beta_P_solver(model, a)                   # [B, nk]
+    return rt.OmegaIn(beta, c.Omega_m, consts.f_cb,
+                      *bg.omega_scalars(a, consts))
+
+
 def omega_matrix(cfg: SolverConfig, model: mdl.Model, a: torch.Tensor):
     """Omega(a, k) [B, 2, 2, nk] at per-lane a [B] (reference
     :1383-1411)."""
-    nk = make_grids(cfg).nk
-    c = model.cosmo
-    d = bg.derived(c)
-    beta = mdl.beta_P_solver(model, a)                   # [B, nk]
-    B = beta.shape[0]
-    ones = torch.ones((B, nk), dtype=F64, device=beta.device)
-    o10 = (-1.5 * c.Omega_m[:, None] * (model.f_cb[:, None] + beta)
-           / (a ** 3 * bg.H2_H02(c, a, d))[:, None])
-    o11 = (3.0 + bg.dlnH_dlna(c, a, d))[:, None] * ones
-    return torch.stack([torch.stack([ones, -ones], dim=1),
-                        torch.stack([o10, o11], dim=1)], dim=1)
+    return rt.omega_from(omega_inputs(model, a))
 
 
 def compute_mode_coupling_full(cfg: SolverConfig, lnP3: torch.Tensor, n_s,
@@ -124,8 +114,8 @@ def oneloop_rescale(cfg: SolverConfig, settings: RunSettings,
 
     f2 = fz * fz
     fpow = torch.stack([fz, f2, f2 * fz, f2 * f2], dim=1)  # [B, 4, nk]
-    A64 = pre * fpow[:, _BEF_IDX] * cache.A64
-    R = pre[:, None] * fpow[:, _ABC_IDX][:, None] * cache.R
+    A64 = pre * fpow[:, BEF_IDX] * cache.A64
+    R = pre[:, None] * fpow[:, ABC_IDX][:, None] * cache.R
     PT = pre * fpow[:, _PT_IDX] * cache.PT
     PMR = pre * cache.PMR
     return A64, R, PT, PMR
@@ -138,85 +128,62 @@ def _collapse_pt(PT: torch.Tensor) -> torch.Tensor:
                         PT[:, 6] + PT[:, 7], PT[:, 8]], dim=1)
 
 
-def make_rhs(cfg: SolverConfig, settings: RunSettings, model: mdl.Model,
-             ec: fastpt.EngineConsts, cache: OneLoopCache | None = None):
-    """The flattened-state RHS dy/deta (reference derivatives()):
-    rhs(eta [B], y [B, 41*nk]) -> [B, 41*nk].  In 1-loop mode the
-    mode coupling comes from `cache` (build_oneloop_cache)."""
+def rhs_prologue(cfg: SolverConfig, settings: RunSettings,
+                 model: mdl.Model, ec: fastpt.EngineConsts,
+                 cache: OneLoopCache | None = None):
+    """The eager part of one RHS evaluation: prologue(eta [B],
+    y [B, 41*nk]) returns the arguments of kernels.rhs_tail.rhs_tail
+    (y [B, 41, nk], eta, k, OmegaIn, src, evolve_q): a and the Omega
+    inputs; in full Time-RG the engine up to K1 and K2 (FullSrc); in
+    1-loop mode the growth at eta's z beside `cache`'s rows
+    (OneLoopSrc); in linear mode src None."""
     one_loop = settings.nonlinear and settings.one_loop
     if one_loop and cache is None:
         raise ValueError("1-loop mode needs the z1l cache "
                          "(trg.build_oneloop_cache)")
     g = make_grids(cfg)
     nk = g.nk
-    dev = model.norm.device
-    k = torch.as_tensor(g.k, dtype=F64, device=dev)
+    k = torch.as_tensor(g.k, dtype=F64, device=model.norm.device)
     a_in = settings.a_in
     evolve_q = settings.print_rsd or cfg.print_q
     nonlinear = settings.nonlinear
-    CI, CQ = (torch.as_tensor(m, dtype=F64, device=dev)
-              for m in assembly.OMEGA_BILINEAR)
-    TR14 = torch.as_tensor(assembly.OMEGA_MATS[2], dtype=F64, device=dev)
+    # once per model: the cache's unique A rows (the RHS reads no others)
+    # and the cosmology's constants
+    A_u = cache.A64[:, assembly.JU] if one_loop else None
+    consts = bg.omega_consts(model.cosmo)
 
-    def rhs(eta, yflat):
+    def prologue(eta, yflat):
         B = yflat.shape[0]
         y = yflat.reshape(B, NU_STATE, nk)
         a = a_in * torch.exp(eta)
-        O = omega_matrix(cfg, model, a)                  # [B, 2, 2, nk]
-        e_eta = torch.exp(eta)[:, None]
-
-        lnP = torch.clamp(y[:, 0:3], LNP_MIN, LNP_MAX)
-        P = torch.exp(lnP)                               # P00, P01, P11
-
-        if nonlinear:
-            I14 = y[:, NUP:NUP + NUI]
-            if one_loop:
-                A64, R, _, _ = oneloop_rescale(cfg, settings, model, cache,
-                                               eta)
-                A_u = A64[:, assembly.JU]
-            else:
-                A_u, R, _, _ = compute_mode_coupling_full(
-                    cfg, lnP, model.cosmo.n_s, evolve_q, k, ec)
-            Of = O.reshape(B, 4, nk)                     # O[i, g] at 2i+g
-
-        # --- d ln P (reference :1449-1491)
-        dP0 = -2.0 * (O[:, 0, 0] * P[:, 0] + O[:, 0, 1] * P[:, 1])
-        dP1 = -(O[:, 0, 0] * P[:, 1] + O[:, 0, 1] * P[:, 2]) - \
-            (O[:, 1, 0] * P[:, 0] + O[:, 1, 1] * P[:, 1])
-        dP2 = -2.0 * (O[:, 1, 0] * P[:, 1] + O[:, 1, 1] * P[:, 2])
-        if nonlinear:
-            # I-coupling: sum_{c,d} I_{acd,bcd} + I_{bcd,acd}
-            Isum = (TR14 @ I14).reshape(B, 2, 2, nk)
-            coef = e_eta * 4.0 * np.pi / k
-            dP0 = dP0 + coef * (Isum[:, 0, 0] + Isum[:, 0, 0])
-            dP1 = dP1 + coef * (Isum[:, 1, 0] + Isum[:, 0, 1])
-            dP2 = dP2 + coef * (Isum[:, 1, 1] + Isum[:, 1, 1])
-        dlnP = torch.stack([dP0 / P[:, 0], dP1 / P[:, 1], dP2 / P[:, 2]],
-                           dim=1)
-        dlnP = torch.clamp(dlnP, -DLNP_GUARD, DLNP_GUARD)
-        # late-time P_11 -> 0 instability clamp (reference :1487-1491)
-        dlnP = torch.cat([dlnP[:, :2], torch.clamp(dlnP[:, 2:], -10.0, 10.0)],
-                         dim=1)
-
+        om = omega_inputs(model, a, consts)
         if not nonlinear:
-            return torch.cat([dlnP, dlnP.new_zeros((B, NUI + NUQ, nk))],
-                             dim=1).reshape(B, -1)
-
-        # --- dI (reference :1500-1513): one bilinear product against the
-        # (Of x I14) outer product
-        OI = (Of[:, :, None, :] * I14[:, None, :, :]).reshape(B, 4 * NUI, nk)
-        dI = 2.0 * e_eta[:, :, None] * A_u - CI @ OI
-
-        # --- dQ (reference :1516-1539)
-        if evolve_q:
-            Q24 = y[:, NUP + NUI:]
-            OQ = (Of[:, :, None, :] * Q24[:, None, :, :]).reshape(
-                B, 4 * NUQ, nk)
-            dQ = 2.0 * e_eta[:, :, None] * R.reshape(B, NUQ, nk) - CQ @ OQ
+            src = None
+        elif one_loop:
+            z = torch.exp(-eta) * (1.0 + settings.z_in) - 1.0   # [B]
+            D, dDda = mdl.growth_D_f(model, z)               # [B, nk]
+            src = rt.OneLoopSrc(A_u, cache.R, D, dDda, cache.D_z1l, z)
         else:
-            dQ = dlnP.new_zeros((B, NUQ, nk))
+            lnP = torch.clamp(y[:, 0:3], LNP_MIN, LNP_MAX)
+            P_ext = fastpt.extend_power(cfg, lnP, model.cosmo.n_s, ec)
+            src = rt.FullSrc(*fastpt.compute_J_PZ(cfg, P_ext, evolve_q, ec))
+        return y.contiguous(), eta.contiguous(), k, om, src, evolve_q
 
-        return torch.cat([dlnP, dI, dQ], dim=1).reshape(B, -1)
+    return prologue
+
+
+def make_rhs(cfg: SolverConfig, settings: RunSettings, model: mdl.Model,
+             ec: fastpt.EngineConsts, cache: OneLoopCache | None = None):
+    """The flattened-state RHS dy/deta (reference derivatives()):
+    rhs(eta [B], y [B, 41*nk]) -> [B, 41*nk].  In 1-loop mode the
+    mode coupling comes from `cache` (build_oneloop_cache).  Each
+    evaluation is rhs_prologue's eager part, then K8 rhs_tail for all
+    that follows the engine."""
+    prologue = rhs_prologue(cfg, settings, model, ec, cache)
+
+    def rhs(eta, yflat):
+        return rt.rhs_tail(*prologue(eta, yflat)).reshape(yflat.shape[0],
+                                                          -1)
 
     return rhs
 

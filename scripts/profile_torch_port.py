@@ -12,9 +12,11 @@ redshifts), and measures:
     included) and _finalize, host clock with torch.cuda.synchronize()
     around each, two repeats after one untimed warm-up, with each phase's
     kernel launch counts and attempts per lane;
-  * one RHS evaluation at the cell's lanes and its pieces (extend_power,
-    the windowed engine, assemble, omega_matrix): host clock over 20
-    calls and CUDA events over 20 calls;
+  * one RHS evaluation at the cell's lanes and its pieces: the eager
+    prologue (trg.rhs_prologue) and K8 rhs_tail, and within the prologue
+    omega_inputs, growth_D_f, extend_power and the engine up to K1 and
+    K2; K8's plain version beside them: host clock over 20 calls and
+    CUDA events over 20 calls;
   * torch.profiler over one RHS evaluation and over one controller
     attempt: the device kernels of each, and so the kernels an attempt
     launches outside its RHS evaluations;
@@ -68,7 +70,7 @@ from redtime_tpu_torch.config import (CosmoParams, RunSettings,  # noqa: E402
                                       SolverConfig)
 from redtime_tpu_torch.grids import make_grids  # noqa: E402
 from redtime_tpu_torch.io.camb import LinearData  # noqa: E402
-from redtime_tpu_torch.kernels import build, counts  # noqa: E402
+from redtime_tpu_torch.kernels import build, counts, rhs_tail  # noqa: E402
 from redtime_tpu_torch.kernels.rk_finish import attempt_consts  # noqa: E402
 from redtime_tpu_torch.ode import attempt, integrate_interval  # noqa: E402
 
@@ -121,23 +123,30 @@ def _rhs(cfg, settings, m, ec):
 
 
 def rhs_pieces(cfg, settings, m, ys, cs, ec, out: dict) -> None:
+    """Host-clock and CUDA-event ms of one RHS evaluation and of its
+    pieces: the eager prologue (trg.rhs_prologue) and K8 rhs_tail on its
+    output, with the prologue's own pieces and the plain version of K8."""
     dev = ys.device
     B = ys.shape[0]
-    rhs = _rhs(cfg, settings, m, ec)
+    cache = (trg.build_oneloop_cache(cfg, settings, m, ec)
+             if settings.one_loop else None)
+    rhs = trg.make_rhs(cfg, settings, m, ec, cache)
+    prologue = trg.rhs_prologue(cfg, settings, m, ec, cache)
     y = ys[:, 3].reshape(B, -1).contiguous()
     eta = torch.full((B,), 3.0, dtype=torch.float64, device=dev)
-    k = torch.as_tensor(np.asarray(make_grids(cfg).k), device=dev)
+    args = prologue(eta, y)
     lnP = y.reshape(B, trg.NU_STATE, -1)[:, :3].contiguous()
     P = fastpt.extend_power(cfg, lnP, cs.n_s, ec)
-    Jw, Jlo, PZw = fastpt.compute_J_PZ_windowed(cfg, P, True, ec)
+    a = settings.a_in * torch.exp(eta)
     pieces = {
         "rhs": lambda: rhs(eta, y),
+        "prologue": lambda: prologue(eta, y),
+        "rhs_tail": lambda: rhs_tail.rhs_tail(*args),
+        "rhs_tail_plain": lambda: rhs_tail.rhs_tail_plain(*args),
+        "omega_inputs": lambda: trg.omega_inputs(m, a),
+        "growth_D_f": lambda: model.growth_D_f(m, 1.0 / a - 1.0),
         "extend_power": lambda: fastpt.extend_power(cfg, lnP, cs.n_s, ec),
-        "engine_windowed": lambda: fastpt.compute_J_PZ_windowed(
-            cfg, P, True, ec),
-        "assemble": lambda: assembly.assemble(Jw[:, :7], PZw, Jw[:, 7:],
-                                              Jlo, k, True),
-        "omega": lambda: trg.omega_matrix(cfg, m, 0.005 * torch.exp(eta)),
+        "engine": lambda: fastpt.compute_J_PZ(cfg, P, True, ec),
     }
     out["rhs_ms"] = {name: dict(host_ms=host_ms(fn),
                                 event_ms=chip_smoke.time_ms(fn))

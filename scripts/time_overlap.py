@@ -6,14 +6,16 @@ host-prepare overlap of one checkout against another's inline prepare.
 
 For each round, each ROOT in turn (the order reversed every other round,
 so two roots run A, B, B, A): a fresh python imports that checkout's
-redtime_tpu_torch, builds its kernels, runs one untimed 16-lane full-TRG
-chunk (set-up), then times run_batch at the default placement (prepare on
-the host) over this checkout's chip_smoke bench batch: full TRG in 4
-chunks of 16 and 1-loop (print_bias) in 2 chunks of 32, each with a
-StageTimer (prepare, solve and, where the checkout has it, the overlap's
-stats).  Prints one JSON line per (round, root) and writes them all, with
-the card's name and power limit, to PATH (default
-chiprun_out/time_overlap.json).  Imports nothing of JAX.
+redtime_tpu_torch, builds its kernels, runs one untimed chunk of each
+mode (set-up: a 16-lane full-TRG chunk, a 32-lane 1-loop one), then times
+run_batch at the default placement (prepare on the host): one chunk of
+this checkout's chip_smoke bench batch (full TRG 16 lanes, 1-loop 32)
+and the whole batch of 64 (full TRG in 4 chunks of 16, 1-loop with
+print_bias in 2 chunks of 32), each with a StageTimer (prepare, solve
+and, where the checkout has it, the overlap's stats).  Prints one JSON
+line per (round, root) and writes them all, with the card's name and
+power limit, to PATH (default chiprun_out/time_overlap.json).  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -53,15 +55,17 @@ def time_one(root: str) -> dict:
     full = (SolverConfig(), RunSettings(one_loop=False, z_out=smoke.Z_OUT))
     oneloop = (SolverConfig(print_bias=True),
                RunSettings(one_loop=True, z_out=smoke.Z_OUT_1L))
-    driver.run_batch(*full, *smoke.design_inputs(smoke.N_DESIGN),
-                     device="cuda")
+    for mode, n in ((full, smoke.N_DESIGN), (oneloop, smoke.N_DESIGN_1L)):
+        driver.run_batch(*mode, *smoke.design_inputs(n), device="cuda")
     torch.cuda.synchronize()
     out = dict(root=root)
-    for name, (cfg, settings), n_golden in (
-            ("full_trg_64", full, smoke.N_DESIGN),
-            ("oneloop_64", oneloop, smoke.N_DESIGN_1L)):
-        cs, lins = smoke.design_inputs(smoke.BATCH_BENCH,
-                                       smoke.bench_params(n_golden))
+    for name, (cfg, settings), n_golden, batch in (
+            ("full_trg_16", full, smoke.N_DESIGN, smoke.N_DESIGN),
+            ("full_trg_64", full, smoke.N_DESIGN, smoke.BATCH_BENCH),
+            ("oneloop_32", oneloop, smoke.N_DESIGN_1L, smoke.N_DESIGN_1L),
+            ("oneloop_64", oneloop, smoke.N_DESIGN_1L, smoke.BATCH_BENCH)):
+        cs, lins = smoke.design_inputs(
+            batch, smoke.bench_params(n_golden)[:batch])
         timer = StageTimer(enabled=False)
         t0 = time.perf_counter()
         driver.run_batch(cfg, settings, cs, lins, device="cuda",

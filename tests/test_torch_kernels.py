@@ -1,5 +1,6 @@
 """The hand kernels' wrappers (K1 out_leg, K2 pz_leg, K3 rk_finish, K4
-affine, K5 int8_dot, K6 dd_mul, K7 oz_fused) and chip_smoke.py's inputs.  This file
+affine, K5 int8_dot, K6 dd_mul, K7 oz_fused, K8 rhs_tail) and
+chip_smoke.py's inputs.  This file
 imports no JAX, so its `cuda` tests also run on a GPU machine that has
 none:
 
@@ -11,7 +12,8 @@ each kernel is held to its plain version: K1 and K2 within the f64
 dot-product forward-error bound (they sum in another order), K3
 (rk_finish and rk_stage, which round every operation alone as their plain
 versions do; CUDA's pow is the routine torch.pow runs) and K4-K7 bit for
-bit.
+bit, K8 within 1e-13 of each (lane, row)'s scale (its plain version's
+three small matrix products sum in cuBLAS's order).
 """
 
 import os
@@ -31,6 +33,7 @@ from redtime_tpu_torch import probes
 from redtime_tpu_torch.kernels import out_leg as k1
 from redtime_tpu_torch.kernels import probes as kp
 from redtime_tpu_torch.kernels import pz_leg as k2
+from redtime_tpu_torch.kernels import rhs_tail as k8
 from redtime_tpu_torch.kernels import rk_finish as k3
 
 EPS = np.finfo(np.float64).eps
@@ -929,3 +932,53 @@ def test_cuda_probes_entry_point(cuda_device):
     for p in probes.PROBES:
         assert any(line.startswith(f"{p.__name__}: OK") for line in lines)
     assert any(line.startswith("probe4 in-loop:") for line in lines)
+
+
+def _k8_inputs(rng, B: int, nk: int, dev):
+    """K8's arguments of each mode on generated inputs: y with lnP rows
+    near a spectrum's and small I/Q rows, a NaN last lane."""
+    t = lambda x: torch.as_tensor(x, dtype=torch.float64, device=dev)
+    y = rng.standard_normal((B, 41, nk))
+    y[:, :3] += 6.0
+    y[:, 3:] *= 1e-3
+    y[-1] = np.nan
+    eta = t(rng.uniform(0.5, 4.0, B))
+    k = t(np.geomspace(1e-3, 1.0, nk))
+    om = k8.OmegaIn(t(0.01 * rng.uniform(size=(B, nk))),
+                    t(rng.uniform(0.25, 0.35, B)),
+                    t(rng.uniform(0.95, 1.0, B)), t(rng.uniform(0.5, 2.0, B)),
+                    t(rng.uniform(1.0, 2.0, B)))
+    full = k8.FullSrc(t(rng.standard_normal((B, 14, 3, 3, nk + 1))),
+                      t(rng.standard_normal((B, 7, 3, 3, nk))))
+    pos = lambda: t(rng.uniform(0.5, 1.5, (B, nk)))
+    oneloop = k8.OneLoopSrc(t(rng.standard_normal((B, 14, nk))),
+                            t(rng.standard_normal((B, 3, 8, nk))), pos(),
+                            pos(), pos(), t(rng.uniform(0.0, 3.0, B)))
+    return t(y), eta, k, om, {"full": full, "oneloop": oneloop,
+                              "linear": None}
+
+
+@pytest.mark.cuda
+def test_cuda_rhs_tail_matches_plain(cuda_device):
+    """On the card: K8 against its plain version in each mode, with and
+    without Q, at nk 48 and 128: within 1e-13 of each (lane, row)'s
+    scale, NaN in the same places, the same bits from two calls."""
+    rng = np.random.default_rng(13)
+    for B, nk in ((4, 48), (3, 128)):
+        y, eta, k, om, srcs = _k8_inputs(rng, B, nk, cuda_device)
+        for mode, src in srcs.items():
+            for evolve_q in (True, False):
+                if mode == "full" and not evolve_q:
+                    src = k8.FullSrc(src.Jw[:, :7].contiguous(), src.PZw)
+                args = (y, eta, k, om, src, evolve_q)
+                before = counts.LAUNCHES["rhs_tail"]
+                got, ref = k8.rhs_tail(*args), k8.rhs_tail_plain(*args)
+                assert counts.LAUNCHES["rhs_tail"] == before + 1
+                assert torch.equal(got.isnan(), ref.isnan()), mode
+                fin = torch.isfinite(ref)
+                scale = torch.where(fin, ref.abs(), 0.0).amax(-1, True)
+                dev = torch.where(fin, (got - ref).abs(), 0.0) / (
+                    scale + 1e-300)
+                assert float(dev.max()) <= 1e-13, (mode, evolve_q, B, nk)
+                again = k8.rhs_tail(*args)
+                assert torch.equal(got.nan_to_num(), again.nan_to_num())

@@ -1,0 +1,403 @@
+"""K8 rhs_tail (redtime_tpu_torch/kernels/rhs_tail.py) on the CPU.
+
+  * rhs_tail_plain, fed what make_rhs's prologue builds, against the JAX
+    package's make_rhs on the same state: full Time-RG with and without
+    RSD, 1-loop and linear, within 1e-11 of each (lane, row)'s scale;
+  * a CPU model of the kernel's arithmetic: the A/R program traced from
+    assembly.ar_rows (the kernel's generated code) gives the port's
+    assemble_ar bit for bit and the JAX package's assemble within 1e-13
+    of row scale; with kernel_table's Omega and trace terms, all of dy
+    within 1e-13 of rhs_tail_plain's row scale;
+  * make_rhs on the CPU gives the bits of the eager RHS it replaced (an
+    inline copy of that sequence below);
+  * a NaN lane stays NaN and leaves its neighbour's bits alone;
+  * the wrapper's errors.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_port_util import jax_batch
+from redtime_tpu import assembly as ja
+from redtime_tpu import fastpt as jf
+from redtime_tpu import model as jm
+from redtime_tpu import trg as jt
+from redtime_tpu.config import RunSettings as JSet
+from redtime_tpu.config import SolverConfig as JCfg
+from redtime_tpu_torch import assembly, fastpt, state
+from redtime_tpu_torch import background as bg
+from redtime_tpu_torch import model as mdl
+from redtime_tpu_torch import trg
+from redtime_tpu_torch.config import RunSettings as TSet
+from redtime_tpu_torch.config import SolverConfig as TCfg
+from redtime_tpu_torch.grids import make_grids
+from redtime_tpu_torch.kernels import counts
+from redtime_tpu_torch.kernels import rhs_tail as rt
+
+NK = 32
+Z_OUT = (2.0, 1.0, 0.5, 0.0)
+CASES = {
+    "full_trg": dict(one_loop=False, z_out=Z_OUT),
+    "full_trg_no_rsd": dict(one_loop=False, print_rsd=False, z_out=Z_OUT),
+    "one_loop": dict(one_loop=True, z_out=Z_OUT),
+    "linear": dict(one_loop=False, nonlinear=False, z_out=Z_OUT),
+}
+F64 = torch.float64
+
+
+@functools.lru_cache(maxsize=1)
+def _models():
+    jc = JCfg(nk=NK)
+    cosmos, lins = jax_batch(2, jc)
+    return jax.jit(jax.vmap(lambda c, l: jm.prepare_model(jc, c, l)))(
+        cosmos, lins)
+
+
+def _lane(tree, b):
+    return jax.tree_util.tree_map(lambda x: x[b], tree)
+
+
+def _state(eta=1.3, seed=11):
+    """An evolved-looking state [2, 41*NK]: the initial lnP rows grown by
+    e^eta, nonzero I/Q rows."""
+    jc = JCfg(nk=NK)
+    rng = np.random.default_rng(seed)
+    ys = []
+    for b in range(2):
+        y0 = np.asarray(jt.initial_state(jc, JSet(**CASES["full_trg"]),
+                                         _lane(_models(), b)))
+        y0 = y0.reshape(41, NK).copy()
+        y0[:3] += 2.0 * eta
+        y0[3:] = 1e-3 * np.exp(y0[:1]) * rng.standard_normal((38, NK))
+        ys.append(y0.reshape(-1))
+    return np.stack(ys), eta
+
+
+@functools.lru_cache(maxsize=1)
+def _port_setup():
+    """(cfg, model, engine constants, 1-loop cache) of the port."""
+    tc = TCfg(nk=NK)
+    mt = state.model_from_numpy(_models())
+    ec = fastpt.engine_consts(tc, "cpu")
+    cache = trg.build_oneloop_cache(tc, TSet(**CASES["one_loop"]), mt, ec)
+    return tc, mt, ec, cache
+
+
+def _prologue(case: str, y: torch.Tensor, eta: torch.Tensor):
+    """What make_rhs hands rhs_tail (trg.rhs_prologue)."""
+    tc, mt, ec, cache = _port_setup()
+    s = TSet(**CASES[case])
+    return trg.rhs_prologue(tc, s, mt, ec, cache if s.one_loop else None)(
+        eta, y)
+
+
+def _row_dev(got: np.ndarray, ref: np.ndarray) -> float:
+    """max |got - ref| over each (lane, row)'s max |ref| over k."""
+    scale = np.abs(ref).max(axis=-1, keepdims=True) + 1e-300
+    return float(np.max(np.abs(got - ref) / scale))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_matches_jax_make_rhs(case):
+    ys, eta = _state()
+    etas = torch.full((2,), eta, dtype=F64)
+    got = rt.rhs_tail_plain(*_prologue(case, torch.tensor(ys), etas))
+    assert got.shape == (2, 41, NK)
+    jc = JCfg(nk=NK)
+    ec = jf.engine_consts(jc, "fft")
+    cache = _port_setup()[3]
+    for b in range(2):
+        cj = (jt.OneLoopCache(*[jnp.asarray(x[b].numpy()) for x in cache])
+              if case == "one_loop" else None)
+        rhs_j = jt.make_rhs(jc, JSet(**CASES[case]), _lane(_models(), b), cj,
+                            mode="fft", ec=ec)
+        ref = np.asarray(rhs_j(eta, jnp.asarray(ys[b]))).reshape(41, NK)
+        assert _row_dev(got[b].numpy(), ref) < 1e-11, case
+
+
+# --- a CPU model of the kernel's arithmetic (csrc/rhs_tail.cu)
+
+def _features(Jw, PZw, nk):
+    """The kernel's staged feature rows [B, 9 nfam + 63, nk] and the row
+    of an assembly feature."""
+    B, nfam = Jw.shape[:2]
+    F = torch.cat([Jw[..., :nk].reshape(B, 9 * nfam, nk),
+                   PZw.reshape(B, 63, nk)], dim=1)
+    return F, lambda f: f if f < 126 else f - 126 + 9 * nfam
+
+
+def _run_program(F, row, k, outs):
+    """assembly.ar_program's values `outs`, each operation as torch runs
+    it on the CPU (a division by a constant is x / c there)."""
+    ops = assembly.ar_program().ops
+    vals = []
+    for op, a, b in ops:
+        vals.append(
+            F[:, row(a)] if op == "f" else k if op == "k" else
+            vals[a] + vals[b] if op == "add" else
+            vals[a] - vals[b] if op == "sub" else
+            vals[a] * vals[b] if op == "mul" else
+            vals[a] / vals[b] if op == "div" else
+            vals[a] * b if op == "muls" else
+            vals[a] / b if op == "divs" else
+            vals[a].reciprocal() if op == "recip" else -vals[a])
+    prog = assembly.ar_program()
+    return torch.stack([vals[prog.outs[o]] for o in outs], dim=1)
+
+
+def _kernel_model(y, eta, k, om, src, evolve_q):
+    """dy [B, 41, nk] computed as the kernel computes it (the generated
+    A/R program, kernel_table's Omega and trace terms), in torch on the
+    CPU."""
+    ints, weights = rt.kernel_table()
+    ints, weights = ints.tolist(), torch.as_tensor(weights)
+    B, _, nk = y.shape
+    off_tr, off_term = ints[0], ints[1]
+    e = torch.exp(eta)[:, None]
+    o10 = -1.5 * om.Omega_m[:, None] * (om.f_cb[:, None] + om.beta) \
+        / om.den[:, None]
+    Of = [torch.ones_like(o10), -torch.ones_like(o10), o10,
+          om.o11[:, None].expand_as(o10)]
+    dy = torch.zeros_like(y)
+    nout = 14 + (24 if evolve_q else 0)
+    if isinstance(src, rt.FullSrc):
+        AR = _run_program(*_features(src.Jw, src.PZw, nk), k, range(nout))
+    elif src is not None:
+        fz = src.dDda / (src.D * (1.0 + src.z)[:, None])
+        dr = src.D / src.D_z1l
+        pre = dr ** 4 * torch.exp(-4.0 * eta)[:, None]
+        rows = torch.cat([src.A_u, src.R.reshape(B, 24, nk)], dim=1)
+        AR = torch.stack([pre * fz ** (ints[8 + 3 * o + 2] + 1) * rows[:, o]
+                          for o in range(nout)], dim=1)
+    for o in range(nout if src is not None else 0):
+        w0, w1, _ = ints[8 + 3 * o:8 + 3 * o + 3]
+        t = 0.0
+        for w in range(w0, w1):
+            code = ints[off_term + w]
+            t = t + weights[w] * (Of[code >> 8] * y[:, code & 255])
+        dy[:, 3 + o] = 2.0 * e * AR[:, o] - t
+    P = torch.exp(torch.clamp(y[:, :3], rt.LNP_MIN, rt.LNP_MAX))
+    dP0 = -2.0 * (P[:, 0] - P[:, 1])
+    dP1 = -(P[:, 1] - P[:, 2]) - (o10 * P[:, 0] + Of[3] * P[:, 1])
+    dP2 = -2.0 * (o10 * P[:, 1] + Of[3] * P[:, 2])
+    if src is not None:
+        Is = [sum(weights[t] * y[:, ints[off_term + t]]
+                  for t in range(ints[off_tr + r], ints[off_tr + r + 1]))
+              for r in range(4)]
+        coef = e * 4.0 * np.pi / k
+        dP0 = dP0 + coef * 2.0 * Is[0]
+        dP1 = dP1 + coef * (Is[2] + Is[1])
+        dP2 = dP2 + coef * 2.0 * Is[3]
+    dy[:, 0] = torch.clamp(dP0 / P[:, 0], -1e4, 1e4)
+    dy[:, 1] = torch.clamp(dP1 / P[:, 1], -1e4, 1e4)
+    dy[:, 2] = torch.clamp(dP2 / P[:, 2], -10.0, 10.0)
+    return dy
+
+
+@pytest.mark.parametrize("with_rsd", [True, False], ids=["rsd", "no_rsd"])
+def test_program_matches_assemble(with_rsd):
+    """The traced A/R program, run as torch runs each operation, gives
+    assemble_ar's bits, and the JAX package's assemble within 1e-13 of
+    row scale, on random transforms at nk = 48 (nfam 14, or 7 without
+    RSD, as K1 writes them)."""
+    nk, B = 48, 3
+    rng = np.random.default_rng(5)
+    k = np.geomspace(1e-3, 5.0, nk)
+    nfam = 14 if with_rsd else 7
+    Jw = rng.standard_normal((B, nfam, 3, 3, nk + 1))
+    PZw = rng.standard_normal((B, 7, 3, 3, nk))
+    kt = torch.tensor(k)
+    nout = 14 + (24 if with_rsd else 0)
+    got = _run_program(*_features(torch.tensor(Jw), torch.tensor(PZw), nk),
+                       kt, range(nout))
+    Jn0 = (Jw[:, 7:, ..., :nk] if with_rsd
+           else np.zeros((B, 7, 3, 3, nk)))
+    A, R = assembly.assemble_ar(torch.tensor(Jw[:, :7, ..., :nk]),
+                                torch.tensor(PZw), torch.tensor(Jn0), kt,
+                                with_rsd)
+    ref = torch.cat([A, R.reshape(B, 24, nk)], dim=1)[:, :nout]
+    assert torch.equal(got, ref)
+    for b in range(B):
+        Aj, Rj, _, _ = ja.assemble(jnp.asarray(Jw[b, :7, ..., :nk]),
+                                   jnp.asarray(PZw[b]), jnp.asarray(Jn0[b]),
+                                   jnp.asarray(Jw[b, 0, 0, 0, nk]),
+                                   jnp.asarray(k), with_rsd)
+        refj = np.concatenate([np.asarray(Aj),
+                               np.asarray(Rj).reshape(24, nk)])[:nout]
+        assert _row_dev(got[b].numpy(), refj) < 1e-13
+    if not with_rsd:
+        assert torch.all(R == 0)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_kernel_model_matches_plain(case):
+    """All of dy through the kernel's program (the generated A/R code,
+    the Omega terms, the trace, the fz powers) against rhs_tail_plain."""
+    ys, eta = _state(seed=12)
+    args = _prologue(case, torch.tensor(ys),
+                     torch.tensor([0.4, 2.9], dtype=F64))
+    got, ref = _kernel_model(*args), rt.rhs_tail_plain(*args)
+    assert _row_dev(got.numpy(), ref.numpy()) < 1e-13
+
+
+def test_generated_source():
+    """ar_source: one case an output, one line an operation of its
+    program, each division by a constant as a product with 1/c."""
+    src = rt.ar_source()
+    prog = assembly.ar_program()
+    assert src.count("    case ") == assembly.AR_NOUT == len(prog.outs)
+    assert src.count("const double v") == sum(
+        len(rt._deps(prog.ops, o)) for o in prog.outs)
+    assert any(op[0] == "divs" and op[2] == 6.0 for op in prog.ops)
+    assert "__ddiv_rn(" in src and "__drcp_rn(" in src
+    assert f", {1.0 / 6.0!r})" in src and ", 6.0)" not in src
+
+
+def _old_eager_rhs(cfg, settings, model, ec, cache, eta, yflat):
+    """The eager RHS that K8 replaced, as make_rhs ran it before."""
+    g = make_grids(cfg)
+    nk = g.nk
+    k = torch.as_tensor(g.k, dtype=F64)
+    one_loop = settings.nonlinear and settings.one_loop
+    evolve_q = settings.print_rsd or cfg.print_q
+    nonlinear = settings.nonlinear
+    CI, CQ = (torch.as_tensor(m, dtype=F64) for m in assembly.OMEGA_BILINEAR)
+    TR14 = torch.as_tensor(assembly.OMEGA_MATS[2], dtype=F64)
+    B = yflat.shape[0]
+    y = yflat.reshape(B, 41, nk)
+    a = settings.a_in * torch.exp(eta)
+    c = model.cosmo
+    d = bg.derived(c)
+    beta = mdl.beta_P_solver(model, a)
+    ones = torch.ones((B, nk), dtype=F64)
+    o10 = (-1.5 * c.Omega_m[:, None] * (model.f_cb[:, None] + beta)
+           / (a ** 3 * bg.H2_H02(c, a, d))[:, None])
+    o11 = (3.0 + bg.dlnH_dlna(c, a, d))[:, None] * ones
+    O = torch.stack([torch.stack([ones, -ones], dim=1),
+                     torch.stack([o10, o11], dim=1)], dim=1)
+    e_eta = torch.exp(eta)[:, None]
+    lnP = torch.clamp(y[:, 0:3], -80.0, 20.0)
+    P = torch.exp(lnP)
+    if nonlinear:
+        I14 = y[:, 3:17]
+        if one_loop:
+            A64, R, _, _ = trg.oneloop_rescale(cfg, settings, model, cache,
+                                               eta)
+            A_u = A64[:, assembly.JU]
+        else:
+            A_u, R, _, _ = trg.compute_mode_coupling_full(
+                cfg, lnP, model.cosmo.n_s, evolve_q, k, ec)
+        Of = O.reshape(B, 4, nk)
+    dP0 = -2.0 * (O[:, 0, 0] * P[:, 0] + O[:, 0, 1] * P[:, 1])
+    dP1 = -(O[:, 0, 0] * P[:, 1] + O[:, 0, 1] * P[:, 2]) - \
+        (O[:, 1, 0] * P[:, 0] + O[:, 1, 1] * P[:, 1])
+    dP2 = -2.0 * (O[:, 1, 0] * P[:, 1] + O[:, 1, 1] * P[:, 2])
+    if nonlinear:
+        Isum = (TR14 @ I14).reshape(B, 2, 2, nk)
+        coef = e_eta * 4.0 * np.pi / k
+        dP0 = dP0 + coef * (Isum[:, 0, 0] + Isum[:, 0, 0])
+        dP1 = dP1 + coef * (Isum[:, 1, 0] + Isum[:, 0, 1])
+        dP2 = dP2 + coef * (Isum[:, 1, 1] + Isum[:, 1, 1])
+    dlnP = torch.stack([dP0 / P[:, 0], dP1 / P[:, 1], dP2 / P[:, 2]], dim=1)
+    dlnP = torch.clamp(dlnP, -1e4, 1e4)
+    dlnP = torch.cat([dlnP[:, :2], torch.clamp(dlnP[:, 2:], -10.0, 10.0)],
+                     dim=1)
+    if not nonlinear:
+        return torch.cat([dlnP, dlnP.new_zeros((B, 38, nk))],
+                         dim=1).reshape(B, -1)
+    OI = (Of[:, :, None, :] * I14[:, None, :, :]).reshape(B, 56, nk)
+    dI = 2.0 * e_eta[:, :, None] * A_u - CI @ OI
+    if evolve_q:
+        Q24 = y[:, 17:]
+        OQ = (Of[:, :, None, :] * Q24[:, None, :, :]).reshape(B, 96, nk)
+        dQ = 2.0 * e_eta[:, :, None] * R.reshape(B, 24, nk) - CQ @ OQ
+    else:
+        dQ = dlnP.new_zeros((B, 24, nk))
+    return torch.cat([dlnP, dI, dQ], dim=1).reshape(B, -1)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_make_rhs_keeps_the_eager_bits(case):
+    tc, mt, ec, cache = _port_setup()
+    s = TSet(**CASES[case])
+    ys, _ = _state(seed=13)
+    y = torch.tensor(ys)
+    eta = torch.tensor([0.8, 3.1], dtype=F64)
+    counts.reset()
+    got = trg.make_rhs(tc, s, mt, ec, cache if s.one_loop else None)(eta, y)
+    assert counts.LAUNCHES["rhs_tail"] == 0     # the CPU counts no launch
+    ref = _old_eager_rhs(tc, s, mt, ec, cache, eta, y)
+    assert torch.equal(got, ref), case
+
+
+def test_nan_lane_stays_nan():
+    tc, mt, ec, _ = _port_setup()
+    s = TSet(**CASES["full_trg"])
+    ys, _ = _state(seed=14)
+    y = torch.tensor(ys)
+    eta = torch.tensor([1.1, 1.1], dtype=F64)
+    rhs = trg.make_rhs(tc, s, mt, ec)
+    clean = rhs(eta, y)
+    y[1] = float("nan")
+    got = rhs(eta, y).reshape(2, 41, NK)
+    assert torch.isnan(got[1]).all()
+    assert torch.equal(got[0], clean.reshape(2, 41, NK)[0])
+
+
+def _meta_args(**change):
+    B, nk = 2, 8
+    f = lambda *shape: torch.zeros(shape, dtype=F64, device="meta")
+    args = dict(y=f(B, 41, nk), eta=f(B), k=f(nk),
+                om=rt.OmegaIn(f(B, nk), f(B), f(B), f(B), f(B)),
+                src=rt.FullSrc(f(B, 14, 3, 3, nk + 1), f(B, 7, 3, 3, nk)),
+                evolve_q=True)
+    args.update(change)
+    return args
+
+
+def test_wrapper_errors():
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        rt.rhs_tail(**_meta_args())
+    f = lambda *shape: torch.zeros(shape, dtype=F64, device="meta")
+    with pytest.raises(TypeError, match="float64"):
+        rt.rhs_tail(**_meta_args(eta=torch.zeros(2, dtype=torch.float32,
+                                                 device="meta")))
+    with pytest.raises(ValueError, match="y must be"):
+        rt.rhs_tail(**_meta_args(y=f(2, 40, 8)))
+    with pytest.raises(ValueError, match="Jw must be"):
+        rt.rhs_tail(**_meta_args(src=rt.FullSrc(f(2, 9, 3, 3, 9),
+                                                f(2, 7, 3, 3, 8))))
+    with pytest.raises(ValueError, match="14 families"):
+        rt.rhs_tail(**_meta_args(src=rt.FullSrc(f(2, 7, 3, 3, 9),
+                                                f(2, 7, 3, 3, 8))))
+    with pytest.raises(ValueError, match="beta must be"):
+        rt.rhs_tail(**_meta_args(om=rt.OmegaIn(f(2, 9), f(2), f(2), f(2),
+                                               f(2))))
+    with pytest.raises(TypeError, match="FullSrc"):
+        rt.rhs_tail(**_meta_args(src=(f(2, 14, 3, 3, 9),)))
+    with pytest.raises(ValueError, match="different devices"):
+        rt.rhs_tail(**_meta_args(eta=torch.zeros(2, dtype=F64)))
+
+
+def test_omega_scalars_keep_the_bits():
+    """bg.omega_scalars equals a^3 H2_H02 and 3 + dlnH_dlna bit for bit,
+    on both sides of each lane's a_nu, and omega_matrix is built from it."""
+    mt = _port_setup()[1]
+    c = mt.cosmo
+    d = bg.derived(c)
+    for a in (0.004, 0.05, 0.3, 1.0):
+        a = torch.full((2,), a, dtype=F64) * torch.tensor([1.0, 1.7],
+                                                          dtype=F64)
+        den, o11 = bg.omega_scalars(a, bg.omega_consts(c, d))
+        assert torch.equal(den, a ** 3 * bg.H2_H02(c, a, d))
+        assert torch.equal(o11, 3.0 + bg.dlnH_dlna(c, a, d))
+    a = torch.tensor([1e-9, 2e-8], dtype=F64)          # before a_nu
+    assert bool((a < d.a_nu).all() | (d.f_nu == 0).all())
+    den, o11 = bg.omega_scalars(a, bg.omega_consts(c))
+    assert torch.equal(den, a ** 3 * bg.H2_H02(c, a, d))
+    assert torch.equal(o11, 3.0 + bg.dlnH_dlna(c, a, d))
