@@ -34,8 +34,10 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
      full TRG with and without RSD, 1-loop and linear, with a NaN lane
      and a frozen lane: within 1e-11 of each (lane, row)'s scale of its
      plain version, NaN and inf in the same places, two calls the same
-     bits; timed (full TRG 16 lanes, 1-loop 32) with its bound and the
-     launch floor, with the device kernels of one RHS evaluation
+     bits; its registers and spills (ptxas); its device time at every (nk, lanes, mode) the
+     paths run it at (RT_TIMED) with its bound and the launch floor, and
+     at full TRG 16 lanes and 1-loop 32 also eager and against its plain
+     version, with the device kernels of one RHS evaluation
      (torch.profiler; at most 250 full TRG, 150 1-loop) and its host ms;
   4. checks the probe kernels K4 affine, K5 int8_dot and K6 dd_mul
      against their plain versions on the card, bit for bit, at the
@@ -881,6 +883,10 @@ RT_MODES = {"full": dict(one_loop=False),
             "linear": dict(one_loop=False, nonlinear=False)}
 RT_BOUND = 1e-11
 RHS_KERNELS_MAX = {"full": 250, "oneloop": 150}
+# the (nk, lanes, mode) at which the paths run K8, timed on the device
+RT_TIMED = ((128, 16, "full"), (128, 64, "full"), (128, 8, "full"),
+            (48, 2, "full"), (128, 32, "oneloop"), (512, 2, "oneloop"),
+            (256, 2, "oneloop"))
 
 
 def rt_config(nk: int):
@@ -924,21 +930,28 @@ def rt_dev(got, ref) -> float:
 
 
 def rt_cost(args) -> dict:
-    """least_time of one rhs_tail: each input read once (Jw as K1 wrote
-    it), dy written once; the operations the kernel does a k point."""
-    from redtime_tpu_torch import assembly
+    """least_time of one rhs_tail: read once, each row of y, Jw, PZw, A_u
+    and R that the variant's work items read (rhs_tail.item_rows: the A/R
+    program reads 102 of full TRG's 189 feature rows; no column of Jw past
+    nk), beta and k, in 1-loop mode D, dD/da and D_z1l, and the lane
+    scalars; dy written once; the distinct operations a k point."""
     from redtime_tpu_torch.kernels import rhs_tail as rt
 
     y, eta, k, om, src, evolve_q = args
     B, _, nk = y.shape
-    ins = [y, eta, k, *om, *([] if src is None else src)]
-    nbytes = 8.0 * (sum(x.numel() for x in ins) + y.numel())
+    var = rt.variant(rt.mode_of(src), evolve_q)
+    rows = set().union(*(rt.item_rows(var, it) for it in rt.items(var)))
+    oneloop = isinstance(src, rt.OneLoopSrc)
+    per_point = len(rows) + 1 + 3 * oneloop + rt.NU_STATE
+    per_lane = len(om) - 1 + 1 + oneloop                  # eta, z
+    nbytes = 8.0 * (B * nk * per_point + B * per_lane
+                    + nk * (src is not None))
     nout = 0 if src is None else 14 + (24 if evolve_q else 0)
-    ints, _ = rt.kernel_table()
-    omega = int(ints[8 + 3 * nout - 2]) if nout else 0   # Omega terms
+    omega = sum(len(t) for t in rt.kernel_table()[0][:nout])
     if isinstance(src, rt.FullSrc):
-        prog = assembly.ar_program()
-        ops_pt = sum(len(rt._deps(prog.ops, o)) for o in prog.outs[:nout])
+        ops, vals = rt._ar()
+        ops_pt = sum(ops[i][0] not in ("f", "k")
+                     for i in set().union(*vals[:nout]))
     else:
         ops_pt = 12 + 3 * nout
     ops_pt += 2 * omega + 40                       # Omega terms, dlnP
@@ -968,11 +981,13 @@ def check_rhs_tail(rng, detail: dict) -> dict:
     trg.rhs_prologue builds from design models and generated states, at
     every (nk, lanes) of RT_SHAPES in every mode of RT_MODES: within
     RT_BOUND of each (lane, row)'s scale, NaN and inf in the same places
-    (a NaN lane, a frozen lane), two calls the same bits.  Times it
-    (full TRG at 16 lanes, 1-loop at 32) with its bound, the launch floor
-    beside; counts the device kernels of one full-TRG and one 1-loop RHS
-    evaluation and times the evaluation on the host clock.  Returns the
-    kernels' line row."""
+    (a NaN lane, a frozen lane), two calls the same bits.  Times it at RT_TIMED on the device (20 calls in
+    a CUDA graph, 3 readings) with its bound and the launch floor beside,
+    and at full TRG 16 lanes and 1-loop 32 also eager and against its
+    plain version; prints its registers and spills (ptxas); counts the
+    device kernels of one full-TRG and one 1-loop RHS evaluation and
+    times the evaluation on the host clock.  Returns the kernels' line
+    row."""
     import torch
 
     from redtime_tpu_torch import driver, fastpt, trg
@@ -982,9 +997,16 @@ def check_rhs_tail(rng, detail: dict) -> dict:
     from redtime_tpu_torch.kernels import rhs_tail as rt
 
     dev = torch.device("cuda")
+    log = build.BUILD_LOG.get("output", "")
+    ptxas = {v: ptxas_of(log, f"rhs_tail_kernelILi{i}E")
+             for i, v in enumerate(rt.VARIANTS)}
+    print(f"rhs_tail ptxas: {ptxas}")
+    stream = torch.cuda.current_stream
+    floor = graph_ms(lambda: build.check(
+        build.lib().rt_launch_floor(stream().cuda_stream), "launch_floor"))
     cs, lins = design_inputs(2)
     chunk = ([x.numpy() for x in cs], list(lins), None)
-    cases, timed, max_err = [], {}, 0.0
+    cases, timed, by_shape, max_err = [], {}, [], 0.0
     for nk, B in RT_SHAPES:
         cfg = rt_config(nk)
         m2 = driver._prepare(cfg, chunk, dev, True)
@@ -999,6 +1021,8 @@ def check_rhs_tail(rng, detail: dict) -> dict:
             got = rt.rhs_tail(*args)
             ref = rt.rhs_tail_plain(*args)
             what = f"rhs_tail {mode} nk={nk} B={B}"
+            var = rt.variant(rt.mode_of(args[4]), args[5])
+            plan = rt.launch_plan(var, nk, B)
             check(same_bits(got, rt.rhs_tail(*args)),
                   f"{what}: two calls on the same inputs differ")
             check(bool(torch.equal(got.isnan(), ref.isnan())
@@ -1010,7 +1034,7 @@ def check_rhs_tail(rng, detail: dict) -> dict:
             fin = torch.isfinite(ref)
             case = dict(mode=mode, nk=nk, B=B, dev_row_scale=err,
                         bit_equal_share=float((got == ref)[fin].double()
-                                              .mean()))
+                                              .mean()), **plan)
             check(err <= RT_BOUND, f"{what}: {err:.3g} of row scale from "
                                    f"plain (bound {RT_BOUND:g})")
             max_err = max(max_err, float(torch.where(
@@ -1019,6 +1043,19 @@ def check_rhs_tail(rng, detail: dict) -> dict:
             print(f"{what}: {err:.3g} of row scale from plain, "
                   f"{case['bit_equal_share']:.4f} of the finite elements "
                   "bit-equal")
+            if (nk, B, mode) in RT_TIMED:
+                runs = [graph_ms(lambda: rt.rhs_tail(*args))
+                        for _ in range(3)]
+                row = dict(nk=nk, B=B, mode=mode, device_ms=float(
+                    np.median(runs)), device_runs=runs, **plan,
+                    **rt_cost(args))
+                by_shape.append(row)
+                print(f"rhs_tail timed {mode} nk={nk} B={B}: "
+                      f"{row['device_ms']:.5f} ms device ({plan['tasks']} "
+                      f"tasks, {plan['blocks']} blocks of "
+                      f"{plan['threads']} threads); bound "
+                      f"{row['bound_ms']:.5f} ms by {row['bound_by']}, "
+                      f"launch floor {floor:.5f} ms")
             if (nk, B, mode) in ((128, 16, "full"), (128, 32, "oneloop")):
                 t, runs = measure(lambda: rt.rhs_tail(*args),
                                   lambda: rt.rhs_tail_plain(*args))
@@ -1041,10 +1078,8 @@ def check_rhs_tail(rng, detail: dict) -> dict:
                       f"{timed[key]['bound_by']}; one RHS evaluation "
                       f"{n_kernels} device kernels, {busy:.4f} ms busy, "
                       f"{host:.3f} ms host")
-    stream = torch.cuda.current_stream
-    floor = graph_ms(lambda: build.check(
-        build.lib().rt_launch_floor(stream().cuda_stream), "launch_floor"))
-    detail["rhs_tail_cases"] = cases
+    detail.update(rhs_tail_cases=cases, rhs_tail_by_shape=by_shape,
+                  rhs_tail_ptxas=ptxas)
     full = timed["full"]
     return dict(
         name="rhs_tail", route="cuda",
@@ -1054,7 +1089,8 @@ def check_rhs_tail(rng, detail: dict) -> dict:
                       "(oneloop_rescale), redtime_tpu/assembly.py:172 (A/R)",
         max_abs_err=max_err,
         max_dev_row_scale=max(c["dev_row_scale"] for c in cases),
-        launch_floor_ms=floor, oneloop=timed["oneloop"],
+        launch_floor_ms=floor, oneloop=timed["oneloop"], by_shape=by_shape,
+        ptxas=ptxas,
         **{k: full[k] for k in ("ms", "device_ms", "plain_ms",
                                 "plain_device_ms", "library_ms", "bound_ms",
                                 "bound_by", "bound_bytes", "bound_ops",

@@ -14,54 +14,104 @@
 // Replaces the JAX package's jitted RHS, one XLA fusion on the TPU with no
 // Pallas kernel: redtime_tpu/trg.py:178-254 (make_rhs's rhs), :84-98
 // (omega_matrix), :136-159 (oneloop_rescale) and the A/R part of
-// redtime_tpu/assembly.py:172-524.  In the eager port the same work was
-// ~1,700 launches of elementwise kernels an evaluation.
+// redtime_tpu/assembly.py:172-524.
 //
-// The A/R code is generated from the port's assembly (rhs_tail_ar.cuh,
-// written at build time by kernels/rhs_tail.py ar_source from a trace of
-// assembly.ar_rows): the plain version's operations in its order, each
-// one IEEE operation, so that the assembly's cancellation (A and R are
-// small differences of terms up to ~1e4 times larger) rounds as in the
-// plain version.  A division by a constant is x * (1/c), as torch's CUDA
-// kernels divide by a scalar.  The Omega terms (CI, CQ) and
-// dlnP's I coupling (TR14) are a table (kernels/rhs_tail.py
-// kernel_table), uniform across a warp.
+// The work items and their code are generated (rhs_tail_ar.cuh, written
+// at build time by kernels/rhs_tail.py ar_source), one instantiation of
+// the kernel a variant (the mode, and whether Q evolves).  A work item is
+// a few output rows of dI / dQ (in full TRG their A/R program, traced from
+// assembly.ar_rows, each operation one IEEE operation in traced order, so
+// that the assembly's cancellation -- A and R are small differences of
+// terms up to ~1e4 larger -- rounds as in the plain version; a division
+// by a constant is x * (1/c), as torch's CUDA kernels divide by a
+// scalar), or dlnP, or the variant's zero rows.  A task is one item at
+// KT = 32 k points of one lane, on one warp; tasks are numbered
+// item-major and a block takes 1-8 consecutive ones.
 //
-// Bound on the card: bytes.  Full TRG at 16 lanes and nk = 128 reads Jw
-// (2.08 MB), PZw (1.03 MB) and y (0.67 MB) and writes dy (0.67 MB):
-// 1.33 us at 3.35 TB/s; the arithmetic (~1,000 f64 operations a k point)
-// is 2 MFLOP.  So a block stages all it reads for 32 k points of one
-// lane (y, the features or the 1-loop cache's rows) and the table into
-// shared memory with coalesced loads, a warp's loads in flight together,
-// then eight warps work through the 38 outputs (a warp an output and 32
-// k points at a time) out of shared memory, and each output row is
-// written once, coalesced.
+// What bounds it on the card (NVIDIA H100 80GB HBM3, 700 W; device times
+// in a CUDA graph, scripts/time_rhs_tail.py).  Full TRG at 16 lanes and
+// nk = 128 must move 3.03 MB (0.91 us at 3.35 TB/s: the 143 rows its
+// items read, dy, the scalars) and do ~3.5 MFLOP of f64 (0.10 us), yet
+// the kernel's first design (a block of 8 warps a lane and 32 k points,
+// each warp 4-5 outputs in turn, dlnP on the last) took 11.6 us.  A second filled the card (8 blocks of 5 warps a lane and
+// tile, one output a warp, each block staging its rows in shared memory)
+// and took 9.1 us: with parts taken out, the outputs' code cost 4.7 us
+// of it, as much again when run twice, and 3.7 us less when every block
+// ran one group's five outputs.  The warps an SM held ran ~20 outputs'
+// different straight-line code (8,100 instructions in all), and fetching
+// it, not the loads or the f64 pipe, set the pace.  So in this design:
+//   * the warps an SM holds run one or two items' code: tasks go to
+//     blocks item-major, so a block's warps run one item on neighbouring
+//     lanes and tiles, and blocks fill the card (at least 264 where the
+//     tasks allow: 320 blocks of 2 warps in full TRG at 16 lanes; the
+//     wrapper passes the launch, rhs_tail.launch_plan);
+//   * a warp loads each row its item reads (features, cache rows, state
+//     rows) straight into registers, one coalesced 256-byte load a row,
+//     all issued before the arithmetic: no shared memory, no barrier;
+//     nothing is loaded that the item does not read;
+//   * outputs that share rows share an item, up to ~260 operations in
+//     full TRG (10 items, 322 rows a (lane, tile) against 230 staged by
+//     the first design, 87 of them never read) and ~120 in 1-loop mode
+//     (6 items);
+//   * a warp computes the scalars its item reads (k, o10, e^eta, o11;
+//     in 1-loop mode pre fz^n) once, with the plain version's operations
+//     in its order;
+//   * there is no table: the Omega and trace weights are constants in the
+//     generated code.
+// What is left is latency: a launch whose tasks each store one row of
+// zeros takes 1.5-1.8 us, the kernel 3.2 us on the smallest shapes and
+// 3.45 us at full TRG 16 lanes; taking out the row loads, the scalars or
+// the outputs saves 0.3-0.6 us each.
+//
+// No tensor cores and no TMA: an Omega term is at most 5 products a k
+// point, each with a per-k factor, so there is no GEMM shape; a row is
+// 32-512 points (0.25-4 KB), which coalesced __ldg serves.
 //
 // Semantics kept from the plain version: the clamps are compare-and-select
 // (a NaN stays NaN, where fmin/fmax would drop it); divisions are IEEE
 // (no fast math); Omega, dlnP, the 1-loop rescale and the assembly are
-// written with __dmul_rn / __dadd_rn in the plain version's order.  The
-// plain version's matrix products (TR14 @ I, CI @ (Of x I), CQ @
-// (Of x Q)) sum in cuBLAS's order, the kernel in the table's, so dlnP, dI
-// and dQ differ from it by that rounding.
+// written with __dmul_rn / __dadd_rn in the plain version's order; the
+// Omega and trace sums are plain `t += w * x` in the table's column order
+// (nvcc contracts them to fma), which gives cuBLAS's bits for the plain
+// version's matrix products on the card.
+//
+// Built with -DRT_DROP=<bits> (scripts/time_rhs_tail.py), a part is taken
+// out for timing: 1 the row loads (rows from the thread's index), 2 the
+// dI / dQ outputs, 4 dlnP, 8 the scalars (from the thread's index), 16
+// every task runs item 0 (one item's code on the whole card), 32 every
+// task stores one row of zeros and nothing else.
 #include <cuda_runtime.h>
+
+#include <cstddef>
+
+#ifndef RT_DROP
+#define RT_DROP 0
+#endif
 
 namespace {
 
-constexpr int KT = 32;                 // k points a block (a warp's lanes)
-constexpr int WARPS = 8;
-constexpr int THREADS = 32 * WARPS;
-constexpr int UNROLL = 16;             // staged rows a warp has in flight
-constexpr int NUP = 3, NUI = 14, NUQ = 24, NU = NUP + NUI + NUQ;
-constexpr int HDR = 8, OUT_WORDS = 3;  // table header; words an output
-constexpr int MAX_ROWS = NU + 14 * 9 + 7 * 9;
-constexpr int MAX_TABLE = 4096;        // bytes of the table's words, weights
-constexpr int MAX_SMEM = MAX_ROWS * KT * 8 + MAX_TABLE;
+constexpr int KT = 32;                 // k points a task (a warp's lanes)
+constexpr int NU = 41;                 // state rows
 constexpr double LNP_MIN = -80.0, LNP_MAX = 20.0;
 constexpr double DLNP_GUARD = 1e4, DLNP11_GUARD = 10.0;
 constexpr double PI = 3.141592653589793;   // np.pi
 
-enum Mode { LINEAR = 0, FULL = 1, ONE_LOOP = 2 };
+struct Args {
+  const double *y, *eta, *k, *beta, *Om, *fcb, *den, *o11;
+  const double *s0, *s1, *s2, *s3, *s4, *s5;
+  double* dy;
+  int B, nk, nfam, pitch;
+};
+
+// One thread's view: its lane's rows at its k point
+struct Ctx {
+  const double *Y, *JW, *PZ, *AU, *RR;   // row 0 of y, Jw, PZw, A_u, R
+  double* out;                           // dy's row 0
+  const double *eta, *kgrid, *beta, *Om, *fcb, *den, *o11;
+  const double *D, *dDda, *Dz1l, *z;
+  int b, kk, nk, pitch;
+  bool valid;
+};
 
 // torch.clamp's rule: a NaN stays NaN
 __device__ __forceinline__ double clampn(double x, double lo, double hi) {
@@ -69,131 +119,53 @@ __device__ __forceinline__ double clampn(double x, double lo, double hi) {
   return x > hi ? hi : x;
 }
 
-#include "rhs_tail_ar.cuh"   // ar_out(o, f, nj, k)
-
-// rows of y, features or cache rows a block stages
-__host__ __device__ __forceinline__ int staged_rows(int mode, int evolve_q,
-                                                    int nj) {
-  return NU + (mode == FULL ? nj + 63
-               : mode == ONE_LOOP ? NUI + (evolve_q ? NUQ : 0) : 0);
+__device__ __forceinline__ void store(const Ctx& c, int row, double v) {
+  if (c.valid) c.out[(size_t)row * c.nk] = v;
 }
 
-__device__ __forceinline__ double pick4(int i, double a, double b, double c,
-                                        double d) {
-  return i == 0 ? a : i == 1 ? b : i == 2 ? c : d;
+// The scalars, as the plain version computes them: k and o10 at the
+// thread's point, e^eta and o11 of its lane; in 1-loop mode pre and fz
+// (trg.oneloop_rescale: pre = dr^4 e^(-4 eta), dr = D / D_z1l,
+// fz = dD/da / (D (1 + z))).
+__device__ __forceinline__ size_t at(const Ctx& c) {
+  return (size_t)c.b * c.nk + (c.valid ? c.kk : 0);
+}
+__device__ __forceinline__ double k_at(const Ctx& c) {
+  return c.valid ? __ldg(c.kgrid + c.kk) : 1.0;
+}
+__device__ __forceinline__ double lane_e(const Ctx& c) {
+  return exp(__ldg(c.eta + c.b));
+}
+__device__ __forceinline__ double lane_o11(const Ctx& c) {
+  return __ldg(c.o11 + c.b);
+}
+__device__ __forceinline__ double o10_at(const Ctx& c) {
+  return __ddiv_rn(__dmul_rn(__dmul_rn(-1.5, __ldg(c.Om + c.b)),
+                             __dadd_rn(__ldg(c.fcb + c.b),
+                                       __ldg(c.beta + at(c)))),
+                   __ldg(c.den + c.b));
+}
+__device__ __forceinline__ double fz_at(const Ctx& c) {
+  return __ddiv_rn(__ldg(c.dDda + at(c)),
+                   __dmul_rn(__ldg(c.D + at(c)),
+                             __dadd_rn(1.0, __ldg(c.z + c.b))));
+}
+__device__ __forceinline__ double pre_at(const Ctx& c) {
+  const double dr = __ddiv_rn(__ldg(c.D + at(c)), __ldg(c.Dz1l + at(c)));
+  const double dr2 = __dmul_rn(dr, dr);
+  return __dmul_rn(__dmul_rn(dr2, dr2),
+                   exp(__dmul_rn(-4.0, __ldg(c.eta + c.b))));
 }
 
-__global__ void __launch_bounds__(THREADS) rhs_tail_kernel(
-    const double* __restrict__ y, const double* __restrict__ eta,
-    const double* __restrict__ kgrid, const double* __restrict__ beta,
-    const double* __restrict__ Om, const double* __restrict__ fcb,
-    const double* __restrict__ den, const double* __restrict__ o11v,
-    const double* __restrict__ s0, const double* __restrict__ s1,
-    const double* __restrict__ s2, const double* __restrict__ s3,
-    const double* __restrict__ s4, const double* __restrict__ s5,
-    const int* __restrict__ tab, const double* __restrict__ wt,
-    double* __restrict__ dy, int nk, int mode, int evolve_q, int nfam,
-    int pitch, int nw, int nint) {
-  // [rows][KT]: y's 41 rows, then the features (full TRG) or the cache's
-  // rows (1-loop); then the table's weights and words
-  extern __shared__ double sm[];
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int kk = blockIdx.x * KT + lane;
-  const bool valid = kk < nk;
-  const int nj = 9 * nfam;         // Jw rows staged (J, then Jn0)
-
-  // --- stage, for this block's k points, y and, in full TRG, the
-  // features (J, Jn0 as K1 wrote them, then PZ), in 1-loop mode the
-  // cache's A_u and R rows; then the table.  A warp's rows are
-  // r = warp + 8 i, up to UNROLL of them loaded before any is stored, so
-  // their loads are in flight together.
-  const int rows = staged_rows(mode, evolve_q, nj);
-  for (int r0 = warp; r0 < rows; r0 += WARPS * UNROLL) {
-    double v[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int r = r0 + u * WARPS, q = r - NU;
-      const double* p =
-          r < NU ? y + ((size_t)b * NU + r) * nk
-          : mode == FULL
-              ? (q < nj ? s0 + ((size_t)b * nj + q) * pitch
-                        : s1 + ((size_t)b * 63 + (q - nj)) * nk)
-              : (q < NUI ? s0 + ((size_t)b * NUI + q) * nk
-                         : s1 + ((size_t)b * NUQ + (q - NUI)) * nk);
-      v[u] = valid && r < rows ? __ldg(p + kk) : 0.0;
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int r = r0 + u * WARPS;
-      if (r < rows) sm[r * KT + lane] = v[u];
-    }
-  }
-  double* swt = sm + rows * KT;
-  int* stab = reinterpret_cast<int*>(swt + nw);
-  for (int i = threadIdx.x; i < nw; i += THREADS) swt[i] = wt[i];
-  for (int i = threadIdx.x; i < nint; i += THREADS) stab[i] = tab[i];
-  __syncthreads();
-  const int* T = stab;      // the table, from here on in shared memory
-  const double* W = swt;
-  if (!valid) return;   // no barrier follows
-  const double* sy = sm;
-  const double* sf = sm + NU * KT;
-
-  // --- Omega: Of = (1, -1, o10, o11)
-  const double e = exp(eta[b]);
-  const double kv = kgrid[kk];
-  const double o10 = __ddiv_rn(
-      __dmul_rn(__dmul_rn(-1.5, Om[b]),
-                __dadd_rn(fcb[b], beta[(size_t)b * nk + kk])),
-      den[b]);
-  const double o11 = o11v[b];
-  const int off_tr = T[0], off_term = T[1];
-  const int* term = T + off_term;
-
-  // --- 1-loop: pre fz^n (trg.oneloop_rescale)
-  double pre = 0.0, fz = 0.0, f2 = 0.0;
-  if (mode == ONE_LOOP) {
-    const size_t i = (size_t)b * nk + kk;
-    const double D = s2[i];
-    fz = __ddiv_rn(s3[i], __dmul_rn(D, __dadd_rn(1.0, s5[b])));
-    const double dr = __ddiv_rn(D, s4[i]);
-    const double dr2 = __dmul_rn(dr, dr);
-    pre = __dmul_rn(__dmul_rn(dr2, dr2), exp(__dmul_rn(-4.0, eta[b])));
-    f2 = __dmul_rn(fz, fz);
-  }
-
-  // --- dI, dQ: a warp an output row
-  const int nout = mode == LINEAR ? 0 : NUI + (evolve_q ? NUQ : 0);
-  for (int o = warp; o < NUI + NUQ; o += WARPS) {
-    double d = 0.0;
-    if (o < nout) {
-      const int* h = T + HDR + o * OUT_WORDS;
-      double src;
-      if (mode == FULL) {
-        src = ar_out(o, sf + lane, nj, kv);
-      } else {
-        const double c = sf[o * KT + lane];
-        const double fp = pick4(h[2], fz, f2, __dmul_rn(f2, fz),
-                                __dmul_rn(f2, f2));
-        src = __dmul_rn(__dmul_rn(pre, fp), c);
-      }
-      double t = 0.0;
-      for (int w = h[0]; w < h[1]; ++w) {
-        const int code = term[w];
-        const double Of = pick4(code >> 8, 1.0, -1.0, o10, o11);
-        t += W[w] * __dmul_rn(Of, sy[(code & 255) * KT + lane]);
-      }
-      d = __dsub_rn(__dmul_rn(__dmul_rn(2.0, e), src), t);
-    }
-    dy[((size_t)b * NU + NUP + o) * nk + kk] = d;
-  }
-
-  // --- dlnP (the last warp, which has the fewest output rows)
-  if (warp != WARPS - 1) return;
-  const double P0 = exp(clampn(sy[0 * KT + lane], LNP_MIN, LNP_MAX));
-  const double P1 = exp(clampn(sy[1 * KT + lane], LNP_MIN, LNP_MAX));
-  const double P2 = exp(clampn(sy[2 * KT + lane], LNP_MIN, LNP_MAX));
+// dlnP from lnP (y0-2) and, nonlinear, Isum's rows (i0-3)
+__device__ __forceinline__ void dlnp(const Ctx& c, double y0, double y1,
+                                     double y2, bool nonlinear, double i0,
+                                     double i1, double i2, double i3,
+                                     double e, double k, double o10,
+                                     double o11) {
+  const double P0 = exp(clampn(y0, LNP_MIN, LNP_MAX));
+  const double P1 = exp(clampn(y1, LNP_MIN, LNP_MAX));
+  const double P2 = exp(clampn(y2, LNP_MIN, LNP_MAX));
   // O00 = 1, O01 = -1, as the plain version multiplies them
   double dP0 = __dmul_rn(-2.0, __dadd_rn(__dmul_rn(1.0, P0),
                                          __dmul_rn(-1.0, P1)));
@@ -202,61 +174,154 @@ __global__ void __launch_bounds__(THREADS) rhs_tail_kernel(
       __dadd_rn(__dmul_rn(o10, P0), __dmul_rn(o11, P1)));
   double dP2 = __dmul_rn(-2.0, __dadd_rn(__dmul_rn(o10, P1),
                                          __dmul_rn(o11, P2)));
-  if (mode != LINEAR) {
-    double Is[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      double s = 0.0;
-      for (int t = T[off_tr + r]; t < T[off_tr + r + 1]; ++t)
-        s += W[t] * sy[term[t] * KT + lane];
-      Is[r] = s;
-    }
-    const double coef = __ddiv_rn(__dmul_rn(__dmul_rn(e, 4.0), PI), kv);
-    dP0 = __dadd_rn(dP0, __dmul_rn(coef, __dadd_rn(Is[0], Is[0])));
-    dP1 = __dadd_rn(dP1, __dmul_rn(coef, __dadd_rn(Is[2], Is[1])));
-    dP2 = __dadd_rn(dP2, __dmul_rn(coef, __dadd_rn(Is[3], Is[3])));
+  if (nonlinear) {
+    const double coef = __ddiv_rn(__dmul_rn(__dmul_rn(e, 4.0), PI), k);
+    dP0 = __dadd_rn(dP0, __dmul_rn(coef, __dadd_rn(i0, i0)));
+    dP1 = __dadd_rn(dP1, __dmul_rn(coef, __dadd_rn(i2, i1)));
+    dP2 = __dadd_rn(dP2, __dmul_rn(coef, __dadd_rn(i3, i3)));
   }
-  double* out = dy + (size_t)b * NU * nk + kk;
-  out[0] = clampn(__ddiv_rn(dP0, P0), -DLNP_GUARD, DLNP_GUARD);
-  out[nk] = clampn(__ddiv_rn(dP1, P1), -DLNP_GUARD, DLNP_GUARD);
-  out[2 * nk] = clampn(clampn(__ddiv_rn(dP2, P2), -DLNP_GUARD, DLNP_GUARD),
-                       -DLNP11_GUARD, DLNP11_GUARD);
+  store(c, 0, clampn(__ddiv_rn(dP0, P0), -DLNP_GUARD, DLNP_GUARD));
+  store(c, 1, clampn(__ddiv_rn(dP1, P1), -DLNP_GUARD, DLNP_GUARD));
+  store(c, 2, clampn(clampn(__ddiv_rn(dP2, P2), -DLNP_GUARD, DLNP_GUARD),
+                     -DLNP11_GUARD, DLNP11_GUARD));
+}
+
+// The generated code's vocabulary (kernels/rhs_tail.py ar_source)
+#if RT_DROP & 1
+#define LD_(p, pitch, r) ((double)(c.kk + (r) + 1))
+#else
+#define LD_(p, pitch, r) \
+  (c.valid ? __ldg(c.p + (size_t)(r) * (size_t)(pitch)) : 0.0)
+#endif
+#define LD_Y(r) LD_(Y, c.nk, r)
+#define LD_JW(r) LD_(JW, c.pitch, r)
+#define LD_PZ(r) LD_(PZ, c.nk, r)
+#define LD_AU(r) LD_(AU, c.nk, r)
+#define LD_R(r) LD_(RR, c.nk, r)
+#if RT_DROP & 8
+#define K_AT() ((double)(c.kk + 2))
+#define LANE_E() ((double)(c.b + 3))
+#define LANE_O11() ((double)(c.b + 4))
+#define O10_AT() ((double)(c.kk + 5))
+#define FZ_AT() ((double)(c.kk + 6))
+#define PRE_AT() ((double)(c.kk + 7))
+#else
+#define K_AT() k_at(c)
+#define LANE_E() lane_e(c)
+#define LANE_O11() lane_o11(c)
+#define O10_AT() o10_at(c)
+#define FZ_AT() fz_at(c)
+#define PRE_AT() pre_at(c)
+#endif
+#define DIVC_(x, d) __dmul_rn((x), 1.0 / (d))
+#define ZERO_(r) store(c, (r), 0.0)
+#if RT_DROP & 2
+#define OUT_(r, v) ((void)0)
+#else
+#define OUT_(r, v) store(c, (r), (v))
+#endif
+#if RT_DROP & 4
+#define DLNP_(y0, y1, y2, i0, i1, i2, i3) ((void)0)
+#define DLNP_LINEAR_(y0, y1, y2) ((void)0)
+#else
+#define DLNP_(y0, y1, y2, i0, i1, i2, i3) \
+  dlnp(c, (y0), (y1), (y2), true, (i0), (i1), (i2), (i3), E_, K_, O10_, O11_)
+#define DLNP_LINEAR_(y0, y1, y2) \
+  dlnp(c, (y0), (y1), (y2), false, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0, O10_, O11_)
+#endif
+
+template <int V>
+struct Sched;
+
+#include "rhs_tail_ar.cuh"   // MAX_BLOCK_THREADS; Sched<V>::item
+
+template <int V>
+__global__ void __launch_bounds__(MAX_BLOCK_THREADS)
+    rhs_tail_kernel(const Args a) {
+  using S = Sched<V>;
+  const int lane = threadIdx.x & 31;
+  // 32-bit task numbers (the wrapper holds tasks below 2^31): a 64-bit
+  // division is a long library routine on the card
+  const unsigned ntiles = (a.nk + KT - 1) / KT;
+  const unsigned pairs = (unsigned)a.B * ntiles;
+  const unsigned task = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const unsigned it = task / pairs;
+  if (it >= (unsigned)S::ITEMS) return;
+  const unsigned pair = task - it * pairs;
+  const int b = (int)(pair / ntiles), nk = a.nk;
+  Ctx c;
+  c.b = b;
+  c.kk = (int)(pair - b * ntiles) * KT + lane;
+  c.nk = nk;
+  c.pitch = a.pitch;
+  c.valid = c.kk < nk;
+  c.Y = a.y + (size_t)b * NU * nk + c.kk;
+  c.out = a.dy + (size_t)b * NU * nk + c.kk;
+  c.JW = c.PZ = c.AU = c.RR = nullptr;
+  c.D = c.dDda = c.Dz1l = c.z = nullptr;
+  if constexpr (S::MODE == 1) {
+    c.JW = a.s0 + (size_t)b * 9 * a.nfam * a.pitch + c.kk;
+    c.PZ = a.s1 + 63 * (size_t)b * nk + c.kk;
+  } else if constexpr (S::MODE == 2) {
+    c.AU = a.s0 + 14 * (size_t)b * nk + c.kk;
+    c.RR = a.s1 + 24 * (size_t)b * nk + c.kk;
+    c.D = a.s2;
+    c.dDda = a.s3;
+    c.Dz1l = a.s4;
+    c.z = a.s5;
+  }
+  c.eta = a.eta;
+  c.kgrid = a.k;
+  c.beta = a.beta;
+  c.Om = a.Om;
+  c.fcb = a.fcb;
+  c.den = a.den;
+  c.o11 = a.o11;
+#if RT_DROP & 32
+  store(c, it % NU, 0.0);
+#elif RT_DROP & 16
+  S::item(0, c);
+#else
+  S::item(it, c);
+#endif
+}
+
+template <int V>
+int launch(const Args& a, int blocks, int threads, cudaStream_t stream) {
+  rhs_tail_kernel<V><<<blocks, threads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // y [B, 41, nk], eta [B], k [nk], beta [B, nk], Om / fcb / den / o11 [B];
-// full TRG (mode 1): s0 = Jw [B, nfam, 3, 3, pitch], s1 = PZw
-// [B, 7, 3, 3, nk]; 1-loop (mode 2): s0 = A_u [B, 14, nk], s1 = R
-// [B, 24, nk], s2 = D, s3 = dD/da, s4 = D_z1l [B, nk], s5 = z [B];
-// linear (mode 0): none.  tab / wt: kernel_table's nint words and nw
-// weights.
+// full TRG: s0 = Jw [B, nfam, 3, 3, pitch], s1 = PZw [B, 7, 3, 3, nk];
+// 1-loop: s0 = A_u [B, 14, nk], s1 = R [B, 24, nk], s2 = D, s3 = dD/da,
+// s4 = D_z1l [B, nk], s5 = z [B]; linear: none.  variant: the index of
+// kernels/rhs_tail.py VARIANTS (enum Variant); blocks of threads (a
+// multiple of 32, at most MAX_BLOCK_THREADS) as rhs_tail.launch_plan
+// sets them, enough warps for every task.
 extern "C" int rt_rhs_tail(const double* y, const double* eta,
                            const double* k, const double* beta,
                            const double* Om, const double* fcb,
                            const double* den, const double* o11,
                            const double* s0, const double* s1,
                            const double* s2, const double* s3,
-                           const double* s4, const double* s5,
-                           const int* tab, const double* wt, int nint,
-                           int nw, double* dy, int B, int nk, int mode,
-                           int evolve_q, int nfam, int pitch,
-                           void* stream) {
-  if (8 * nw + 4 * nint > MAX_TABLE) return cudaErrorInvalidValue;
-  static bool smem_set[64] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 64 && !smem_set[dev]) {
-    cudaFuncSetAttribute(rhs_tail_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         MAX_SMEM);
-    smem_set[dev] = true;
+                           const double* s4, const double* s5, double* dy,
+                           int B, int nk, int variant, int nfam, int pitch,
+                           int blocks, int threads, void* stream) {
+  const Args a{y,  eta, k,  beta, Om, fcb, den, o11, s0,   s1,
+               s2, s3,  s4, s5,   dy, B,   nk,  nfam, pitch};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (threads % 32 != 0 || threads > MAX_BLOCK_THREADS) {
+    return cudaErrorInvalidValue;
   }
-  const int rows = staged_rows(mode, evolve_q, 9 * nfam);
-  dim3 grid((nk + KT - 1) / KT, B);
-  rhs_tail_kernel<<<grid, THREADS, rows * KT * 8 + 8 * nw + 4 * nint,
-                    static_cast<cudaStream_t>(stream)>>>(
-      y, eta, k, beta, Om, fcb, den, o11, s0, s1, s2, s3, s4, s5, tab, wt,
-      dy, nk, mode, evolve_q, nfam, pitch, nw, nint);
-  return static_cast<int>(cudaGetLastError());
+  switch (variant) {
+    case V_LINEAR: return launch<V_LINEAR>(a, blocks, threads, st);
+    case V_FULL: return launch<V_FULL>(a, blocks, threads, st);
+    case V_FULL_Q: return launch<V_FULL_Q>(a, blocks, threads, st);
+    case V_ONELOOP: return launch<V_ONELOOP>(a, blocks, threads, st);
+    case V_ONELOOP_Q: return launch<V_ONELOOP_Q>(a, blocks, threads, st);
+  }
+  return cudaErrorInvalidValue;
 }

@@ -61,7 +61,7 @@ def generated() -> dict:
     return {"rhs_tail_ar.cuh": rhs_tail.ar_source()}
 
 
-def source_hash() -> str:
+def source_hash(defines: tuple = (), only: tuple = ()) -> str:
     h = hashlib.sha256()
     for p in _sources():
         h.update(p.name.encode())
@@ -69,18 +69,26 @@ def source_hash() -> str:
     for name, text in sorted(generated().items()):
         h.update(name.encode())
         h.update(text.encode())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + _flags(defines) + only).encode())
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libredtime_kernels_{source_hash()}.so"
+def _flags(defines: tuple) -> tuple:
+    return tuple(f"-D{d}" for d in defines)
 
 
-def build() -> Path:
+def library_path(defines: tuple = (), only: tuple = ()) -> Path:
+    return BUILD_DIR / (f"libredtime_kernels_"
+                        f"{source_hash(defines, only)}.so")
+
+
+def build(defines: tuple = (), only: tuple = ()) -> Path:
     """Compile the kernels if the current sources are not built yet;
-    returns the library path.  Raises with nvcc's output on failure."""
-    out = library_path()
+    returns the library path.  Raises with nvcc's output on failure.
+    `defines` (NAME=VALUE) and `only` (source names: the others are left
+    out) make another library beside the package's, for measurements
+    (scripts/time_rhs_tail.py's builds of K8 with a part taken out)."""
+    out = library_path(defines, only)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -90,9 +98,10 @@ def build() -> Path:
         for name, text in generated().items():
             Path(tmp, name).write_text(text)
         objs = [(p, os.path.join(tmp, p.stem + ".o"))
-                for p in _sources() if p.suffix == ".cu"]
-        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-I", tmp, "-c", str(p),
-                 "-o", o] for p, o in objs]
+                for p in _sources() if p.suffix == ".cu"
+                and (not only or p.name in only)]
+        cmds = [[nvcc, *NVCC_FLAGS, *_flags(defines), "-I", str(CSRC), "-I",
+                 tmp, "-c", str(p), "-o", o] for p, o in objs]
         # nvcc's output goes to files: a full pipe would block one nvcc
         # while another is waited for
         procs = []
@@ -156,10 +165,17 @@ def lib() -> ctypes.CDLL:
         handle.rt_rk_finish.restype = i
         handle.rt_rk_stage.argtypes = [p] * 5 + [i] * 5 + [p]
         handle.rt_rk_stage.restype = i
-        handle.rt_rhs_tail.argtypes = [p] * 16 + [i] * 2 + [p] + [i] * 6 + [p]
-        handle.rt_rhs_tail.restype = i
+        bind_rhs_tail(handle)
         _lib = handle
     return _lib
+
+
+def bind_rhs_tail(handle: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare K8's entry point rt_rhs_tail on a loaded library."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    handle.rt_rhs_tail.argtypes = [p] * 15 + [i] * 7 + [p]
+    handle.rt_rhs_tail.restype = i
+    return handle
 
 
 def check(status: int, name: str) -> None:

@@ -22,6 +22,7 @@ redtime_tpu/assembly.py:172-524.
 from __future__ import annotations
 
 import functools
+import itertools
 from typing import NamedTuple
 
 import numpy as np
@@ -55,7 +56,6 @@ BEF_IDX = [(j % 8) // 4 + ((j % 8) % 4) // 2 + (j % 8) % 2
 ABC_IDX = [(j // 4) + (j % 4) // 2 + (j % 2) for j in range(8)]
 _BEF_JU = [BEF_IDX[s] for s in assembly.JU]
 
-MODES = {"linear": 0, "full": 1, "oneloop": 2}
 MAX_LANES = 65535          # lanes a launch: the grid's y extent
 
 
@@ -187,94 +187,64 @@ def rhs_tail_plain(y, eta, k, om: OmegaIn, src, evolve_q: bool):
     return torch.cat([dlnP, dI, dQ], dim=1)
 
 
-def kernel_table():
-    """The kernel's Omega and trace terms as (int32 words, f64 weights),
-    numpy.
+# --- the kernel's work items (csrc/rhs_tail.cu)
+#
+# The kernel's unit of work is a task: one work item (a few output rows of
+# dI / dQ, or dlnP, or the zero rows) at KT k points of one lane, on one
+# warp.  Tasks are numbered item-major and a block takes consecutive ones,
+# so that the warps an SM holds at once run the code of one or two items.
+# Each item is straight-line code generated here (ar_source), one
+# instantiation of the kernel a variant (the mode, and whether Q evolves).
 
-    Words: [0] offset of the trace ranges, [1] of the terms; from 8, three
-    words an output o (0-13 dI, 14-37 dQ): its Omega terms [w0, w1) and
-    its fz power index (1-loop, into (fz, fz^2, fz^3, fz^4)); the trace
-    ranges of Isum's four rows, five words; then a word a term.  Term t
-    has weight[t]: an Omega term is (g << 8) | state row, weight Of[g]
-    y[row] (CI / CQ of assembly.OMEGA_BILINEAR), a trace term a state row
-    (TR14's)."""
+KT = 32                 # k points a task: a warp's threads
+VARIANTS = ("linear", "full", "full_q", "oneloop", "oneloop_q")
+# an item's outputs, packed while their operations stay within this cost
+ITEM_COST = {"linear": 0, "full": 260, "full_q": 260, "oneloop": 120,
+             "oneloop_q": 120}
+BLOCK_WARPS = (8, 4, 2, 1)   # warps a block: the most that leaves
+FILL_BLOCKS = 2 * 132        # this many blocks (two an SM), else one
+SOURCES = ("y", "jw", "pz", "au", "r")   # where a row an item loads lives
+
+
+def variant(mode: str, evolve_q: bool) -> str:
+    """The kernel variant of a mode ('linear', 'full', 'oneloop')."""
+    return mode if mode == "linear" else mode + ("_q" if evolve_q else "")
+
+
+@functools.lru_cache(maxsize=1)
+def kernel_table():
+    """The Omega and trace terms as the kernel applies them: (terms,
+    trace, fidx).  terms[o] (o 0-13 dI, 14-37 dQ): (g, state row, weight)
+    in CI's / CQ's column order (assembly.OMEGA_BILINEAR), the term
+    weight * (Of[g] * y[row]) with Of = (1, -1, o10, o11); trace[r]
+    (Isum's four rows): (state row, weight) of TR14; fidx[o]: output o's
+    1-loop fz power (0-3: fz, fz^2, fz^3, fz^4)."""
     CI, CQ = assembly.OMEGA_BILINEAR
     TR14 = assembly.OMEGA_MATS[2]
-    fidx = _BEF_JU + [ABC_IDX[j % 8] for j in range(NUQ)]
-    words, weights, out_hdr = [], [], []
+    terms = []
     for o in range(NUI + NUQ):
         C, nI, row0, r = ((CI, NUI, NUP, o) if o < NUI
                           else (CQ, NUQ, NUP + NUI, o - NUI))
-        w0 = len(words)
-        for m in np.flatnonzero(C[r]):
-            g, s = divmod(int(m), nI)
-            words.append((g << 8) | (row0 + s))
-            weights.append(float(C[r, m]))
-        out_hdr += [w0, len(words), fidx[o]]
-    tr = []
-    for r in range(4):
-        tr.append(len(words))
-        for s in np.flatnonzero(TR14[r]):
-            words.append(NUP + int(s))
-            weights.append(float(TR14[r, s]))
-    tr.append(len(words))
-    off_tr = 8 + len(out_hdr)
-    head = [off_tr, off_tr + len(tr), 0, 0, 0, 0, 0, 0]
-    return (np.asarray(head + out_hdr + tr + words, dtype=np.int32),
-            np.asarray(weights, dtype=np.float64))
+        gs = [divmod(int(m), nI) + (float(C[r, m]),)
+              for m in np.flatnonzero(C[r])]
+        terms.append(tuple((g, row0 + s, w) for g, s, w in gs))
+    trace = tuple(tuple((NUP + int(s), float(TR14[r, s]))
+                        for s in np.flatnonzero(TR14[r])) for r in range(4))
+    fidx = tuple(_BEF_JU + [ABC_IDX[j % 8] for j in range(NUQ)])
+    return tuple(terms), trace, fidx
 
 
-def _c_double(c: float) -> str:
-    return repr(float(c))
-
-
-def ar_source() -> str:
-    """The kernel's A/R code, generated from assembly.ar_program (the
-    header rhs_tail_ar.cuh that kernels/build.py writes beside the
-    sources): ar_out(o, f, nj, k) is output o (0-13 A_unique, 14-37 R) at
-    one k point, f the point's staged features (J and Jn0 at
-    f[row * KT], PZ row r at f[(nj + r) * KT]).  Each traced operation is
-    one IEEE operation (__d*_rn, no contraction), in the traced order.  A
-    division by a constant is x * (1/c), as torch's CUDA kernels divide
-    by a scalar (its CPU kernels divide: x / c)."""
+@functools.lru_cache(maxsize=1)
+def _ar():
+    """assembly.ar_program's operations and, for each of its 38 outputs,
+    the values it is computed from in traced order."""
     prog = assembly.ar_program()
     ops = prog.ops
     if any(ops[i][0] == "f" and 63 <= ops[i][1] < 126
            for o in prog.outs[:NUI] for i in _deps(ops, o)):
-        raise AssertionError("A_unique reads Jn0: the kernel stages Jn0 "
+        raise AssertionError("A_unique reads Jn0: the kernel loads Jn0 "
                              "only with RSD")
-
-    def expr(i: int) -> str:
-        op, a, b = ops[i]
-        if op == "f":
-            return (f"f[{a} * KT]" if a < 126
-                    else f"f[(nj + {a - 126}) * KT]")
-        if op == "k":
-            return "k"
-        if op in ("add", "sub", "mul", "div"):
-            return f"__d{op}_rn(v{a}, v{b})"
-        if op == "muls":
-            return f"__dmul_rn(v{a}, {_c_double(b)})"
-        if op == "divs":
-            return f"__dmul_rn(v{a}, {_c_double(1.0 / b)})"
-        if op == "recip":
-            return f"__drcp_rn(v{a})"
-        if op == "neg":
-            return f"-v{a}"
-        raise ValueError(f"ar_source: unknown operation {op}")
-
-    lines = ["// Generated by redtime_tpu_torch/kernels/rhs_tail.py ar_source "
-             "from", "// assembly.ar_rows; do not edit.",
-             "__device__ __forceinline__ double ar_out(",
-             "    int o, const double* __restrict__ f, int nj, double k) {",
-             "  switch (o) {"]
-    for o, out in enumerate(prog.outs):
-        lines.append(f"    case {o}: {{")
-        for i in sorted(_deps(ops, out)):
-            lines.append(f"      const double v{i} = {expr(i)};")
-        lines += [f"      return v{out};", "    }"]
-    lines += ["  }", "  return 0.0;", "}", ""]
-    return "\n".join(lines)
+    return ops, tuple(tuple(sorted(_deps(ops, o))) for o in prog.outs)
 
 
 def _deps(ops, i: int) -> set:
@@ -293,11 +263,257 @@ def _deps(ops, i: int) -> set:
     return seen
 
 
-@functools.lru_cache(maxsize=8)
-def _device_table(device: torch.device):
-    ints, weights = kernel_table()
-    return (torch.as_tensor(ints, device=device),
-            torch.as_tensor(weights, device=device))
+def _feature_row(f: int) -> tuple:
+    """The row of assembly feature f: J and Jn0 are Jw's rows as K1 wrote
+    them, PZ PZw's."""
+    return ("jw", f) if f < 126 else ("pz", f - 126)
+
+
+class Item(NamedTuple):
+    """One work item: its outputs (0-13 dI, 14-37 dQ), dlnP, zero rows."""
+
+    outs: tuple = ()
+    dlnp: bool = False
+    zeros: tuple = ()
+
+
+def _out_values(var: str, outs) -> list:
+    """The A/R program's values the outputs are computed from, in traced
+    order (full TRG; none in 1-loop mode)."""
+    if not var.startswith("full"):
+        return []
+    vals = _ar()[1]
+    return sorted(set().union(*(vals[o] for o in outs)))
+
+
+@functools.lru_cache(maxsize=None)
+def item_rows(var: str, item: Item) -> frozenset:
+    """The rows (source, row) that a work item of variant var loads: its
+    outputs' Omega terms' state rows and A/R features (full TRG) or cache
+    rows (1-loop); for dlnP lnP and the trace's I rows."""
+    terms, trace, _ = kernel_table()
+    rows = {("y", row) for o in item.outs for _, row, _ in terms[o]}
+    if var.startswith("full"):
+        ops = _ar()[0]
+        rows |= {_feature_row(ops[i][1]) for i in _out_values(var, item.outs)
+                 if ops[i][0] == "f"}
+    else:
+        rows |= {("au", o) if o < NUI else ("r", o - NUI)
+                 for o in item.outs}
+    if item.dlnp:
+        rows |= {("y", r) for r in range(NUP)}
+        if var != "linear":
+            rows |= {("y", row) for tr in trace for row, _ in tr}
+    return frozenset(rows)
+
+
+@functools.lru_cache(maxsize=None)
+def item_cost(var: str, item: Item) -> int:
+    """Operations of a work item as the packing weighs them: its A/R
+    values computed once, two an Omega term, three an output, 150 for
+    dlnP (three exp, four divisions), one a zero row."""
+    terms = kernel_table()[0]
+    ops = _ar()[0]
+    return (sum(ops[i][0] not in ("f", "k")
+                for i in _out_values(var, item.outs))
+            + sum(2 * len(terms[o]) + 3 for o in item.outs)
+            + 150 * item.dlnp + len(item.zeros))
+
+
+@functools.lru_cache(maxsize=None)
+def items(var: str) -> tuple:
+    """Variant var's work items.  The variant's outputs start one an item
+    and are merged, the pair that shares the most rows first, while the
+    merged item's cost stays within ITEM_COST[var] (the A/R programs share
+    little but features: 1,397 distinct values of 1,949, of which 552 are
+    feature reads); then dlnP, an item of its own, and the zero rows (dQ
+    without Q; dI and dQ in linear mode).  Heaviest first."""
+    nout = 0 if var == "linear" else NUI + (NUQ if var.endswith("_q")
+                                            else 0)
+    packed = [(o,) for o in range(nout)]
+    cap = ITEM_COST[var]
+    while True:
+        best, most = None, 0
+        for i, j in itertools.combinations(range(len(packed)), 2):
+            merged = Item(packed[i] + packed[j])
+            if item_cost(var, merged) > cap:
+                continue
+            shared = (len(item_rows(var, Item(packed[i])))
+                      + len(item_rows(var, Item(packed[j])))
+                      - len(item_rows(var, merged)))
+            if shared > most:
+                best, most = (i, j), shared
+        if best is None:
+            break
+        i, j = best
+        packed[i] = tuple(sorted(packed[i] + packed[j]))
+        del packed[j]
+    out = [Item(outs) for outs in packed] + [Item(dlnp=True)]
+    if nout < NUI + NUQ:
+        out.append(Item(zeros=tuple(range(NUP + nout, NU_STATE))))
+    return tuple(sorted(out, key=lambda it: -item_cost(var, it)))
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(var: str, nk: int, B: int) -> dict:
+    """The launch of variant var at nk points and B lanes: tasks (items x
+    lanes x k tiles), warps a block (BLOCK_WARPS: the most that leaves
+    FILL_BLOCKS blocks), blocks; no shared memory.  The wrapper passes
+    blocks and threads to rt_rhs_tail."""
+    tasks = len(items(var)) * B * -(-nk // KT)
+    warps = next((w for w in BLOCK_WARPS if -(-tasks // w) >= FILL_BLOCKS),
+                 BLOCK_WARPS[-1])
+    return dict(blocks=-(-tasks // warps), threads=32 * warps, tasks=tasks,
+                smem_bytes=0)
+
+
+def _c_double(c: float) -> str:
+    return repr(float(c))
+
+
+OF_C = ("1.0", "-1.0", "O10_", "O11_")     # Of[g] in the generated code
+LOAD_C = {"y": "LD_Y", "jw": "LD_JW", "pz": "LD_PZ", "au": "LD_AU",
+          "r": "LD_R"}
+
+
+def _row_name(row: tuple) -> str:
+    return f"{row[0]}{row[1]}"
+
+
+def _value_c(op: tuple) -> str:
+    """One traced operation of assembly.ar_program as C: one IEEE
+    operation (__d*_rn: no contraction), a division by a constant as a
+    product with 1/c (DIVC_)."""
+    op, a, b = op
+    if op == "f":
+        return _row_name(_feature_row(a))
+    if op == "k":
+        return "K_"
+    if op in ("add", "sub", "mul", "div"):
+        return f"__d{op}_rn(v{a}, v{b})"
+    if op == "muls":
+        return f"__dmul_rn(v{a}, {_c_double(b)})"
+    if op == "divs":
+        return f"DIVC_(v{a}, {_c_double(b)})"
+    if op == "recip":
+        return f"__drcp_rn(v{a})"
+    if op == "neg":
+        return f"-v{a}"
+    raise ValueError(f"ar_source: unknown operation {op}")
+
+
+def _scalars_c(var: str, item: Item) -> list:
+    """The scalars an item reads, computed in the warp (the helpers of
+    csrc/rhs_tail.cu: the plain version's operations in its order)."""
+    terms, _, fidx = kernel_table()
+    gs = {g for o in item.outs for g, _, _ in terms[o]}
+    lines = []
+    if item.dlnp and var != "linear" or var.startswith("full") and item.outs:
+        lines.append("const double K_ = K_AT();")
+    if item.dlnp and var != "linear":
+        lines.append("const double E_ = LANE_E();")
+    if item.outs:
+        lines.append("const double E2_ = __dmul_rn(2.0, LANE_E());")
+    if item.dlnp or 2 in gs:
+        lines.append("const double O10_ = O10_AT();")
+    if item.dlnp or 3 in gs:
+        lines.append("const double O11_ = LANE_O11();")
+    if var.startswith("oneloop") and item.outs:
+        powers = {fidx[o] + 1 for o in item.outs}
+        lines += ["const double PRE_ = PRE_AT();",
+                  "const double FZ_ = FZ_AT();"]
+        if max(powers) > 1:
+            lines.append("const double F2_ = __dmul_rn(FZ_, FZ_);")
+        power = {1: "FZ_", 2: "F2_", 3: "__dmul_rn(F2_, FZ_)",
+                 4: "__dmul_rn(F2_, F2_)"}
+        lines += [f"const double PF{n}_ = __dmul_rn(PRE_, {power[n]});"
+                  for n in sorted(powers)]
+    return lines
+
+
+def _item_c(var: str, item: Item) -> list:
+    """The lines of one work item: its scalars, the rows it reads (one
+    load a row), its A/R values (full TRG) and then, an output at a time,
+    its source term, its Omega terms and its row of dy; dlnP; zero rows."""
+    terms, trace, fidx = kernel_table()
+    lines = _scalars_c(var, item)
+    lines += [f"const double {_row_name(r)} = {LOAD_C[r[0]]}({r[1]});"
+              for r in sorted(item_rows(var, item),
+                              key=lambda r: (SOURCES.index(r[0]), r[1]))]
+    ops, vals = _ar()
+    lines += [f"const double v{i} = {_value_c(ops[i])};"
+              for i in _out_values(var, item.outs)]
+    for o in item.outs:
+        row = NUP + o
+        if var.startswith("full"):
+            src = f"v{vals[o][-1]}"
+        else:
+            cache = ("au", o) if o < NUI else ("r", o - NUI)
+            lines.append(f"const double a{row} = __dmul_rn(PF{fidx[o] + 1}_,"
+                         f" {_row_name(cache)});")
+            src = f"a{row}"
+        lines.append(f"double t{row} = 0.0;")
+        lines += [f"t{row} += {_c_double(w)} * __dmul_rn({OF_C[g]}, "
+                  f"y{yr});" for g, yr, w in terms[o]]
+        lines.append(f"OUT_({row}, __dsub_rn(__dmul_rn(E2_, {src}), "
+                     f"t{row}));")
+    if item.dlnp:
+        ys = ", ".join(f"y{r}" for r in range(NUP))
+        if var == "linear":
+            lines.append(f"DLNP_LINEAR_({ys});")
+        else:
+            for r, tr in enumerate(trace):
+                lines.append(f"double i{r} = 0.0;")
+                lines += [f"i{r} += {_c_double(w)} * y{row};"
+                          for row, w in tr]
+            lines.append(f"DLNP_({ys}, i0, i1, i2, i3);")
+    lines += [f"ZERO_({row});" for row in item.zeros]
+    return lines
+
+
+def _describe(item: Item) -> str:
+    """An item's rows of dy, in words."""
+    names = [f"{'dI' if o < NUI else 'dQ'} row {NUP + o}" for o in item.outs]
+    if item.dlnp:
+        names.append("dlnP")
+    if item.zeros:
+        names.append(f"zero rows {item.zeros[0]}-{item.zeros[-1]}")
+    return ", ".join(names)
+
+
+def ar_source() -> str:
+    """The kernel's generated header (rhs_tail_ar.cuh, written beside the
+    sources by kernels/build.py): the largest block (MAX_BLOCK_THREADS,
+    of BLOCK_WARPS) and, for each variant of VARIANTS, a Sched<V> with its
+    item count and item(it, c), a switch over the variant's work items.
+    An item computes the scalars it reads, loads each row it reads once
+    (LD_*), runs the A/R values of its outputs (full TRG: each traced
+    operation of assembly.ar_program one line, one IEEE operation, in
+    traced order) or their cache rows times pre fz^n (1-loop), then for
+    each output its Omega terms and 2 e^eta A - t; dlnP its trace sums and
+    dlnp(); the zero rows their stores."""
+    lines = ["// Generated by redtime_tpu_torch/kernels/rhs_tail.py "
+             "ar_source from", "// assembly.ar_rows and the work items; do "
+             "not edit.",
+             "enum Variant { "
+             + ", ".join(f"V_{v.upper()} = {i}"
+                         for i, v in enumerate(VARIANTS)) + " };",
+             f"constexpr int MAX_BLOCK_THREADS = {32 * max(BLOCK_WARPS)};",
+             ""]
+    for var in VARIANTS:
+        its = items(var)
+        mode = 0 if var == "linear" else 1 if var.startswith("full") else 2
+        lines += [f"template <> struct Sched<V_{var.upper()}> {{",
+                  f"  static constexpr int MODE = {mode}, "
+                  f"ITEMS = {len(its)};",
+                  "  static __device__ __forceinline__ void item("
+                  "const int it, const Ctx& c) {", "    switch (it) {"]
+        for n, it in enumerate(its):
+            lines.append(f"      case {n}: {{  // {_describe(it)}")
+            lines += ["        " + ln for ln in _item_c(var, it)]
+            lines += ["        break;", "      }"]
+        lines += ["    }", "  }", "};", ""]
+    return "\n".join(lines)
 
 
 def _src_tensors(src) -> list:
@@ -358,27 +574,42 @@ def rhs_tail(y, eta, k, om: OmegaIn, src, evolve_q: bool) -> torch.Tensor:
     if B > MAX_LANES:
         raise ValueError(f"rhs_tail: at most {MAX_LANES} lanes a launch, "
                          f"got {B}")
+    if launch_plan(variant(mode_of(src), evolve_q), nk, B)["tasks"] \
+            >= 2 ** 31:
+        raise ValueError(f"rhs_tail: {B} lanes of {nk} points are more "
+                         "tasks than a launch numbers")
     ins = [y, eta, k, *om, *_src_tensors(src)]
     if not all(x.is_contiguous() for x in ins):
         raise ValueError("rhs_tail: the kernel takes contiguous tensors")
     out = torch.empty_like(y)
     if B == 0 or nk == 0:
         return out
-    mode = ("linear" if src is None else
-            "full" if isinstance(src, FullSrc) else "oneloop")
-    ptrs = [x.data_ptr() for x in _src_tensors(src)]
-    ptrs += [None] * (6 - len(ptrs))
-    nfam, pitch = (src.Jw.shape[1], src.Jw.shape[4]) if mode == "full" \
-        else (0, 0)
-    ints, weights = _device_table(y.device)
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = build.lib().rt_rhs_tail(
-            y.data_ptr(), eta.data_ptr(), k.data_ptr(),
-            *[x.data_ptr() for x in om], *ptrs, ints.data_ptr(),
-            weights.data_ptr(), ints.numel(), weights.numel(),
-            out.data_ptr(), B, nk, MODES[mode],
-            int(evolve_q), nfam, pitch, stream)
-    build.check(status, "rhs_tail")
+    launch(build.lib(), out, y, eta, k, om, src, evolve_q)
     counts.LAUNCHES["rhs_tail"] += 1
     return out
+
+
+def mode_of(src) -> str:
+    return ("linear" if src is None else
+            "full" if isinstance(src, FullSrc) else "oneloop")
+
+
+def launch(lib, out, y, eta, k, om: OmegaIn, src, evolve_q: bool) -> None:
+    """One launch of `lib`'s rt_rhs_tail into `out` on the current stream
+    (the wrapper's, after its checks; scripts/time_rhs_tail.py also calls
+    it on builds with a part of the kernel taken out).  Counts nothing."""
+    B, _, nk = y.shape
+    var = variant(mode_of(src), evolve_q)
+    plan = launch_plan(var, nk, B)
+    ptrs = [x.data_ptr() for x in _src_tensors(src)]
+    ptrs += [None] * (6 - len(ptrs))
+    nfam, pitch = (src.Jw.shape[1], src.Jw.shape[4]) \
+        if isinstance(src, FullSrc) else (0, 0)
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.rt_rhs_tail(
+            y.data_ptr(), eta.data_ptr(), k.data_ptr(),
+            *[x.data_ptr() for x in om], *ptrs, out.data_ptr(), B, nk,
+            VARIANTS.index(var), nfam, pitch, plan["blocks"],
+            plan["threads"], stream)
+    build.check(status, "rhs_tail")

@@ -2,7 +2,8 @@
 two or more checkouts of the repo on one CUDA card, in turns: the
 host-prepare overlap of one checkout against another's inline prepare.
 
-    python3 scripts/time_overlap.py [--rounds N] [--out PATH] ROOT [ROOT ...]
+    python3 scripts/time_overlap.py [--rounds N] [--out PATH]
+        [--cells NAME,...] ROOT [ROOT ...]
 
 For each round, each ROOT in turn (the order reversed every other round,
 so two roots run A, B, B, A): a fresh python imports that checkout's
@@ -12,7 +13,8 @@ run_batch at the default placement (prepare on the host): one chunk of
 this checkout's chip_smoke bench batch (full TRG 16 lanes, 1-loop 32)
 and the whole batch of 64 (full TRG in 4 chunks of 16, 1-loop with
 print_bias in 2 chunks of 32), each with a StageTimer (prepare, solve
-and, where the checkout has it, the overlap's stats).  Prints one JSON
+and, where the checkout has it, the overlap's stats).  --cells times
+only the named ones of CELLS (and warms up only their modes).  Prints one JSON
 line per (round, root) and writes them all, with the card's name and
 power limit, to PATH (default chiprun_out/time_overlap.json).  Imports
 nothing of JAX.
@@ -29,6 +31,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CELLS = ("full_trg_16", "full_trg_64", "oneloop_32", "oneloop_64")
 
 
 def _smoke():
@@ -39,9 +42,8 @@ def _smoke():
     return mod
 
 
-def time_one(root: str) -> dict:
-    """The walls of the two batches in the checkout at root (this
-    process)."""
+def time_one(root: str, cells=CELLS) -> dict:
+    """The walls of `cells` in the checkout at root (this process)."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -55,15 +57,17 @@ def time_one(root: str) -> dict:
     full = (SolverConfig(), RunSettings(one_loop=False, z_out=smoke.Z_OUT))
     oneloop = (SolverConfig(print_bias=True),
                RunSettings(one_loop=True, z_out=smoke.Z_OUT_1L))
+    runs = [(name, *run) for name, run in zip(CELLS, (
+        (full, smoke.N_DESIGN, smoke.N_DESIGN),
+        (full, smoke.N_DESIGN, smoke.BATCH_BENCH),
+        (oneloop, smoke.N_DESIGN_1L, smoke.N_DESIGN_1L),
+        (oneloop, smoke.N_DESIGN_1L, smoke.BATCH_BENCH))) if name in cells]
     for mode, n in ((full, smoke.N_DESIGN), (oneloop, smoke.N_DESIGN_1L)):
-        driver.run_batch(*mode, *smoke.design_inputs(n), device="cuda")
+        if any(run[1] is mode for run in runs):
+            driver.run_batch(*mode, *smoke.design_inputs(n), device="cuda")
     torch.cuda.synchronize()
     out = dict(root=root)
-    for name, (cfg, settings), n_golden, batch in (
-            ("full_trg_16", full, smoke.N_DESIGN, smoke.N_DESIGN),
-            ("full_trg_64", full, smoke.N_DESIGN, smoke.BATCH_BENCH),
-            ("oneloop_32", oneloop, smoke.N_DESIGN_1L, smoke.N_DESIGN_1L),
-            ("oneloop_64", oneloop, smoke.N_DESIGN_1L, smoke.BATCH_BENCH)):
+    for name, (cfg, settings), n_golden, batch in runs:
         cs, lins = smoke.design_inputs(
             batch, smoke.bench_params(n_golden)[:batch])
         timer = StageTimer(enabled=False)
@@ -84,9 +88,13 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--one", help=argparse.SUPPRESS)
     ap.add_argument("--out")
+    ap.add_argument("--cells", default=",".join(CELLS))
     args = ap.parse_args()
+    cells = args.cells.split(",")
+    if not set(cells) <= set(CELLS):
+        ap.error(f"--cells: names of {', '.join(CELLS)}")
     if args.one:
-        print(json.dumps(time_one(args.one)))
+        print(json.dumps(time_one(args.one, cells)))
         return 0
     import torch
 
@@ -98,7 +106,8 @@ def main() -> int:
     for rnd in range(args.rounds):
         for root in args.roots if rnd % 2 == 0 else args.roots[::-1]:
             p = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                "--one", root], capture_output=True,
+                                "--one", root, "--cells", args.cells],
+                               capture_output=True,
                                text=True, timeout=900)
             if p.returncode:
                 print(p.stderr[-4000:], file=sys.stderr)

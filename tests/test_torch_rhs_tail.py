@@ -15,6 +15,8 @@
 """
 
 import functools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from torch_port_util import jax_batch
 from redtime_tpu import assembly as ja
 from redtime_tpu import fastpt as jf
@@ -150,52 +153,93 @@ def _run_program(F, row, k, outs):
     return torch.stack([vals[prog.outs[o]] for o in outs], dim=1)
 
 
+def _source_cases(var: str) -> list:
+    """The statements of each work item of Sched<V_var> in the generated
+    header (rhs_tail.ar_source), in case order."""
+    body = rt.ar_source().split(f"struct Sched<V_{var.upper()}> {{")[1]
+    out, cur = [], None
+    for ln in body.split("\n};")[0].splitlines():
+        ln = ln.strip()
+        m = re.match(r"case (\d+): \{", ln)
+        if m:
+            assert int(m.group(1)) == len(out)
+            out.append([])
+            cur = out[-1]
+        elif cur is not None and ln not in ("break;", "}", ""):
+            cur.append(ln)
+    return out
+
+
+def _python(stmts: list) -> str:
+    """Generated C statements as Python (the same calls and operators)."""
+    return "\n".join(ln.replace("const double ", "").replace("double ", "")
+                     .rstrip(";") for ln in stmts)
+
+
 def _kernel_model(y, eta, k, om, src, evolve_q):
-    """dy [B, 41, nk] computed as the kernel computes it (the generated
-    A/R program, kernel_table's Omega and trace terms), in torch on the
-    CPU."""
-    ints, weights = rt.kernel_table()
-    ints, weights = ints.tolist(), torch.as_tensor(weights)
+    """dy [B, 41, nk] computed as the kernel computes it, in torch on the
+    CPU: each work item of the variant's generated code, every C
+    statement run as Python on all lanes and k points at once (its
+    scalars, its row loads LD_*, its A/R values or cache rows times
+    pre fz^n, the Omega terms and OUT_, the trace and dlnp, the zero
+    rows).  A division by a constant (DIVC_) is x / c here, as torch's
+    CPU kernels divide."""
     B, _, nk = y.shape
-    off_tr, off_term = ints[0], ints[1]
-    e = torch.exp(eta)[:, None]
-    o10 = -1.5 * om.Omega_m[:, None] * (om.f_cb[:, None] + om.beta) \
-        / om.den[:, None]
-    Of = [torch.ones_like(o10), -torch.ones_like(o10), o10,
-          om.o11[:, None].expand_as(o10)]
-    dy = torch.zeros_like(y)
-    nout = 14 + (24 if evolve_q else 0)
+    var = rt.variant(rt.mode_of(src), evolve_q)
+    dy = torch.full_like(y, float("nan"))
+    rows = {"y": y}
+    pre = fz = None
     if isinstance(src, rt.FullSrc):
-        AR = _run_program(*_features(src.Jw, src.PZw, nk), k, range(nout))
+        rows.update(jw=src.Jw[..., :nk].reshape(B, -1, nk),
+                    pz=src.PZw.reshape(B, 63, nk))
     elif src is not None:
+        rows.update(au=src.A_u, r=src.R.reshape(B, 24, nk))
         fz = src.dDda / (src.D * (1.0 + src.z)[:, None])
         dr = src.D / src.D_z1l
-        pre = dr ** 4 * torch.exp(-4.0 * eta)[:, None]
-        rows = torch.cat([src.A_u, src.R.reshape(B, 24, nk)], dim=1)
-        AR = torch.stack([pre * fz ** (ints[8 + 3 * o + 2] + 1) * rows[:, o]
-                          for o in range(nout)], dim=1)
-    for o in range(nout if src is not None else 0):
-        w0, w1, _ = ints[8 + 3 * o:8 + 3 * o + 3]
-        t = 0.0
-        for w in range(w0, w1):
-            code = ints[off_term + w]
-            t = t + weights[w] * (Of[code >> 8] * y[:, code & 255])
-        dy[:, 3 + o] = 2.0 * e * AR[:, o] - t
-    P = torch.exp(torch.clamp(y[:, :3], rt.LNP_MIN, rt.LNP_MAX))
-    dP0 = -2.0 * (P[:, 0] - P[:, 1])
-    dP1 = -(P[:, 1] - P[:, 2]) - (o10 * P[:, 0] + Of[3] * P[:, 1])
-    dP2 = -2.0 * (o10 * P[:, 1] + Of[3] * P[:, 2])
-    if src is not None:
-        Is = [sum(weights[t] * y[:, ints[off_term + t]]
-                  for t in range(ints[off_tr + r], ints[off_tr + r + 1]))
-              for r in range(4)]
-        coef = e * 4.0 * np.pi / k
-        dP0 = dP0 + coef * 2.0 * Is[0]
-        dP1 = dP1 + coef * (Is[2] + Is[1])
-        dP2 = dP2 + coef * 2.0 * Is[3]
-    dy[:, 0] = torch.clamp(dP0 / P[:, 0], -1e4, 1e4)
-    dy[:, 1] = torch.clamp(dP1 / P[:, 1], -1e4, 1e4)
-    dy[:, 2] = torch.clamp(dP2 / P[:, 2], -10.0, 10.0)
+        dr2 = dr * dr
+        pre = dr2 * dr2 * torch.exp(-4.0 * eta)[:, None]
+
+    def out(r, v):
+        assert torch.isnan(dy[:, r]).all(), f"row {r} written twice"
+        dy[:, r] = v
+
+    def dlnp(y0, y1, y2, i0, i1, i2, i3, e, kv, o10, o11):
+        P = [torch.exp(torch.clamp(v, rt.LNP_MIN, rt.LNP_MAX))
+             for v in (y0, y1, y2)]
+        dP0 = -2.0 * (1.0 * P[0] + -1.0 * P[1])
+        dP1 = -(1.0 * P[1] + -1.0 * P[2]) - (o10 * P[0] + o11 * P[1])
+        dP2 = -2.0 * (o10 * P[1] + o11 * P[2])
+        if i0 is not None:
+            coef = e * 4.0 * np.pi / kv
+            dP0 = dP0 + coef * (i0 + i0)
+            dP1 = dP1 + coef * (i2 + i1)
+            dP2 = dP2 + coef * (i3 + i3)
+        out(0, torch.clamp(dP0 / P[0], -1e4, 1e4))
+        out(1, torch.clamp(dP1 / P[1], -1e4, 1e4))
+        out(2, torch.clamp(torch.clamp(dP2 / P[2], -1e4, 1e4), -10.0, 10.0))
+
+    calls = dict(
+        K_AT=lambda: k, LANE_E=lambda: torch.exp(eta)[:, None],
+        LANE_O11=lambda: om.o11[:, None],
+        O10_AT=lambda: (-1.5 * om.Omega_m[:, None]
+                        * (om.f_cb[:, None] + om.beta) / om.den[:, None]),
+        FZ_AT=lambda: fz, PRE_AT=lambda: pre,
+        OUT_=out, ZERO_=lambda r: out(r, torch.zeros_like(y[:, r])),
+        DIVC_=lambda x, c: x / c,
+        __dadd_rn=lambda a, b: a + b, __dsub_rn=lambda a, b: a - b,
+        __dmul_rn=lambda a, b: a * b, __ddiv_rn=lambda a, b: a / b,
+        __drcp_rn=lambda a: a.reciprocal())
+    calls.update({f"LD_{n.upper()}": (lambda n: lambda r: rows[n][:, r])(n)
+                  for n in rt.SOURCES})
+    for stmts in _source_cases(var):
+        ns = dict(calls)
+        ns["DLNP_"] = lambda y0, y1, y2, i0, i1, i2, i3: dlnp(
+            y0, y1, y2, i0, i1, i2, i3, ns["E_"], ns["K_"], ns["O10_"],
+            ns["O11_"])
+        ns["DLNP_LINEAR_"] = lambda y0, y1, y2: dlnp(
+            y0, y1, y2, None, None, None, None, None, None, ns["O10_"],
+            ns["O11_"])
+        exec(_python(stmts), ns)
     return dy
 
 
@@ -246,16 +290,102 @@ def test_kernel_model_matches_plain(case):
 
 
 def test_generated_source():
-    """ar_source: one case an output, one line an operation of its
-    program, each division by a constant as a product with 1/c."""
+    """ar_source: the largest block launch_plan gives, one case a work
+    item of each variant; in full TRG, one line a distinct operation of an
+    item (the A/R values of its outputs once each, in traced order), each
+    division by a constant as DIVC_ (a product with 1/c, as the kernel
+    defines it)."""
     src = rt.ar_source()
-    prog = assembly.ar_program()
-    assert src.count("    case ") == assembly.AR_NOUT == len(prog.outs)
-    assert src.count("const double v") == sum(
-        len(rt._deps(prog.ops, o)) for o in prog.outs)
-    assert any(op[0] == "divs" and op[2] == 6.0 for op in prog.ops)
+    ops, vals = rt._ar()
+    assert (f"constexpr int MAX_BLOCK_THREADS = {32 * max(rt.BLOCK_WARPS)};"
+            in src)
+    for var in rt.VARIANTS:
+        assert len(_source_cases(var)) == len(rt.items(var))
+        assert f"ITEMS = {len(rt.items(var))};" in src
+    n_full = 0
+    for var in ("full", "full_q"):
+        for it, stmts in zip(rt.items(var), _source_cases(var)):
+            defs = [int(ln.split()[2][1:]) for ln in stmts
+                    if ln.startswith("const double v")]
+            assert defs == sorted(set().union(*(vals[o] for o in it.outs)))
+            n_full += len(defs)
+    assert src.count("const double v") == n_full
+    assert any(op[0] == "divs" and op[2] == 6.0 for op in ops)
     assert "__ddiv_rn(" in src and "__drcp_rn(" in src
-    assert f", {1.0 / 6.0!r})" in src and ", 6.0)" not in src
+    assert "DIVC_(v" in src and ", 6.0)" in src
+    assert f", {1.0 / 6.0!r})" not in src
+    cu = (Path(rt.__file__).parents[1] / "csrc" / "rhs_tail.cu").read_text()
+    assert "#define DIVC_(x, d) __dmul_rn((x), 1.0 / (d))" in cu
+
+
+@pytest.mark.parametrize("var", rt.VARIANTS)
+def test_items_cover_every_row_once(var):
+    """Each output of the variant in one item, dlnP in one, the other
+    rows of dy in the zero item; each item within its cost."""
+    its = rt.items(var)
+    nout = 0 if var == "linear" else 14 + (24 if var.endswith("_q") else 0)
+    assert sorted(o for it in its for o in it.outs) == list(range(nout))
+    assert sum(it.dlnp for it in its) == 1
+    assert sorted(r for it in its for r in it.zeros) == \
+        list(range(3 + nout, 41))
+    for it in its:
+        if len(it.outs) > 1:
+            assert rt.item_cost(var, it) <= rt.ITEM_COST[var]
+        assert not (it.dlnp and it.outs)
+
+
+@pytest.mark.parametrize("var", rt.VARIANTS)
+def test_loaded_rows_cover_what_the_code_reads(var):
+    """On the generated source: each item loads each row it reads once
+    (LD_*), exactly rhs_tail.item_rows, and every value it names is
+    defined before it is read."""
+    for it, stmts in zip(rt.items(var), _source_cases(var)):
+        loads = re.findall(r"const double (\w+) = LD_(\w+)\((\d+)\);",
+                           "\n".join(stmts))
+        assert len({(src, int(r)) for _, src, r in loads}) == len(loads)
+        assert {(src.lower(), int(r)) for _, src, r in loads} == \
+            rt.item_rows(var, it)
+        defined = set()
+        for ln in stmts:
+            m = re.match(r"(?:const )?double (\w+) = (.*);", ln)
+            rhs = m.group(2) if m else ln
+            for name in re.findall(r"\b([a-z]+\d+|[A-Z][A-Z0-9]*_)\b"
+                                   r"(?!\()", rhs):
+                assert name in defined, (var, it, ln, name)
+            if m:
+                defined.add(m.group(1))
+
+
+@pytest.mark.parametrize("mode", ["full", "full_no_rsd", "oneloop",
+                                  "linear"])
+@pytest.mark.parametrize("nk,B", chip_smoke.RT_SHAPES)
+def test_launch_limits(nk, B, mode):
+    """At every (nk, lanes) the main paths give K8 and in every mode: no
+    shared memory, a block within the kernel's MAX_BLOCK_THREADS (what
+    rt_rhs_tail accepts; at most CUDA's 1,024) and the grid within its
+    extent, also at MAX_LANES; every task in a block; full TRG with Q at
+    16 lanes gives at least two blocks an SM."""
+    var = rt.variant(mode.split("_")[0], mode != "full_no_rsd")
+    plan = rt.launch_plan(var, nk, B)
+    assert plan["smem_bytes"] == 0
+    assert plan["threads"] <= 32 * max(rt.BLOCK_WARPS) <= 1024
+    assert plan["threads"] % 32 == 0
+    assert plan["tasks"] == len(rt.items(var)) * B * -(-nk // rt.KT)
+    assert 0 <= plan["blocks"] * plan["threads"] // 32 - plan["tasks"] \
+        < plan["threads"] // 32
+    assert rt.launch_plan(var, nk, rt.MAX_LANES)["blocks"] < 2 ** 31
+    if (var, nk, B) == ("full_q", 128, 16):
+        assert plan["blocks"] >= 2 * 132
+
+
+def test_items_are_deterministic():
+    """The generated header (hashed into the library's name) comes out
+    the same when the items are made anew."""
+    first = rt.ar_source()
+    rt.items.cache_clear()
+    rt.item_rows.cache_clear()
+    rt.item_cost.cache_clear()
+    assert rt.ar_source() == first
 
 
 def _old_eager_rhs(cfg, settings, model, ec, cache, eta, yflat):
