@@ -6,9 +6,9 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the CUDA kernels from redtime_tpu_torch/csrc with nvcc
-     (sm_90a) and checks that K1's and K2's SASS holds FP64 tensor-core
-     instructions (DMMA), K5's int8 mma.sync (IMMA) and K7's int8 wgmma
-     (IGMMA), by cuobjdump;
+     (sm_90a) and checks that K1's, K2's and K10's SASS holds FP64
+     tensor-core instructions (DMMA), K5's int8 mma.sync (IMMA) and K7's
+     int8 wgmma (IGMMA), by cuobjdump;
   3. checks each hand kernel against its plain PyTorch version on the card
      at the main path's shapes (nk=128, np=512, 16 lanes, inputs from a
      seeded numpy generator; K3's rk_finish and rk_stage at each tableau
@@ -39,6 +39,14 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
      at full TRG 16 lanes and 1-loop 32 also eager and against its plain
      version, with the device kernels of one RHS evaluation
      (torch.profiler; at most 250 full TRG, 150 1-loop) and its host ms;
+     K9 engine_front and K10 tab_leg on what the paths feed the engine
+     from those states (ENGINE_CASES: the RHS's clipped ln P rows in full
+     TRG with and without RSD at nk=128 and 16, 32, 64, 8 lanes and at
+     nk=48, 2 lanes; the presets' 1-loop cache and finalize rows), within
+     their stated forward-error bounds of their plain versions, NaN lanes
+     NaN alone, two calls the same bits, each timed on the device with its
+     bound, and at full TRG 16 lanes eager and against plain and (K10) the
+     library's matmul;
   4. checks the probe kernels K4 affine, K5 int8_dot and K6 dd_mul
      against their plain versions on the card, bit for bit, at the
      probes' shapes, at one larger shape each and on ragged sizes, and
@@ -122,9 +130,10 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
  13. prints the kernels' JSON line, the card line and, last, the result.
 
 Every path from step 4 on runs with the launch counters set to 0 just
-before it and read just after, and must have launched K1-K3 and K8 (the
-probes: K4-K7 and K1); a worker process's launches come back with its
-answer.
+before it and read just after, and must have launched K1-K3 and K8-K10
+(the probes: K4-K7 and K1), with as many launches of K9 and K10 as of K1
+and K2 (every engine evaluation K9 -> K10 -> K1 + K2); a worker process's
+launches come back with its answer.
 
 Any failed phase raises, and the script exits non-zero without a result.
 It imports nothing of JAX.  Details go to chiprun_out/chip_smoke.json.
@@ -164,8 +173,10 @@ EPS = float(np.finfo(np.float64).eps)
 HBM_BYTES_S = 3.35e12
 PEAK_FP64_TC, PEAK_FP64, PEAK_FP32, PEAK_INT8_TC = 67e12, 34e12, 67e12, \
     1979e12
-MAIN_KERNELS = ("out_leg", "pz_leg", "rk_stage", "rk_finish",
-                "rhs_tail")
+MAIN_KERNELS = ("engine_front", "tab_leg", "out_leg", "pz_leg", "rk_stage",
+                "rk_finish", "rhs_tail")
+# the engine's kernels: one launch each an engine evaluation, on every path
+ENGINE_KERNELS = ("engine_front", "tab_leg", "out_leg", "pz_leg")
 # the production chain (run_production): a Latin-hypercube design of
 # N_PROD Mira-Titan cosmologies (design.generate_design, seed SEED),
 # tests/mock_camb.py as the CAMB binary, the 33 CAMB redshifts as the
@@ -976,7 +987,7 @@ def rhs_device_kernels(rhs, eta, y) -> tuple:
             sum(e.self_device_time_total for e in cuda) / 1e3)
 
 
-def check_rhs_tail(rng, detail: dict) -> dict:
+def check_rhs_tail(rng, detail: dict, engine_inputs: list) -> dict:
     """K8 rhs_tail against its plain version on the card, on the inputs
     trg.rhs_prologue builds from design models and generated states, at
     every (nk, lanes) of RT_SHAPES in every mode of RT_MODES: within
@@ -986,8 +997,9 @@ def check_rhs_tail(rng, detail: dict) -> dict:
     and at full TRG 16 lanes and 1-loop 32 also eager and against its
     plain version; prints its registers and spills (ptxas); counts the
     device kernels of one full-TRG and one 1-loop RHS evaluation and
-    times the evaluation on the host clock.  Returns the kernels' line
-    row."""
+    times the evaluation on the host clock.  Appends to engine_inputs
+    what the engine is fed at ENGINE_CASES (engine_inputs).  Returns the
+    kernels' line row."""
     import torch
 
     from redtime_tpu_torch import driver, fastpt, trg
@@ -1017,6 +1029,9 @@ def check_rhs_tail(rng, detail: dict) -> dict:
             cache = (trg.build_oneloop_cache(cfg, settings, m, ec)
                      if settings.one_loop else None)
             eta, y = rt_state(rng, cfg, settings, m, B)
+            if (nk, B, mode) in ENGINE_CASES:
+                engine_inputs += engine_inputs_of(cfg, settings, m, ec, y,
+                                                  mode)
             args = trg.rhs_prologue(cfg, settings, m, ec, cache)(eta, y)
             got = rt.rhs_tail(*args)
             ref = rt.rhs_tail_plain(*args)
@@ -1098,6 +1113,178 @@ def check_rhs_tail(rng, detail: dict) -> dict:
                                 "rhs_host_ms")})
 
 
+# the (nk, lanes, mode) of check_rhs_tail at which K9 and K10 are checked
+# on what the paths feed the engine (engine_inputs_of): full TRG with and
+# without RSD at the chunks (16), the 1-loop chunk's width (32), packed
+# lanes (64) and the split's shards (8), nk=48; the presets' 1-loop cache
+# and finalize.  ENGINE_TIMED: the main path's case, timed eager and
+# against plain and library; the others on the device only.
+ENGINE_CASES = {(128, B, mode) for B in (16, 32, 64, 8)
+                for mode in ("full", "full_no_rsd")} | {
+    (48, 2, "full"), (48, 2, "full_no_rsd"), (512, 2, "oneloop"),
+    (256, 2, "oneloop")}
+ENGINE_TIMED = "full nk=128 B=16"
+
+
+def engine_inputs_of(cfg, settings, m, ec, y, mode: str) -> list:
+    """What the paths feed the engine (fastpt.compute_J_PZ) from the state
+    y [B, 41 nk] of rt_state (a NaN lane, a frozen lane: lane 0 when B =
+    2): in full TRG the RHS's ln P rows (a strided view, clipped), in
+    1-loop mode the z1l cache's ln P_lin_cb rows (an expanded row) and
+    finalize's rows of y (unclipped).  Each a dict: label, cfg, ec, the
+    wrappers' arguments (front, clip) and nfam."""
+    import torch
+
+    from redtime_tpu_torch import fastpt, trg
+    from redtime_tpu_torch import model as mdl
+
+    B, nk = y.shape[0], cfg.nk
+    y = y.reshape(B, trg.NU_STATE, nk)
+    if B == 2:
+        y = y.clone()
+        y[0] = trg.initial_state(cfg, settings, m)[0].reshape(-1, nk)
+    n_s = m.cosmo.n_s
+    rsd = settings.print_rsd or cfg.print_q
+    nfam = fastpt.NFAM if rsd else fastpt.NFAM_J
+    label = f"{mode} nk={nk} B={B}"
+    consts = (ec.pab_M, ec.pab_v, ec.wp, ec.kbias, ec.dft_fwd_half)
+    if mode != "oneloop":
+        return [dict(label=label, cfg=cfg, ec=ec, nfam=nfam, clip=True,
+                     front=(y[:, :3], n_s) + consts)]
+    _, Pcb, _ = mdl.plin_all(cfg, m, cfg.z1l)
+    cache = torch.log(Pcb)[:, None, :].expand(-1, 3, -1)
+    nfam_out = fastpt.NFAM if settings.print_rsd else fastpt.NFAM_J
+    return [dict(label=f"{label} cache", cfg=cfg, ec=ec, nfam=nfam,
+                 clip=False, front=(cache, n_s) + consts),
+            dict(label=f"{label} finalize", cfg=cfg, ec=ec, nfam=nfam_out,
+                 clip=False, front=(y[:, :3], n_s) + consts)]
+
+
+def engine_costs(B: int, nk: int, npts: int, nc: int, nfam: int) -> tuple:
+    """least_time of K9 and of K10: each input read once, each output
+    written once; the products' operations on the FP64 tensor cores (the
+    least time; K9 runs on the FP64 pipes, the window products of K10
+    are left out)."""
+    N, half = 2 * npts, nc // 2
+    k9 = least_time(8.0 * (3 * B * nk + B + npts * nk + 3 * npts
+                           + npts * nc + 3 * B * npts + 3 * B * nc),
+                    2.0 * 3 * B * npts * (nk + nc), PEAK_FP64_TC)
+    M = 6 * nfam * B
+    k10 = least_time(8.0 * (3 * B * nc + 4 * nfam * half + nc * N + M * N),
+                     2.0 * M * nc * N, PEAK_FP64_TC)
+    return k9, k10
+
+
+def bound_ratio(got, ref, bound, what: str) -> float:
+    """max |got - ref| / bound over the finite elements of ref; raises
+    when NaN or inf fall elsewhere than in ref."""
+    import torch
+
+    check(bool(torch.equal(got.isnan(), ref.isnan())
+               and torch.equal(got.isinf(), ref.isinf())),
+          f"{what}: NaN or inf where the plain version has none")
+    fin = torch.isfinite(ref)
+    return float(((got - ref).abs()[fin] / bound[fin].clamp(min=1e-300))
+                 .max())
+
+
+def check_engine_legs(cases: list, detail: dict) -> list:
+    """K9 engine_front and K10 tab_leg against their plain versions on the
+    card, on what the paths feed the engine (engine_inputs_of, at
+    ENGINE_CASES): within their stated forward-error bounds
+    (engine_front.error_bound, tab_leg.error_bound), NaN lanes NaN and no
+    other lane, two calls the same bits.  K10 takes the plain version's ci.
+    Times both on the device at every case and, at ENGINE_TIMED, eager and
+    against plain and (K10) the library's matmul on the plain version's
+    sab; returns their rows for the kernels' line."""
+    import torch
+
+    from redtime_tpu_torch.kernels import engine_front as k9
+    from redtime_tpu_torch.kernels import tab_leg as k10
+
+    rows, by_case = {}, {"engine_front": [], "tab_leg": []}
+    worst = {"engine_front": 0.0, "tab_leg": 0.0}
+    max_err = dict(worst)
+    for c in cases:
+        front, clip, nfam, ec = c["front"], c["clip"], c["nfam"], c["ec"]
+        what = c["label"]
+        P, ci = k9.engine_front(*front, clip=clip)
+        P_ref, ci_ref, dP, dci = k9.error_bound(*front, clip=clip)
+        g = (ec.ga_re, ec.ga_im, ec.gb_re, ec.gb_im, ec.dft_bwd_half)
+        tab = k10.tab_leg(ci_ref, *g, nfam)
+        tab_ref, dtab = k10.error_bound(ci_ref, *g, nfam)
+        ratios = {}
+        for name, pairs in (("engine_front", ((P, P_ref, dP),
+                                              (ci, ci_ref, dci))),
+                            ("tab_leg", ((tab, tab_ref, dtab),))):
+            r = max(bound_ratio(*p, f"{name} {what}") for p in pairs)
+            check(r <= 1.0, f"{name} {what}: |delta|/bound {r:.3g}")
+            ratios[name] = r
+            worst[name] = max(worst[name], r)
+            max_err[name] = max(max_err[name], max(
+                float(torch.where(torch.isfinite(p[1]), (p[0] - p[1]).abs(),
+                                  0.0).max()) for p in pairs))
+        for x, ref in ((P, P_ref), (ci, ci_ref), (tab, tab_ref)):
+            lanes = ref.flatten(1).isnan().any(1)
+            check(bool(torch.equal(x.flatten(1).isnan().all(1), lanes)),
+                  f"{what}: NaN lanes {lanes.tolist()} not NaN alone")
+        P2, ci2 = k9.engine_front(*front, clip=clip)
+        check(same_bits(P, P2) and same_bits(ci, ci2),
+              f"engine_front {what}: two calls differ")
+        check(same_bits(tab, k10.tab_leg(ci_ref, *g, nfam)),
+              f"tab_leg {what}: two calls differ")
+        B, _, nk = front[0].shape
+        npts, nc = ec.dft_fwd_half.shape
+        costs = dict(zip(("engine_front", "tab_leg"),
+                         engine_costs(B, nk, npts, nc, nfam)))
+        calls = dict(engine_front=lambda: k9.engine_front(*front, clip=clip),
+                     tab_leg=lambda: k10.tab_leg(ci_ref, *g, nfam))
+        line = []
+        for name, fn in calls.items():
+            row = dict(case=what, B=B, nk=nk, np=npts, nfam=nfam, clip=clip,
+                       nan_lanes=int(ci_ref.flatten(1).isnan().any(1).sum()),
+                       err_over_bound=ratios[name], device_ms=graph_ms(fn),
+                       **costs[name])
+            by_case[name].append(row)
+            line.append(f"{name} {row['device_ms']:.5f} ms device, "
+                        f"|delta|/bound {ratios[name]:.3g} (bound "
+                        f"{row['bound_ms']:.5f} by {row['bound_by']})")
+        print(f"engine legs {what} (nfam {nfam}, clip {clip}): "
+              + "; ".join(line))
+        if what != ENGINE_TIMED:
+            continue
+        sab = k10.sab_plain(ci_ref, *g[:4], nfam)
+        t9, runs9 = measure(lambda: k9.engine_front(*front, clip=clip),
+                            lambda: k9.engine_front_plain(*front, clip=clip))
+        t10, runs10 = measure(lambda: k10.tab_leg(ci_ref, *g, nfam),
+                              lambda: k10.tab_leg_plain(ci_ref, *g, nfam),
+                              lambda: torch.matmul(sab, g[4]))
+        detail.update(engine_front_timing=runs9, tab_leg_timing=runs10)
+        rows["engine_front"] = dict(t9, **costs["engine_front"])
+        rows["tab_leg"] = dict(
+            t10, **costs["tab_leg"],
+            library_note="torch.matmul(sab, dft_bwd_half) on the plain "
+                         "version's sab: leaves out the window products")
+    check(set(rows) == {"engine_front", "tab_leg"},
+          f"no engine case {ENGINE_TIMED!r} was checked")
+    print(f"engine legs: K9 and K10 within their bounds at {len(cases)} "
+          f"inputs (worst |delta|/bound {worst}), two calls the same bits")
+    out = []
+    for name, src, rep in (
+            ("engine_front", "redtime_tpu_torch/csrc/engine_front.cu",
+             "redtime_tpu/fastpt.py:908"),
+            ("tab_leg", "redtime_tpu_torch/csrc/tab_leg.cu",
+             "redtime_tpu/fastpt.py:1227")):
+        out.append(dict(
+            name=name, route="cuda", source=src, replaces=rep,
+            max_abs_err=max_err[name], max_err_over_bound=worst[name],
+            by_case=by_case[name], **rows[name]))
+    out[0]["also_replaces"] = ("redtime_tpu/fastpt.py:1193 (the forward "
+                               "leg), redtime_tpu/trg.py:185 (the clip)")
+    out[1]["also_replaces"] = "redtime_tpu/fastpt.py:1194-1203 (sab)"
+    return out
+
+
 def rhs_host_ms(rhs, eta, y, n: int = 20) -> float:
     """Host-clock ms of one rhs(eta, y), the device synchronized, over n
     calls after one untimed call."""
@@ -1113,17 +1300,19 @@ def rhs_host_ms(rhs, eta, y, n: int = 20) -> float:
 
 
 # the tensor-core instruction each kernel's SASS must hold: FP64 (DMMA)
-# for K1 and K2, int8 mma.sync (IMMA) for K5, int8 wgmma (IGMMA, the
+# for K1, K2 and K10, int8 mma.sync (IMMA) for K5, int8 wgmma (IGMMA, the
 # opcode of K7's wgmma m64n64k32 s8 in the SASS of its first build) for
 # K7's main kernel as it runs (oz_fused_kernel<0>, mangled ...ILi0E; the
 # other instantiations are rt_oz_fused_ablate's measurement variants)
 TENSOR_CORE_OPS = {"out_leg_kernel": "DMMA", "pz_leg_kernel": "DMMA",
+                   "tab_leg_kernel": "DMMA",
                    "int8_dot_kernel": "IMMA",
                    "oz_fused_kernelILi0E": "IGMMA"}
 
 
 def check_tensor_cores(lib, detail: dict) -> None:
-    """K1 and K2 run on the FP64 tensor cores, K5 and K7 on the int8 ones:
+    """K1, K2 and K10 run on the FP64 tensor cores, K5 and K7 on the int8
+    ones:
     their SASS (cuobjdump -sass of the built library) holds DMMA, IMMA
     (K5's mma.sync) and IGMMA (K7's wgmma) instructions."""
     from redtime_tpu_torch.kernels import build
@@ -2560,8 +2749,11 @@ def main() -> int:
     timed("tensor_cores", check_tensor_cores, lib, detail)
     rows = timed("kernels", check_kernels, np.random.default_rng(1234),
                  detail)
+    engine_inputs: list = []
     rows.append(timed("rhs_tail", check_rhs_tail,
-                      np.random.default_rng(3579), detail))
+                      np.random.default_rng(3579), detail, engine_inputs))
+    rows += timed("engine_legs", check_engine_legs, engine_inputs, detail)
+    del engine_inputs
     timed("leg_shapes", check_leg_shapes, np.random.default_rng(2468),
           detail)
     presets = timed("preset_rows", preset_rows, np.random.default_rng(1357),
@@ -2601,6 +2793,12 @@ def main() -> int:
     phases["production"], phases["inject_rerun"] = timed(
         "production", run_production, detail, card)
     phases.update(numerics=timed("numerics", run_numerics, detail, card))
+    # every engine evaluation of every path ran K9 -> K10 -> K1 + K2
+    for path, p in phases.items():
+        if path != "probes":
+            n = {k: p[k] for k in ENGINE_KERNELS}
+            check(len(set(n.values())) == 1,
+                  f"{path}: engine launches differ {n}")
     print(f"phase walls (s): { {k: round(v, 1) for k, v in phase_s.items()} }"
           f"; {time.perf_counter() - t_start:.1f} s since the build began")
     for r in rows:

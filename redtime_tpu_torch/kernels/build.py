@@ -166,8 +166,22 @@ def lib() -> ctypes.CDLL:
         handle.rt_rk_stage.argtypes = [p] * 5 + [i] * 5 + [p]
         handle.rt_rk_stage.restype = i
         bind_rhs_tail(handle)
+        bind_engine(handle)
         _lib = handle
     return _lib
+
+
+def bind_engine(handle: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare K9's and K10's entry points on a loaded library."""
+    p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    handle.rt_engine_front.argtypes = [p, n, n, p, n] + [p] * 7 + [i] * 6 \
+        + [p]
+    handle.rt_engine_front.restype = i
+    handle.rt_engine_front_clusters.argtypes = [i, i, i]
+    handle.rt_engine_front_clusters.restype = i
+    handle.rt_tab_leg.argtypes = [p] * 7 + [i] * 4 + [p]
+    handle.rt_tab_leg.restype = i
+    return handle
 
 
 def bind_rhs_tail(handle: ctypes.CDLL) -> ctypes.CDLL:

@@ -27,9 +27,8 @@ from redtime_tpu_torch import model as mdl
 from redtime_tpu_torch.config import RunSettings, SolverConfig
 from redtime_tpu_torch.grids import make_grids
 from redtime_tpu_torch.kernels import rhs_tail as rt
-from redtime_tpu_torch.kernels.rhs_tail import (ABC_IDX, BEF_IDX, LNP_MAX,
-                                                LNP_MIN, NU_STATE, NUI, NUP,
-                                                NUQ)
+from redtime_tpu_torch.kernels.rhs_tail import (ABC_IDX, BEF_IDX, NU_STATE,
+                                                NUI, NUP, NUQ)
 from redtime_tpu_torch.kernels.rk_finish import attempt_consts
 from redtime_tpu_torch.ode import (DOP853, DOPRI5, RKF45, attempt,
                                    integrate_interval)
@@ -77,8 +76,8 @@ def compute_mode_coupling_full(cfg: SolverConfig, lnP3: torch.Tensor, n_s,
     """Full FAST-PT evaluation from the current spectra lnP3 [B, 3, nk];
     returns (A_unique [B,14,nk], R [B,3,8,nk], PT [B,9,nk],
     PMR [B,8,nk])."""
-    P_ext = fastpt.extend_power(cfg, lnP3, n_s, ec)
-    Jw, J_lo, PZw = fastpt.compute_J_PZ_windowed(cfg, P_ext, with_rsd, ec)
+    Jw, J_lo, PZw = fastpt.window(
+        cfg, *fastpt.compute_J_PZ(cfg, lnP3, n_s, with_rsd, ec), with_rsd)
     return assembly.assemble(Jw[:, :7], PZw, Jw[:, 7:], J_lo, k, with_rsd)
 
 
@@ -134,7 +133,7 @@ def rhs_prologue(cfg: SolverConfig, settings: RunSettings,
     """The eager part of one RHS evaluation: prologue(eta [B],
     y [B, 41*nk]) returns the arguments of kernels.rhs_tail.rhs_tail
     (y [B, 41, nk], eta, k, OmegaIn, src, evolve_q): a and the Omega
-    inputs; in full Time-RG the engine up to K1 and K2 (FullSrc); in
+    inputs; in full Time-RG the engine, K9, K10, K1 and K2 (FullSrc); in
     1-loop mode the growth at eta's z beside `cache`'s rows
     (OneLoopSrc); in linear mode src None."""
     one_loop = settings.nonlinear and settings.one_loop
@@ -164,9 +163,8 @@ def rhs_prologue(cfg: SolverConfig, settings: RunSettings,
             D, dDda = mdl.growth_D_f(model, z)               # [B, nk]
             src = rt.OneLoopSrc(A_u, cache.R, D, dDda, cache.D_z1l, z)
         else:
-            lnP = torch.clamp(y[:, 0:3], LNP_MIN, LNP_MAX)
-            P_ext = fastpt.extend_power(cfg, lnP, model.cosmo.n_s, ec)
-            src = rt.FullSrc(*fastpt.compute_J_PZ(cfg, P_ext, evolve_q, ec))
+            src = rt.FullSrc(*fastpt.compute_J_PZ(
+                cfg, y[:, 0:3], model.cosmo.n_s, evolve_q, ec, clip=True))
         return y.contiguous(), eta.contiguous(), k, om, src, evolve_q
 
     return prologue

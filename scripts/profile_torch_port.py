@@ -14,9 +14,9 @@ redshifts), and measures:
     kernel launch counts and attempts per lane;
   * one RHS evaluation at the cell's lanes and its pieces: the eager
     prologue (trg.rhs_prologue) and K8 rhs_tail, and within the prologue
-    omega_inputs, growth_D_f, extend_power and the engine up to K1 and
-    K2; K8's plain version beside them: host clock over 20 calls and
-    CUDA events over 20 calls;
+    omega_inputs, growth_D_f, K9 engine_front and the whole engine (K9,
+    K10 tab_leg, K1, K2); K8's plain version beside them: host clock over
+    20 calls and CUDA events over 20 calls;
   * torch.profiler over one RHS evaluation and over one controller
     attempt: the device kernels of each, and so the kernels an attempt
     launches outside its RHS evaluations;
@@ -135,8 +135,7 @@ def rhs_pieces(cfg, settings, m, ys, cs, ec, out: dict) -> None:
     y = ys[:, 3].reshape(B, -1).contiguous()
     eta = torch.full((B,), 3.0, dtype=torch.float64, device=dev)
     args = prologue(eta, y)
-    lnP = y.reshape(B, trg.NU_STATE, -1)[:, :3].contiguous()
-    P = fastpt.extend_power(cfg, lnP, cs.n_s, ec)
+    lnP = y.reshape(B, trg.NU_STATE, -1)[:, :3]
     a = settings.a_in * torch.exp(eta)
     pieces = {
         "rhs": lambda: rhs(eta, y),
@@ -145,8 +144,10 @@ def rhs_pieces(cfg, settings, m, ys, cs, ec, out: dict) -> None:
         "rhs_tail_plain": lambda: rhs_tail.rhs_tail_plain(*args),
         "omega_inputs": lambda: trg.omega_inputs(m, a),
         "growth_D_f": lambda: model.growth_D_f(m, 1.0 / a - 1.0),
-        "extend_power": lambda: fastpt.extend_power(cfg, lnP, cs.n_s, ec),
-        "engine": lambda: fastpt.compute_J_PZ(cfg, P, True, ec),
+        "engine_front": lambda: fastpt.engine_front(cfg, lnP, cs.n_s, ec,
+                                                    clip=True),
+        "engine": lambda: fastpt.compute_J_PZ(cfg, lnP, cs.n_s, True, ec,
+                                              clip=True),
     }
     out["rhs_ms"] = {name: dict(host_ms=host_ms(fn),
                                 event_ms=chip_smoke.time_ms(fn))

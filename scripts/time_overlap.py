@@ -1,6 +1,7 @@
 """Walls of run_batch's chunked scheduler over the bench's batch of 64 in
 two or more checkouts of the repo on one CUDA card, in turns: the
-host-prepare overlap of one checkout against another's inline prepare.
+host-prepare overlap of one checkout against another's inline prepare;
+and one RHS evaluation's device kernels, device busy ms and host ms.
 
     python3 scripts/time_overlap.py [--rounds N] [--out PATH]
         [--cells NAME,...] ROOT [ROOT ...]
@@ -13,8 +14,12 @@ run_batch at the default placement (prepare on the host): one chunk of
 this checkout's chip_smoke bench batch (full TRG 16 lanes, 1-loop 32)
 and the whole batch of 64 (full TRG in 4 chunks of 16, 1-loop with
 print_bias in 2 chunks of 32), each with a StageTimer (prepare, solve
-and, where the checkout has it, the overlap's stats).  --cells times
-only the named ones of CELLS (and warms up only their modes).  Prints one JSON
+and, where the checkout has it, the overlap's stats); the rhs_ cells
+take one RHS evaluation (trg.make_rhs) of a full-TRG chunk of 16 and a
+1-loop chunk of 32 design cosmologies, on chip_smoke.rt_state's states,
+and count its device kernels and device busy ms (torch.profiler) and
+its host ms (20 calls, synchronized).  --cells times only the named
+ones of CELLS (and warms up only their modes).  Prints one JSON
 line per (round, root) and writes them all, with the card's name and
 power limit, to PATH (default chiprun_out/time_overlap.json).  Imports
 nothing of JAX.
@@ -31,7 +36,9 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CELLS = ("full_trg_16", "full_trg_64", "oneloop_32", "oneloop_64")
+CELLS = ("full_trg_16", "full_trg_64", "oneloop_32", "oneloop_64",
+         "rhs_full_16", "rhs_oneloop_32")
+RHS_CELLS = CELLS[4:]
 
 
 def _smoke():
@@ -45,9 +52,10 @@ def _smoke():
 def time_one(root: str, cells=CELLS) -> dict:
     """The walls of `cells` in the checkout at root (this process)."""
     sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
     import torch
 
-    from redtime_tpu_torch import driver
+    from redtime_tpu_torch import driver, fastpt, trg
     from redtime_tpu_torch.config import RunSettings, SolverConfig
     from redtime_tpu_torch.kernels import build
     from redtime_tpu_torch.profiling import StageTimer
@@ -57,13 +65,16 @@ def time_one(root: str, cells=CELLS) -> dict:
     full = (SolverConfig(), RunSettings(one_loop=False, z_out=smoke.Z_OUT))
     oneloop = (SolverConfig(print_bias=True),
                RunSettings(one_loop=True, z_out=smoke.Z_OUT_1L))
+    rhs_runs = [(name, *run) for name, run in zip(RHS_CELLS, (
+        (full, smoke.N_DESIGN), (oneloop, smoke.N_DESIGN_1L)))
+        if name in cells]
     runs = [(name, *run) for name, run in zip(CELLS, (
         (full, smoke.N_DESIGN, smoke.N_DESIGN),
         (full, smoke.N_DESIGN, smoke.BATCH_BENCH),
         (oneloop, smoke.N_DESIGN_1L, smoke.N_DESIGN_1L),
         (oneloop, smoke.N_DESIGN_1L, smoke.BATCH_BENCH))) if name in cells]
     for mode, n in ((full, smoke.N_DESIGN), (oneloop, smoke.N_DESIGN_1L)):
-        if any(run[1] is mode for run in runs):
+        if any(run[1] is mode for run in runs + rhs_runs):
             driver.run_batch(*mode, *smoke.design_inputs(n), device="cuda")
     torch.cuda.synchronize()
     out = dict(root=root)
@@ -79,6 +90,21 @@ def time_one(root: str, cells=CELLS) -> dict:
                          stages_s=dict(timer.times),
                          stats={k: v for k, v in timer.stats.items()
                                 if k != "attempts"})
+    dev = torch.device("cuda")
+    for name, (cfg, settings), B in rhs_runs:
+        cs, lins = smoke.design_inputs(B)
+        m = driver._prepare(cfg, ([x.numpy() for x in cs], list(lins), None),
+                            dev, True)
+        ec = fastpt.engine_consts(cfg, dev)
+        cache = (trg.build_oneloop_cache(cfg, settings, m, ec)
+                 if settings.one_loop else None)
+        eta, y = smoke.rt_state(np.random.default_rng(7), cfg, settings, m,
+                                B)
+        rhs = trg.make_rhs(cfg, settings, m, ec, cache)
+        kernels, busy = smoke.rhs_device_kernels(rhs, eta, y)
+        out[name] = dict(rhs_device_kernels=kernels,
+                         rhs_device_busy_ms=busy,
+                         rhs_host_ms=smoke.rhs_host_ms(rhs, eta, y))
     return out
 
 

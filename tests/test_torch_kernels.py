@@ -1,5 +1,6 @@
 """The hand kernels' wrappers (K1 out_leg, K2 pz_leg, K3 rk_finish, K4
-affine, K5 int8_dot, K6 dd_mul, K7 oz_fused, K8 rhs_tail) and
+affine, K5 int8_dot, K6 dd_mul, K7 oz_fused, K8 rhs_tail, K9
+engine_front, K10 tab_leg) and
 chip_smoke.py's inputs.  This file
 imports no JAX, so its `cuda` tests also run on a GPU machine that has
 none:
@@ -13,7 +14,9 @@ dot-product forward-error bound (they sum in another order), K3
 (rk_finish and rk_stage, which round every operation alone as their plain
 versions do; CUDA's pow is the routine torch.pow runs) and K4-K7 bit for
 bit, K8 within 1e-13 of each (lane, row)'s scale (its plain version's
-three small matrix products sum in cuBLAS's order).
+three small matrix products sum in cuBLAS's order), K9 and K10 within
+their stated forward-error bounds (engine_front.error_bound,
+tab_leg.error_bound).
 """
 
 import os
@@ -29,12 +32,14 @@ from redtime_tpu_torch import fastpt as tf
 from redtime_tpu_torch import ode as tode
 from redtime_tpu_torch.config import SolverConfig as TCfg
 from redtime_tpu_torch.kernels import counts
+from redtime_tpu_torch.kernels import engine_front as k9
 from redtime_tpu_torch import probes
 from redtime_tpu_torch.kernels import out_leg as k1
 from redtime_tpu_torch.kernels import probes as kp
 from redtime_tpu_torch.kernels import pz_leg as k2
 from redtime_tpu_torch.kernels import rhs_tail as k8
 from redtime_tpu_torch.kernels import rk_finish as k3
+from redtime_tpu_torch.kernels import tab_leg as k10
 
 EPS = np.finfo(np.float64).eps
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -720,6 +725,63 @@ def test_cuda_legs_on_ragged_grids(cuda_device, nk, np_factor):
         assert bool(((PZ - k2.pz_leg_plain(*args)).abs()
                      <= _k2_bound(*args)).all()), B
         assert torch.equal(PZ, k2.pz_leg(*args)), B
+
+
+# (nk, np_factor, lanes) of K9 and K10: the main path's chunks (16, 64)
+# and packed lanes (8), nk=48, the presets' grids (nk = 512, 256 at np =
+# 2048, 2 lanes) and ragged ones (nk = 37, 16; np_factor 8)
+ENGINE_GRIDS = [(128, 4, 16), (128, 4, 64), (128, 8, 8), (48, 4, 2),
+                (512, 4, 2), (256, 8, 2), (37, 4, 3), (16, 4, 5)]
+
+
+def _within(got, ref, bound):
+    """NaN in the same places; elsewhere |got - ref| <= bound."""
+    fin = torch.isfinite(ref)
+    return bool(torch.equal(got.isnan(), ref.isnan())
+                and ((got - ref).abs() <= bound)[fin].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk,np_factor,B", ENGINE_GRIDS)
+def test_cuda_engine_legs_match_plain(cuda_device, nk, np_factor, B):
+    """On the card: K9 engine_front on a state's ln P rows (a strided view,
+    clipped as the RHS clips them; a NaN lane, a lane past the clip on
+    both sides) and K10 tab_leg on its ci with 7 and 14 families, against
+    their plain versions within their stated bounds, the same bits on two
+    calls; then compute_J_PZ launches K9, K10, K1 and K2 once each."""
+    cfg = TCfg(nk=nk, np_factor=np_factor)
+    ec = tf.engine_consts(cfg, cuda_device)
+    rng = np.random.default_rng(nk * B)
+    y = 8.0 - 0.3 * rng.standard_normal((B, 41, nk))
+    y[0, 0, : nk // 2], y[0, 2, nk // 2:] = 400.0, -400.0
+    if B > 1:
+        y[-1] = np.nan
+    lnP = torch.as_tensor(y, device=cuda_device)[:, :3]
+    n_s = torch.as_tensor(rng.uniform(0.9, 1.0, B), device=cuda_device)
+    front = (lnP, n_s, ec.pab_M, ec.pab_v, ec.wp, ec.kbias, ec.dft_fwd_half)
+    before = counts.snapshot()
+    P, ci = k9.engine_front(*front, clip=True)
+    P_ref, ci_ref, dP, dci = k9.error_bound(*front, clip=True)
+    assert _within(P, P_ref, dP) and _within(ci, ci_ref, dci)
+    assert bool(torch.isfinite(P[0]).all() and torch.isfinite(ci[0]).all())
+    P2, ci2 = k9.engine_front(*front, clip=True)
+    assert torch.equal(P.nan_to_num(), P2.nan_to_num())
+    assert torch.equal(ci.nan_to_num(), ci2.nan_to_num())
+    g = (ec.ga_re, ec.ga_im, ec.gb_re, ec.gb_im, ec.dft_bwd_half)
+    for nfam in (7, tf.NFAM):
+        tab = k10.tab_leg(ci_ref, *g, nfam)
+        ref, bound = k10.error_bound(ci_ref, *g, nfam)
+        assert _within(tab, ref, bound), nfam
+        assert torch.equal(tab.nan_to_num(), k10.tab_leg(ci_ref, *g, nfam)
+                           .nan_to_num()), nfam
+        assert bool(torch.isfinite(tab[:B - 1]).all()), nfam
+    after = counts.snapshot()
+    assert after["engine_front"] == before["engine_front"] + 2
+    assert after["tab_leg"] == before["tab_leg"] + 4
+    tf.compute_J_PZ(cfg, lnP, n_s, True, ec, clip=True)
+    ran = {k: v - after[k] for k, v in counts.snapshot().items()}
+    assert ran == dict(dict.fromkeys(ran, 0), engine_front=1, tab_leg=1,
+                       out_leg=1, pz_leg=1)
 
 
 # (tableau, D): the main path's states (growth ramp, growth segments,
