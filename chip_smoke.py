@@ -6,7 +6,7 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the CUDA kernels from redtime_tpu_torch/csrc with nvcc
-     (sm_90a) and checks that K1's, K2's and K10's SASS holds FP64
+     (sm_90a) and checks that K1's and K2's SASS holds FP64
      tensor-core instructions (DMMA), K5's int8 mma.sync (IMMA) and K7's
      int8 wgmma (IGMMA), by cuobjdump;
   3. checks each hand kernel against its plain PyTorch version on the card
@@ -45,8 +45,9 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
      nk=48, 2 lanes; the presets' 1-loop cache and finalize rows), within
      their stated forward-error bounds of their plain versions, NaN lanes
      NaN alone, two calls the same bits, each timed on the device with its
-     bound, and at full TRG 16 lanes eager and against plain and (K10) the
-     library's matmul;
+     bound (the FFTs' and, for the history, the GEMM form's), and at full
+     TRG 16 lanes eager and against plain, (K10) the library's matmul and
+     both against cuFFT (torch.fft: yardsticks the port never calls);
   4. checks the probe kernels K4 affine, K5 int8_dot and K6 dd_mul
      against their plain versions on the card, bit for bit, at the
      probes' shapes, at one larger shape each and on ragged sizes, and
@@ -1132,7 +1133,8 @@ def engine_inputs_of(cfg, settings, m, ec, y, mode: str) -> list:
     2): in full TRG the RHS's ln P rows (a strided view, clipped), in
     1-loop mode the z1l cache's ln P_lin_cb rows (an expanded row) and
     finalize's rows of y (unclipped).  Each a dict: label, cfg, ec, the
-    wrappers' arguments (front, clip) and nfam."""
+    wrappers' arguments (front: the plain version's; band: what K9's
+    kernel reads instead of pab_M and dft_fwd_half; clip) and nfam."""
     import torch
 
     from redtime_tpu_torch import fastpt, trg
@@ -1148,30 +1150,55 @@ def engine_inputs_of(cfg, settings, m, ec, y, mode: str) -> list:
     nfam = fastpt.NFAM if rsd else fastpt.NFAM_J
     label = f"{mode} nk={nk} B={B}"
     consts = (ec.pab_M, ec.pab_v, ec.wp, ec.kbias, ec.dft_fwd_half)
+    band = (ec.pab_j0, ec.pab_w, ec.wc_half, ec.twiddle)
     if mode != "oneloop":
         return [dict(label=label, cfg=cfg, ec=ec, nfam=nfam, clip=True,
-                     front=(y[:, :3], n_s) + consts)]
+                     front=(y[:, :3], n_s) + consts, band=band)]
     _, Pcb, _ = mdl.plin_all(cfg, m, cfg.z1l)
     cache = torch.log(Pcb)[:, None, :].expand(-1, 3, -1)
     nfam_out = fastpt.NFAM if settings.print_rsd else fastpt.NFAM_J
     return [dict(label=f"{label} cache", cfg=cfg, ec=ec, nfam=nfam,
-                 clip=False, front=(cache, n_s) + consts),
+                 clip=False, front=(cache, n_s) + consts, band=band),
             dict(label=f"{label} finalize", cfg=cfg, ec=ec, nfam=nfam_out,
-                 clip=False, front=(y[:, :3], n_s) + consts)]
+                 clip=False, front=(y[:, :3], n_s) + consts, band=band)]
+
+
+def fft_flops(n: int) -> float:
+    """Floating-point operations of a complex FFT of length n along
+    fourier.fft_plan(n): 5 n log2 p a radix-p stage (p = 2, 4, 8: the
+    butterflies and twiddle products), 8 n R the direct odd R-point
+    stage."""
+    from redtime_tpu_torch import fourier
+
+    return float(sum(5.0 * n * (p.bit_length() - 1) if p & (p - 1) == 0
+                     else 8.0 * n * p for p in fourier.fft_plan(n)))
 
 
 def engine_costs(B: int, nk: int, npts: int, nc: int, nfam: int) -> tuple:
-    """least_time of K9 and of K10: each input read once, each output
-    written once; the products' operations on the FP64 tensor cores (the
-    least time; K9 runs on the FP64 pipes, the window products of K10
-    are left out)."""
-    N, half = 2 * npts, nc // 2
-    k9 = least_time(8.0 * (3 * B * nk + B + npts * nk + 3 * npts
-                           + npts * nc + 3 * B * npts + 3 * B * nc),
-                    2.0 * 3 * B * npts * (nk + nc), PEAK_FP64_TC)
+    """least_time of K9 and of K10 as they now run, FFTs on the FP64 pipes
+    (each input read once, each output written once, the twiddle table
+    [2np, 2] whole), and the GEMM form's least time of each (the products
+    with the dense pab_M, dft_fwd_half and dft_bwd_half on the FP64 tensor
+    cores: the earlier kernels' bound, kept for the history).  K9: the
+    band's 4 FMAs, the real split (10 flops an output) and a complex FFT
+    of length np / 2 a row; K10: forming X and Z (16 flops a frequency)
+    and a complex FFT of length np a row."""
+    N, half, rows = 2 * npts, nc // 2, 3 * B
+    k9 = least_time(8.0 * (3 * B * nk + B + 3 * npts + half + 2 * N
+                           + 3 * B * npts + 3 * B * nc) + 36.0 * npts,
+                    rows * (8.0 * npts + 10.0 * half + fft_flops(half)),
+                    PEAK_FP64)
     M = 6 * nfam * B
-    k10 = least_time(8.0 * (3 * B * nc + 4 * nfam * half + nc * N + M * N),
-                     2.0 * M * nc * N, PEAK_FP64_TC)
+    k10 = least_time(8.0 * (3 * B * nc + 4 * nfam * half + 2 * N + M * N),
+                     M * (16.0 * half + fft_flops(npts)), PEAK_FP64)
+    gemm9 = least_time(8.0 * (3 * B * nk + B + npts * nk + 3 * npts
+                              + npts * nc + 3 * B * npts + 3 * B * nc),
+                       2.0 * 3 * B * npts * (nk + nc), PEAK_FP64_TC)
+    gemm10 = least_time(8.0 * (3 * B * nc + 4 * nfam * half + nc * N
+                               + M * N), 2.0 * M * nc * N, PEAK_FP64_TC)
+    for row, gemm in ((k9, gemm9), (k10, gemm10)):
+        row.update(gemm_bound_ms=gemm["bound_ms"],
+                   gemm_bound_by=gemm["bound_by"])
     return k9, k10
 
 
@@ -1195,8 +1222,10 @@ def check_engine_legs(cases: list, detail: dict) -> list:
     (engine_front.error_bound, tab_leg.error_bound), NaN lanes NaN and no
     other lane, two calls the same bits.  K10 takes the plain version's ci.
     Times both on the device at every case and, at ENGINE_TIMED, eager and
-    against plain and (K10) the library's matmul on the plain version's
-    sab; returns their rows for the kernels' line."""
+    against plain, (K10) the library's matmul on the plain version's sab,
+    and cuFFT as a yardstick (torch.fft.rfft of P_ext kbias for K9,
+    torch.fft.irfft of the zero-padded complex sab for K10); returns their
+    rows for the kernels' line."""
     import torch
 
     from redtime_tpu_torch.kernels import engine_front as k9
@@ -1208,10 +1237,11 @@ def check_engine_legs(cases: list, detail: dict) -> list:
     for c in cases:
         front, clip, nfam, ec = c["front"], c["clip"], c["nfam"], c["ec"]
         what = c["label"]
-        P, ci = k9.engine_front(*front, clip=clip)
+        band = c["band"]
+        P, ci = k9.engine_front(*front, *band, clip=clip)
         P_ref, ci_ref, dP, dci = k9.error_bound(*front, clip=clip)
         g = (ec.ga_re, ec.ga_im, ec.gb_re, ec.gb_im, ec.dft_bwd_half)
-        tab = k10.tab_leg(ci_ref, *g, nfam)
+        tab = k10.tab_leg(ci_ref, *g, ec.twiddle, nfam)
         tab_ref, dtab = k10.error_bound(ci_ref, *g, nfam)
         ratios = {}
         for name, pairs in (("engine_front", ((P, P_ref, dP),
@@ -1228,17 +1258,19 @@ def check_engine_legs(cases: list, detail: dict) -> list:
             lanes = ref.flatten(1).isnan().any(1)
             check(bool(torch.equal(x.flatten(1).isnan().all(1), lanes)),
                   f"{what}: NaN lanes {lanes.tolist()} not NaN alone")
-        P2, ci2 = k9.engine_front(*front, clip=clip)
+        P2, ci2 = k9.engine_front(*front, *band, clip=clip)
         check(same_bits(P, P2) and same_bits(ci, ci2),
               f"engine_front {what}: two calls differ")
-        check(same_bits(tab, k10.tab_leg(ci_ref, *g, nfam)),
+        check(same_bits(tab, k10.tab_leg(ci_ref, *g, ec.twiddle, nfam)),
               f"tab_leg {what}: two calls differ")
         B, _, nk = front[0].shape
         npts, nc = ec.dft_fwd_half.shape
         costs = dict(zip(("engine_front", "tab_leg"),
                          engine_costs(B, nk, npts, nc, nfam)))
-        calls = dict(engine_front=lambda: k9.engine_front(*front, clip=clip),
-                     tab_leg=lambda: k10.tab_leg(ci_ref, *g, nfam))
+        calls = dict(engine_front=lambda: k9.engine_front(*front, *band,
+                                                          clip=clip),
+                     tab_leg=lambda: k10.tab_leg(ci_ref, *g, ec.twiddle,
+                                                 nfam))
         line = []
         for name, fn in calls.items():
             row = dict(case=what, B=B, nk=nk, np=npts, nfam=nfam, clip=clip,
@@ -1254,17 +1286,30 @@ def check_engine_legs(cases: list, detail: dict) -> list:
         if what != ENGINE_TIMED:
             continue
         sab = k10.sab_plain(ci_ref, *g[:4], nfam)
-        t9, runs9 = measure(lambda: k9.engine_front(*front, clip=clip),
+        half = nc // 2
+        spec = torch.complex(sab[..., :half], sab[..., half:])
+        Q = P_ref * front[5]
+        t9, runs9 = measure(calls["engine_front"],
                             lambda: k9.engine_front_plain(*front, clip=clip))
-        t10, runs10 = measure(lambda: k10.tab_leg(ci_ref, *g, nfam),
+        t10, runs10 = measure(calls["tab_leg"],
                               lambda: k10.tab_leg_plain(ci_ref, *g, nfam),
                               lambda: torch.matmul(sab, g[4]))
-        detail.update(engine_front_timing=runs9, tab_leg_timing=runs10)
-        rows["engine_front"] = dict(t9, **costs["engine_front"])
+        fft9 = [graph_ms(lambda: torch.fft.rfft(Q)) for _ in range(3)]
+        fft10 = [graph_ms(lambda: torch.fft.irfft(spec, n=2 * npts))
+                 for _ in range(3)]
+        detail.update(engine_front_timing=runs9, tab_leg_timing=runs10,
+                      engine_front_cufft_rfft=fft9,
+                      tab_leg_cufft_irfft=fft10)
+        rows["engine_front"] = dict(
+            t9, **costs["engine_front"], cufft_ms=float(np.median(fft9)),
+            cufft_note="torch.fft.rfft(P_ext kbias): the forward leg "
+                       "alone, a yardstick (no single call computes K9)")
         rows["tab_leg"] = dict(
-            t10, **costs["tab_leg"],
+            t10, **costs["tab_leg"], cufft_ms=float(np.median(fft10)),
             library_note="torch.matmul(sab, dft_bwd_half) on the plain "
-                         "version's sab: leaves out the window products")
+                         "version's sab: leaves out the window products; "
+                         "cufft_ms: torch.fft.irfft of the zero-padded "
+                         "complex sab at n = 2np, a yardstick")
     check(set(rows) == {"engine_front", "tab_leg"},
           f"no engine case {ENGINE_TIMED!r} was checked")
     print(f"engine legs: K9 and K10 within their bounds at {len(cases)} "
@@ -1300,18 +1345,17 @@ def rhs_host_ms(rhs, eta, y, n: int = 20) -> float:
 
 
 # the tensor-core instruction each kernel's SASS must hold: FP64 (DMMA)
-# for K1, K2 and K10, int8 mma.sync (IMMA) for K5, int8 wgmma (IGMMA, the
+# for K1 and K2, int8 mma.sync (IMMA) for K5, int8 wgmma (IGMMA, the
 # opcode of K7's wgmma m64n64k32 s8 in the SASS of its first build) for
 # K7's main kernel as it runs (oz_fused_kernel<0>, mangled ...ILi0E; the
 # other instantiations are rt_oz_fused_ablate's measurement variants)
 TENSOR_CORE_OPS = {"out_leg_kernel": "DMMA", "pz_leg_kernel": "DMMA",
-                   "tab_leg_kernel": "DMMA",
                    "int8_dot_kernel": "IMMA",
                    "oz_fused_kernelILi0E": "IGMMA"}
 
 
 def check_tensor_cores(lib, detail: dict) -> None:
-    """K1, K2 and K10 run on the FP64 tensor cores, K5 and K7 on the int8
+    """K1 and K2 run on the FP64 tensor cores, K5 and K7 on the int8
     ones:
     their SASS (cuobjdump -sass of the built library) holds DMMA, IMMA
     (K5's mma.sync) and IGMMA (K7's wgmma) instructions."""

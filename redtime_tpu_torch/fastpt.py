@@ -9,10 +9,12 @@ low-k point).  Semantics follow the reference engine (`src/redTime.cc:
 form (redtime_tpu/fastpt.py:1155-1307):
 
   * front (hand kernel K9): the Pab extension of ln P, its clip, exp and
-    window (P_ext), then the forward leg (P_ext k^-nu) @ dft_fwd_half;
+    window (P_ext), then the forward leg (P_ext k^-nu) @ dft_fwd_half (on
+    the card from pab_M's 4-wide band and a real FFT in shared memory);
   * tab leg (hand kernel K10): the per-family gamma coefficients ga/gb
     (complex products on split re/im halves) and both convolution
-    backward transforms in one product, sab @ dft_bwd_half;
+    backward transforms in one product, sab @ dft_bwd_half (on the card a
+    pruned real-output FFT in shared memory);
   * output leg (hand kernel K1): J_f = (tab_a tab_b / 2np) @ G_f with the
     f64 composite matrix G_f = [FC|-FS] . diag(fh_f) . [Bc;Bs] . prek_f
     (the f/tau phase, the restricted even-sample backward DFT and prek
@@ -35,7 +37,8 @@ from scipy.special import loggamma
 
 from redtime_tpu_torch import fourier
 from redtime_tpu_torch.config import SolverConfig
-from redtime_tpu_torch.grids import make_grids, pab_extension_matrix
+from redtime_tpu_torch.grids import (make_grids, pab_band,
+                                    pab_extension_matrix)
 from redtime_tpu_torch.kernels.engine_front import (
     engine_front as engine_front_kernel, forward_plain)
 from redtime_tpu_torch.kernels.out_leg import out_leg, padded
@@ -322,8 +325,11 @@ def engine_consts_np(cfg: SolverConfig) -> dict:
     co = fastpt_coeffs(cfg)
     M, v = _pab_ext(cfg)
     fwd, bwd = _half_leg_consts(cfg)
+    j0, w = pab_band(M)
     return dict(
         pab_M=M, pab_v=v, wp=g.wp, kbias=co.kbias, dft_fwd_half=fwd,
+        pab_j0=j0, pab_w=w, wc_half=g.wc[:g.npts // 2],
+        twiddle=fourier.twiddles(2 * g.npts),
         ga_re=co.ga_re, ga_im=co.ga_im, gb_re=co.gb_re, gb_im=co.gb_im,
         dft_bwd_half=bwd, G=composite_out_matrix(cfg),
         toeplitz_sl=np.ascontiguousarray(
@@ -332,15 +338,21 @@ def engine_consts_np(cfg: SolverConfig) -> dict:
 
 
 class EngineConsts(NamedTuple):
-    """The engine's constants on one device: only what the GEMM form
-    reads (the JAX package's pack also carries its FFT/DFT-matmul and
-    Ozaki variants)."""
+    """The engine's constants on one device: what the plain versions of
+    the legs read (the dense matrices of the GEMM form) and what the hand
+    kernels read instead (pab_M's band, the window wc, the twiddles); the
+    JAX package's pack also carries its FFT/DFT-matmul and Ozaki
+    variants."""
 
     pab_M: torch.Tensor         # [np, nk] Pab extension (used transposed)
     pab_v: torch.Tensor         # [np]
     wp: torch.Tensor            # [np] power-spectrum window
     kbias: torch.Tensor         # [np] k^-nu
     dft_fwd_half: torch.Tensor  # [np, 2*half] = [fc.wc | -fs.wc]
+    pab_j0: torch.Tensor        # [np] int32: pab_M's band (pab_band),
+    pab_w: torch.Tensor         # [np, 4]    M[m, j0[m] + t] = w[m, t]
+    wc_half: torch.Tensor       # [half] coefficient window
+    twiddle: torch.Tensor       # [2np, 2] (cos, sin)(2 pi j / 2np)
     ga_re: torch.Tensor         # [NFAM, half]
     ga_im: torch.Tensor
     gb_re: torch.Tensor
@@ -367,8 +379,9 @@ def device_of(device) -> torch.device:
 def _engine_consts(cfg: SolverConfig, device: str) -> EngineConsts:
     arrs = engine_consts_np(cfg)
     ec = EngineConsts(**{
-        k: torch.as_tensor(np.ascontiguousarray(v), dtype=torch.float64,
-                           device=device)
+        k: torch.as_tensor(np.ascontiguousarray(v), device=device,
+                           dtype=torch.int32 if k == "pab_j0"
+                           else torch.float64)
         for k, v in arrs.items()})
     return ec._replace(G=padded(ec.G))
 
@@ -389,7 +402,8 @@ def engine_front(cfg: SolverConfig, lnP3: torch.Tensor, n_s: torch.Tensor,
     and the forward leg (P_ext k^-nu) @ dft_fwd_half.  clip: first clip
     lnP to [LNP_MIN, LNP_MAX], as the RHS clips its state."""
     return engine_front_kernel(lnP3, n_s, ec.pab_M, ec.pab_v, ec.wp,
-                               ec.kbias, ec.dft_fwd_half, clip)
+                               ec.kbias, ec.dft_fwd_half, ec.pab_j0,
+                               ec.pab_w, ec.wc_half, ec.twiddle, clip)
 
 
 def extend_power(cfg: SolverConfig, lnP3: torch.Tensor, n_s: torch.Tensor,
@@ -404,7 +418,7 @@ def _legs(cfg: SolverConfig, P_ext: torch.Tensor, ci: torch.Tensor,
     """K10, K1 and K2 from the front's (P_ext, ci)."""
     nfam = NFAM if with_rsd else NFAM_J
     tab = tab_leg(ci, ec.ga_re, ec.ga_im, ec.gb_re, ec.gb_im,
-                  ec.dft_bwd_half, nfam)                # [B, 2, nfam, 3, 2np]
+                  ec.dft_bwd_half, ec.twiddle, nfam)    # [B, 2, nfam, 3, 2np]
     Jw = out_leg(tab, ec.G[:nfam])                      # [B, nfam, 3, 3, nk+1]
     PZw = pz_leg(ec.toeplitz_sl, P_ext, ec.pz_kfac_sl, make_grids(cfg).nshift)
     return Jw, PZw

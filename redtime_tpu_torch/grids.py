@@ -117,3 +117,24 @@ def pab_extension_matrix(grids: Grids):
                         w *= (x - xs[l]) / (xs[j] - xs[l])
                 M[ii, n - 1 + j] = w
     return M, v
+
+
+def pab_band(M: np.ndarray):
+    """The band of the extension matrix M [npts, nk] (pab_extension_matrix):
+    (j0 [npts] int32, w [npts, 4]) with M[m, j0[m] + t] = w[m, t] and every
+    other entry of row m zero.  Each row holds at most 4 non-zeros on
+    consecutive columns (the Lagrange cubic's 4, the linear intervals' 2,
+    the right extrapolation's 1); j0 is clamped to nk - 4 so that the 4
+    columns stay inside the grid.  Needs nk >= 4."""
+    npts, nk = M.shape
+    if nk < 4:
+        raise ValueError(f"pab_band: nk must be at least 4, got {nk}")
+    j0 = np.empty(npts, dtype=np.int32)
+    w = np.zeros((npts, 4))
+    for m in range(npts):
+        nz = np.flatnonzero(M[m])
+        j0[m] = min(nz[0], nk - 4) if len(nz) else 0
+        if len(nz) and nz[-1] >= j0[m] + 4:
+            raise ValueError(f"pab_band: row {m} spans more than 4 columns")
+        w[m] = M[m, j0[m]:j0[m] + 4]
+    return j0, w

@@ -174,12 +174,10 @@ def lib() -> ctypes.CDLL:
 def bind_engine(handle: ctypes.CDLL) -> ctypes.CDLL:
     """Declare K9's and K10's entry points on a loaded library."""
     p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    handle.rt_engine_front.argtypes = [p, n, n, p, n] + [p] * 7 + [i] * 6 \
-        + [p]
+    handle.rt_engine_front.argtypes = [p, n, n, p, n] + [p] * 9 \
+        + [i] * 5 + [p, i, p]
     handle.rt_engine_front.restype = i
-    handle.rt_engine_front_clusters.argtypes = [i, i, i]
-    handle.rt_engine_front_clusters.restype = i
-    handle.rt_tab_leg.argtypes = [p] * 7 + [i] * 4 + [p]
+    handle.rt_tab_leg.argtypes = [p] * 7 + [i] * 7 + [p, i, p]
     handle.rt_tab_leg.restype = i
     return handle
 

@@ -8,20 +8,24 @@ chip_smoke.graph_ms (20 calls in a CUDA graph, replayed 5 times; the
 least of three readings), on random states' ln P rows (clipped, as the
 RHS hands them over):
 
-  * K9 at nk=128 over LANES lanes, with the lanes a cluster the wrapper
-    picks and the clusters the CUDA runtime says fit at once;
+  * K9 at nk=128 over LANES lanes, beside torch.fft.rfft of its plain
+    version's P_ext kbias (cuFFT: the forward leg alone);
   * K10 at SHAPES (nk, lanes; 14 families), beside torch.matmul of the
-    plain version's sab with dft_bwd_half (the library's time for the
-    product alone);
+    plain version's sab with dft_bwd_half and torch.fft.irfft of the
+    zero-padded complex sab at n = 2np (cuFFT): the library's times for
+    the transform alone;
   * with --drops, the kernels built again from their sources with one
-    part replaced (DROPS: K9 without the forward leg's loads of
-    dft_fwd_half, without the extension's loads of pab_M, or without
-    both; K10 without the staged copies of ci and g, or without the
-    tensor-core products) into libraries beside the package's, timed in
-    the same way: what a part costs is the kernel's time less the
-    variant's.  The variants' outputs are wrong by design and not
-    checked.
+    part replaced (DROPS: K9 without the FFT stages, without exp, or
+    without the row's NaN / inf counts; K10 without the tab stores,
+    without the FFT stages, or without its loads of ci and g) into
+    libraries beside the package's, timed in the same way: what a part
+    costs is the kernel's time less the variant's.  The variants'
+    outputs are wrong by design and not checked.  One more K10 variant
+    runs its transform the other way the pruning allows, as four complex
+    transforms of length np / 2 (right where the launch plan has S = 1:
+    the nk=128 shapes).
 
+The torch.fft calls are yardsticks here; the port never calls them.
 Prints the card and each reading, and writes them as JSON to PATH
 (default chiprun_out/time_engine_legs.json).  Imports nothing of JAX.
 """
@@ -38,28 +42,70 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LANES = (1, 2, 8, 15, 16, 17, 32, 64)
+LANES = (1, 2, 8, 16, 32, 64)
 SHAPES = ((128, 16), (128, 8), (128, 64), (48, 2), (512, 2), (256, 2))
 # source, then (text, its replacement) of each variant
 DROPS = {
-    "K9 without the forward leg's loads": ("engine_front.cu", (
-        ("f[u] = F[(size_t)(m + u) * nc];", "f[u] = 1e-3 * (m + u);"),
-        ("step(m, F[(size_t)m * nc]);", "step(m, 1e-3);"))),
-    "K9 without the extension's loads": ("engine_front.cu", (
-        ("w[u][g] = j < nk && m < m_hi ? pab_M[(size_t)m * nk + j] : 0.0;",
-         "w[u][g] = 1e-3;"),)),
-    "K9 without either": ("engine_front.cu", (
-        ("f[u] = F[(size_t)(m + u) * nc];", "f[u] = 1e-3 * (m + u);"),
-        ("step(m, F[(size_t)m * nc]);", "step(m, 1e-3);"),
-        ("w[u][g] = j < nk && m < m_hi ? pab_M[(size_t)m * nk + j] : 0.0;",
-         "w[u][g] = 1e-3;"))),
-    "K10 without the staged ci and g": ("tab_leg.cu", (
-        ("cp_async8(st + D_STAGE + row * BKH + kq, ok ? raw_src[i] + k : D,"
-         "\n                  ok);",
-         "st[D_STAGE + row * BKH + kq] = 1e-3;"),)),
-    "K10 without the products": ("tab_leg.cu", (
-        ("rt::Dmma<KK>::run(acc[im][j], a[im], bf[j]);",
-         "acc[im][j][0] += a[im][0] * bf[j][0];"),)),
+    "K9 without the FFT stages": ("engine_front.cu", (
+        ("rt_fft::run<false>(plan, 1, half, T1, half, buf0, buf1, first, "
+         "last);",
+         "for (int o = threadIdx.x; o < half; o += THREADS)\n"
+         "    last(0, o, first(0, o));"),)),
+    "K9 without exp": ("engine_front.cu", (
+        ("__dmul_rn(exp(x), p.wp)", "__dmul_rn(x, p.wp)"),)),
+    "K9 without the NaN and inf counts": ("engine_front.cu", (
+        ("nans += __syncthreads_count(isnan(v));\n"
+         "    infs += __syncthreads_count(isinf(v));", "__syncthreads();"),)),
+    "K10 without the tab stores": ("tab_leg.cu", (
+        ("out[out_row[row] + S * m + h] = v;",
+         "if (v.x == 1.25e-300) out[out_row[row] + S * m + h] = v;"),)),
+    "K10 without the FFT stages": ("tab_leg.cu", (
+        ("rt_fft::run<true>(plan, rows, ns, tw, N, buf0, buf1, first, last);",
+         "for (int t = threadIdx.x; t < rows * ns; t += blockDim.x)\n"
+         "    last(t / ns, t % ns, first(t / ns, t % ns));"),)),
+    # the pruned transform as four complex ones of length np / 2, one a
+    # residue r of n mod 4: y[4m + r] = Re IDFT(c_k X_k w_2np^{kr})[m],
+    # in turn through the same buffers (valid where S = 1)
+    "K10 as four transforms of length np / 2": ("tab_leg.cu", ((
+        "  double2* out = reinterpret_cast<double2*>(tab);\n",
+        """  rt_fft::Plan pl = plan;  // the plan for half = np / 2
+  if (pl.radix[0] == 2) {
+    for (int s = 1; s < pl.nst; ++s) pl.radix[s - 1] = pl.radix[s];
+    --pl.nst;
+  } else {
+    pl.radix[0] /= 2;
+  }
+  const double* cv = ci + (size_t)pair * np;
+  for (int r = 0; r < 4; ++r) {
+    for (int t = threadIdx.x; t < rows * half; t += blockDim.x) {
+      const int row = t / half, k = t - row * half;
+      const int q = q0 + row, s = q / nfam, f = q - s * nfam;
+      const size_t g = (size_t)f * half + k;
+      const double wr = s ? gb_re[g] : ga_re[g];
+      const double wi = s ? gb_im[g] : ga_im[g];
+      const double c = cv[k], m = cv[half + k];
+      const double2 x =
+          make_double2(__dsub_rn(__dmul_rn(c, wr), __dmul_rn(m, wi)),
+                       __dadd_rn(__dmul_rn(c, wi), __dmul_rn(m, wr)));
+      const double2 z = rt_fft::cmul(__ldg(tw + k * r % N), x);
+      const double ck = k ? 2.0 : 1.0;
+      Zs[t] = make_double2(ck * z.x, ck * z.y);
+    }
+    __syncthreads();
+    auto first4 = [&](int row, int k) { return Zs[row * half + k]; };
+    auto last4 = [&](int row, int m, double2 v) {
+      tab[2 * out_row[row] + 4 * m + r] = v.x;
+    };
+    rt_fft::run<true>(pl, rows, half, tw, N, buf0, buf1, first4, last4);
+    __syncthreads();
+  }
+  return;
+  double2* out = reinterpret_cast<double2*>(tab);
+"""),)),
+    "K10 without the loads of ci and g": ("tab_leg.cu", (
+        ("const double wr = s ? gb_re[g] : ga_re[g], wi = s ? gb_im[g] : "
+         "ga_im[g];\n    const double c = cr[k], m = cr[half + k];",
+         "const double wr = 1e-3 * k, wi = 1e-3, c = 1.0 + g, m = 0.5;"),)),
 }
 
 
@@ -145,36 +191,39 @@ def main() -> int:
             (B, 41, cfg.nk)), device="cuda")
         n_s = torch.full((B,), 0.96, dtype=torch.float64, device="cuda")
         return ec, (y[:, :3], n_s, ec.pab_M, ec.pab_v, ec.wp, ec.kbias,
-                    ec.dft_fwd_half)
+                    ec.dft_fwd_half), (ec.pab_j0, ec.pab_w, ec.wc_half,
+                                       ec.twiddle)
 
     cfg = SolverConfig()
-    fit = [build.lib().rt_engine_front_clusters(n, cfg.nk, cfg.npts)
-           for n in (1, 2)]
     for B in LANES:
-        _, args9 = front(cfg, B)
-        row = dict(B=B, lanes_a_cluster=k9.lanes(
-            B, cfg.nk, cfg.npts, 2 * (cfg.npts // 2), lambda n: fit[n - 1]),
-            clusters_that_fit=fit)
+        ec, args9, band = front(cfg, B)
+        P, _ = k9.engine_front_plain(*args9, clip=True)
+        Q = P * ec.kbias
+        row = dict(B=B, cufft_rfft=time(lambda: torch.fft.rfft(Q)))
         for name, handle in variants.items():
             if name == "kernel" or name.startswith("K9"):
                 with using(build, handle):
-                    row[name] = time(lambda: k9.engine_front(*args9,
-                                                             clip=True))
+                    row[name] = time(lambda: k9.engine_front(
+                        *args9, *band, clip=True))
         out["k9"].append(row)
         print(json.dumps(row))
     for nk, B in SHAPES:
         cfg = {512: SolverConfig.high_accuracy, 256: SolverConfig.v01_compat
                }.get(nk, lambda: SolverConfig(nk=nk))()
-        ec, args9 = front(cfg, B)
+        ec, args9, _ = front(cfg, B)
         _, ci = k9.engine_front_plain(*args9, clip=True)
         g = (ec.ga_re, ec.ga_im, ec.gb_re, ec.gb_im, ec.dft_bwd_half)
         sab = k10.sab_plain(ci, *g[:4], fastpt.NFAM)
-        row = dict(nk=nk, B=B, library=time(lambda: torch.matmul(sab, g[4])))
+        half = cfg.npts // 2
+        z = torch.complex(sab[..., :half], sab[..., half:])
+        n2 = 2 * cfg.npts
+        row = dict(nk=nk, B=B, library=time(lambda: torch.matmul(sab, g[4])),
+                   cufft_irfft=time(lambda: torch.fft.irfft(z, n=n2)))
         for name, handle in variants.items():
             if name == "kernel" or name.startswith("K10"):
                 with using(build, handle):
-                    row[name] = time(lambda: k10.tab_leg(ci, *g,
-                                                         fastpt.NFAM))
+                    row[name] = time(lambda: k10.tab_leg(
+                        ci, *g, ec.twiddle, fastpt.NFAM))
         out["k10"].append(row)
         print(json.dumps(row))
     path = args.out or os.path.join(ROOT, "chiprun_out",

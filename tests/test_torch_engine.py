@@ -52,7 +52,10 @@ def test_engine_consts_bit_identical(nk):
                toeplitz_sl=co_j.toeplitz[:, g.nshift:g.nshift + nk, :],
                pz_kfac_sl=co_j.pz_kfac[g.nshift:g.nshift + nk])
     got = tf.engine_consts_np(tc)
-    assert set(got) == set(ref) | {"G"}
+    # the hand kernels' own constants (pab_M's band, wc, the twiddles:
+    # tests/test_torch_engine_legs.py) and the composite G
+    assert set(got) == set(ref) | {"G", "pab_j0", "pab_w", "wc_half",
+                                   "twiddle"}
     for name, arr in ref.items():
         np.testing.assert_array_equal(got[name], arr, err_msg=name)
     for a, b in zip(tf._restricted_out_consts(tc),

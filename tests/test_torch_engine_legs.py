@@ -18,10 +18,17 @@ plain version.
     forward-error bound;
   * a NaN lane stays NaN and leaves the other lane's bits alone; a lane
     past the clip on both sides gives the clipped lane's bits;
-  * CPU models of the kernels' tilings (csrc/tab_leg.cu, csrc/
-    engine_front.cu): every (row, column, K) product once, ragged edges
-    zero-filled in both operands, so stages left unfilled (NaN here) never
-    reach an output;
+  * numpy models of the kernels' stage order (csrc/engine_front.cu,
+    csrc/tab_leg.cu, csrc/fft_smem.cuh): the band extension with the
+    dense product's NaN / inf rule, the real-input FFT and its split
+    (K9), the window products, the pruned real-output FFT with its S-fold
+    split over the blocks of launch_plan (K10), every stage writing each
+    element once, at ragged grids (nk 37 / 16 / 12 / 48, np_factor 8, the
+    presets' np = 2048): within the kernels' stated bounds of the plain
+    versions and within a stated tolerance of JAX's FFT path
+    (_coeff_spectra_pair, _conv_prod);
+  * pab_M's band, the twiddle tables against long-double roots, the FFT
+    plans against numpy.fft, K10's launch plans;
   * the wrappers' errors.
 """
 
@@ -34,10 +41,13 @@ import pytest
 import torch
 
 from redtime_tpu import fastpt as jf
+from redtime_tpu import fourier as jfourier
 from redtime_tpu.config import SolverConfig as JCfg
 from redtime_tpu_torch import fastpt as tf
+from redtime_tpu_torch import fourier
 from redtime_tpu_torch.config import SolverConfig as TCfg
-from redtime_tpu_torch.grids import make_grids
+from redtime_tpu_torch.grids import (make_grids, pab_band,
+                                     pab_extension_matrix)
 from redtime_tpu_torch.kernels import counts
 from redtime_tpu_torch.kernels import engine_front as k9
 from redtime_tpu_torch.kernels import tab_leg as k10
@@ -188,7 +198,7 @@ def test_nan_lane_stays_nan_and_alone():
     got = tf.compute_J_PZ(tc, y[:, :3], ns, True, ec, clip=True)
     P, ci = tf.engine_front(tc, y[:, :3], ns, ec, clip=True)
     tab = k10.tab_leg(ci, ec.ga_re, ec.ga_im, ec.gb_re, ec.gb_im,
-                      ec.dft_bwd_half, tf.NFAM)
+                      ec.dft_bwd_half, ec.twiddle, tf.NFAM)
     for x in (*got, P, ci, tab):
         assert bool(x[1].isnan().all())
     for a, b in zip(got, ref):
@@ -214,163 +224,370 @@ def test_clip_on_both_sides():
     assert float(P.max()) <= float(np.exp(k9.EXT_MAX) * ec.wp.max())
 
 
-# --- CPU models of the kernels' tilings ----------------------------------
+# --- numpy models of the kernels' stage order -----------------------------
 
-def _tab_leg_model(ci, ga_re, ga_im, gb_re, gb_im, D, nfam):
-    """tab as csrc/tab_leg.cu computes it, block by block and K-step by
-    K-step, with its index arithmetic: each stage starts as NaN (memory
-    the kernel never wrote), the ring's copies fill it (the step's ci and
-    g rows, dft_bwd_half's tile; zeros past the edges), each thread forms
-    its products from the staged rows, and the warps' m16n8k8 products
-    add tile by tile.  Returns (tab, cover): cover[r, n, k] counts the
-    products of row r, column n and sab column k that reached the sums."""
-    B, _, K = ci.shape
-    half, N = K // 2, D.shape[1]
-    M = 6 * nfam * B
-    BM, BN, BKH, TH = k10.BM, k10.BN, k10.BKH, k10.THREADS
-    BK, NF, CI = 2 * BKH, k10.NFAM_MAX, k10.CI_ROWS
+def _cplx_tw(tw: np.ndarray, inv: bool) -> np.ndarray:
+    t = tw[:, 0] + 1j * tw[:, 1]
+    return t if inv else np.conj(t)
+
+
+def _rot(v, inv):
+    """v times i (inverse) or -i (forward), as fft_smem.cuh's rot."""
+    return (-v.imag + 1j * v.real) if inv else (v.imag - 1j * v.real)
+
+
+def _dft4(v0, v1, v2, v3, inv):
+    t0, t1, t2, t3 = v0 + v2, v0 - v2, v1 + v3, _rot(v1 - v3, inv)
+    return [t0 + t2, t1 + t3, t0 - t2, t1 - t3]
+
+
+def _dft(v, inv):
+    """fft_smem.cuh's dft<P>: the P-point butterflies, P = 2, 4, 8."""
+    if len(v) == 2:
+        return [v[0] + v[1], v[0] - v[1]]
+    if len(v) == 4:
+        return _dft4(*v, inv)
+    e, o = _dft4(*v[0::2], inv), _dft4(*v[1::2], inv)
+    h, s = 0.70710678118654752440, 1.0 if inv else -1.0
+    o[1] = h * (o[1].real - s * o[1].imag) + 1j * h * (o[1].imag
+                                                        + s * o[1].real)
+    o[2] = _rot(o[2], inv)
+    o[3] = -h * (o[3].real + s * o[3].imag) + 1j * h * (s * o[3].real
+                                                         - o[3].imag)
+    return [e[q] + o[q] for q in range(4)] + [e[q] - o[q] for q in range(4)]
+
+
+def _fft_model(load, rows: int, n: int, inv: bool, tw: np.ndarray):
+    """fft_smem.cuh's run over rows x n: the Stockham stages of
+    fourier.fft_plan(n) with its index arithmetic, stage 0 reading
+    load(i) ([rows, len(i)] complex), twiddle w_m^e read as entry e N / m
+    of the table (N = len(tw)); every stage writes each element once."""
+    N, T = len(tw), _cplx_tw(tw, inv)
+    data, Ns = None, 1
+    for s, P in enumerate(fourier.fft_plan(n)):
+        src = load if s == 0 else (lambda i, d=data: d[:, i])
+        out = np.full((rows, n), np.nan + 0j)
+        writes = np.zeros(n, dtype=np.int64)
+        if P in (2, 4, 8):
+            q = n // P
+            j = np.arange(q)
+            k, step = j % Ns, N // (Ns * P)
+            v = [src(j + r * q) for r in range(P)]
+            for r in range(1, P):
+                v[r] = np.where(k > 0, v[r] * T[k * r * step], v[r])
+            v = _dft(v, inv)
+            base = (j - k) * P + k
+            for r in range(P):
+                out[:, base + r * Ns] = v[r]
+                np.add.at(writes, base + r * Ns, 1)
+        else:   # the odd stage, last: o sums inputs o mod Ns + r Ns
+            o = np.arange(n)
+            j, Ns_, step = o % (n // P), n // P, N // n
+            acc, e = src(j), o.copy()
+            for r in range(1, P):
+                acc = acc + src(j + r * Ns_) * T[e * step]
+                e = (e + o) % n
+            out, writes = acc, np.ones(n, dtype=np.int64)
+        assert np.all(writes == 1), (n, s, P)
+        data, Ns = out, Ns * P
+    assert Ns == n
+    return data
+
+
+def _tab_leg_model(ci, ga_re, ga_im, gb_re, gb_im, tw, nfam, sms):
+    """tab as csrc/tab_leg.cu computes it: the blocks of launch_plan (RB
+    rows of one (b, a), S blocks a row), each row's X = ci g with the
+    plain version's operations, the C2R sequence Z, the S-fold split and
+    the FFT of length np / S (_fft_model), its outputs written as pairs
+    to tab row ((b 2 + s) nfam + f) 3 + a at m = S m' + h.  Returns tab
+    and how often each element was written (once each)."""
+    B, _, npts = ci.shape
+    half, N = npts // 2, 2 * npts
+    RB, S, _ = k10.launch_plan(B, nfam, npts, sms)
+    G, ns, T = -(-2 * nfam // RB), npts // S, _cplx_tw(tw, True)
+    tab = np.full((B * 6 * nfam, npts), np.nan + 0j)
+    writes = np.zeros((B * 6 * nfam, npts), dtype=np.int64)
     g = ((ga_re, ga_im), (gb_re, gb_im))
-    out = np.full((M, N), np.nan)
-    cover = np.zeros((M, N, K), dtype=np.int64)
-    tid = np.arange(TH)
-    kq = tid % BKH
-    # a thread's products: rows (tid + TH p) / BKH, frequency kq
-    e = tid[:, None] + TH * np.arange(BM * BKH // TH)
-    row_l, kq_p = e // BKH, np.broadcast_to(kq[:, None], e.shape)
-    for m0 in range(0, M, BM):
-        b0 = m0 // (6 * nfam)
-        r = m0 + row_l
-        a, f, s = r % 3, (r // 3) % nfam, (r // (3 * nfam)) % 2
-        c_row = np.where(r < M, (r // (6 * nfam) - b0) * 6 + 2 * a, CI)
-        g_row = np.where(r < M, CI + (s * NF + f) * 2, CI)
-        for n0 in range(0, N, BN):
-            acc = np.zeros((BM, BN))
-            for kt in range(-(-half // BKH)):
-                A = np.full((BM, BK), np.nan)
-                Ds = np.full((BK, BN), np.nan)
-                raw = np.full((k10.RAW_ROWS, BKH), np.nan)
-                k = kt * BKH + kq
-                # the staged rows: row tid / BKH + (TH / BKH) i, column kq
-                for i in range(-(-k10.RAW_ROWS // (TH // BKH))):
-                    for t_ in tid:
-                        row = t_ // BKH + TH // BKH * i
-                        src = None
-                        if row < CI:
-                            b = b0 + row // 6
-                            if b < B:
-                                src = ci[b, row % 6 // 2,
-                                         (row % 2) * half:][:half]
-                        else:
-                            q = row - CI
-                            s_, f_ = q // (2 * NF), q % (2 * NF) // 2
-                            if f_ < nfam:
-                                src = g[s_][q % 2][f_]
-                        ok = src is not None and k[t_] < half
-                        raw[row, kq[t_]] = src[k[t_]] if ok else 0.0
-                cr = np.where(c_row < CI, raw[np.minimum(c_row, CI - 1),
-                                              kq_p], 0.0)
-                cm = np.where(c_row < CI, raw[np.minimum(c_row, CI - 1) + 1,
-                                              kq_p], 0.0)
-                wr, wi = raw[g_row, kq_p], raw[g_row + 1, kq_p]
-                A[row_l, kq_p] = cr * wr - cm * wi
-                A[row_l, BKH + kq_p] = cr * wi + cm * wr
-                # the ring: chunk (row j, column pair) of the stage
-                j = (tid // (BN // 2))[:, None] + (TH // (BN // 2)) \
-                    * np.arange(BK * BN // 2 // TH)
-                col = np.broadcast_to(2 * (tid % (BN // 2))[:, None],
-                                      j.shape)
-                kd = kt * BKH + j % BKH
-                okd = (n0 + col < N) & (kd < half)
-                src = (j // BKH) * half + kd
-                for dc in (0, 1):
-                    Ds[j, col + dc] = np.where(
-                        okd, D[np.where(okd, src, 0),
-                               np.where(okd, n0 + col + dc, 0)], 0.0)
-                # warp (wm, wn): rows WM wm .., columns WN wn ..; atoms
-                # of 16 rows x 8 columns; m16n8k8 steps over the stage's K
-                seen = np.zeros((BM, BN, BK), dtype=np.int64)
-                for w in range(TH // 32):
-                    wm, wn = divmod(w, BN // k10.WN)
-                    for im, jn in np.ndindex(k10.WM // 16, k10.WN // 8):
-                        r0 = k10.WM * wm + 16 * im
-                        c0 = k10.WN * wn + 8 * jn
-                        rs, cs = slice(r0, r0 + 16), slice(c0, c0 + 8)
-                        for k8 in range(0, BK, 8):
-                            acc[rs, cs] += A[rs, k8:k8 + 8] @ Ds[k8:k8 + 8,
-                                                                 cs]
-                            seen[rs, cs, k8:k8 + 8] += 1
-                # stage column kcol is sab's column (kcol // BKH) half + kf
-                rows, cols = min(BM, M - m0), min(BN, N - n0)
-                for kcol in range(BK):
-                    kf = kt * BKH + kcol % BKH
-                    if kf < half:
-                        cover[m0:m0 + rows, n0:n0 + cols,
-                              (kcol // BKH) * half + kf] += \
-                            seen[:rows, :cols, kcol]
-            out[m0:m0 + rows, n0:n0 + cols] = acc[:rows, :cols]
-    return out.reshape(B, 2, nfam, 3, N), cover
+    for blk in range(3 * B * G * S):
+        h, grp, pair = blk % S, blk // S % G, blk // S // G
+        b, a, q0 = pair // 3, pair % 3, (blk // S % G) * RB
+        qs = np.arange(q0, min(q0 + RB, 2 * nfam))
+        s_, f_ = qs // nfam, qs % nfam
+        cr, cm = ci[b, a, :half], ci[b, a, half:]
+        wr = np.stack([g[s][0][f] for s, f in zip(s_, f_)])
+        wi = np.stack([g[s][1][f] for s, f in zip(s_, f_)])
+        X = (cr * wr - cm * wi) + 1j * (cr * wi + cm * wr)
+
+        def Z(k):
+            kk = np.where(k < half, k, npts - k) % half
+            x = X[:, kk]
+            wx = T[kk] * x
+            z = np.where(k < half, x + 1j * wx, np.conj(x - 1j * wx))
+            z = np.where(k == half, 0.0, z)
+            re0 = X[:, :1].real + X[:, :1].imag * 0.0
+            return np.where(k == 0, re0 + 1j * re0, z)
+
+        def first(k):
+            if S == 1:
+                return Z(k)
+            acc = sum(Z(k + t * ns) * T[t * h % S * (N // S)]
+                      for t in range(S))
+            return acc * T[2 * k * h]
+
+        z = _fft_model(first, len(qs), ns, True, tw)
+        r = ((b * 2 + s_) * nfam + f_) * 3 + a
+        cols = S * np.arange(ns) + h
+        tab[np.ix_(r, cols)] = z
+        writes[np.ix_(r, cols)] += 1
+    out = np.empty((B * 6 * nfam, N))
+    out[:, 0::2], out[:, 1::2] = tab.real, tab.imag
+    return out.reshape(B, 2, nfam, 3, N), writes
 
 
-@pytest.mark.parametrize("B,nfam,nk,np_factor", [
-    (1, 7, 37, 4), (3, 14, 16, 4), (2, 7, 12, 8), (5, 1, 16, 4),
-    (23, 1, 12, 4)])
-def test_tab_leg_tiling_covers_once_and_zero_fills(B, nfam, nk, np_factor):
-    """K10's tiling on ragged shapes (rows, columns and frequencies that
-    end mid-tile; with one family a tile's 64 rows touch 12 lanes, the
-    most its staged rows hold): every (row, column, K) product once, and
-    the tiles' edges zero in both operands, so the model starting from NaN
-    stages equals the plain version within its bound."""
+def _engine_front_model(lnP, n_s, j0, w, pab_v, wp, kbias, wc, tw, clip):
+    """(P_ext, ci) as csrc/engine_front.cu computes them, a row (b, a) a
+    block: the staged row (clipped) and its NaN and inf counts; x from
+    the band, NaN where the row has a NaN or more infs than the point's
+    non-zero weights meet; clip, exp and window in the plain version's
+    order; q = P_ext kbias; the FFT of length np / 2 of p_j = q_2j + i
+    q_2j+1 (_fft_model, forward) and the real split times wc."""
+    B, _, nk = lnP.shape
+    npts = len(j0)
+    half = npts // 2
+    L = lnP.reshape(B * 3, nk)
+    if clip:
+        L = np.clip(L, LNP_MIN, LNP_MAX)    # NaN stays NaN
+    nans = np.isnan(L).sum(1)[:, None]
+    infs = np.isinf(L).sum(1)[:, None]
+    taps = L[:, j0[:, None] + np.arange(4)]              # [rows, np, 4]
+    with np.errstate(invalid="ignore"):
+        s = taps[..., 0] * w[:, 0]
+        for t in (1, 2, 3):
+            s = s + taps[..., t] * w[:, t]
+        met = ((w != 0) & np.isinf(taps)).sum(-1)
+        c = np.repeat(n_s - 3.0, 3)[:, None]
+        x = np.clip(s + c * pab_v, k9.EXT_MIN, k9.EXT_MAX)
+        x = np.where((nans > 0) | (infs > met), np.nan, x)
+        P = np.exp(x) * wp
+        q = P * kbias
+        p = q[:, 0::2] + 1j * q[:, 1::2]
+        R = _fft_model(lambda i: p[:, i], B * 3, half, False, tw)
+        k = np.arange(half)
+        pk, rk = R[:, k], R[:, (half - k) % half]
+        E = 0.5 * (pk + np.conj(rk))
+        O = 0.5 * (pk - np.conj(rk)) / 1j
+        Q = E + _cplx_tw(tw, False)[2 * k] * O
+    ci = np.concatenate([wc * Q.real, wc * Q.imag], axis=1)
+    return P.reshape(B, 3, npts), ci.reshape(B, 3, npts)
+
+
+def _band(ec):
+    return (ec.pab_j0, ec.pab_w, ec.wc_half, ec.twiddle)
+
+
+def _front(ec, lnP, ns):
+    return (lnP, ns, ec.pab_M, ec.pab_v, ec.wp, ec.kbias, ec.dft_fwd_half)
+
+
+def _model_front(ec, lnP, ns, clip):
+    n = lambda x: x.numpy()
+    return _engine_front_model(n(lnP), n(ns), n(ec.pab_j0), n(ec.pab_w),
+                               n(ec.pab_v), n(ec.wp), n(ec.kbias),
+                               n(ec.wc_half), n(ec.twiddle), clip)
+
+
+def _jax_fft_consts(ec, g):
+    """What JAX's FFT path reads of its engine pack, from the port's
+    constants (bit-equal to JAX's: tests/test_torch_engine.py)."""
+    import types
+    return types.SimpleNamespace(
+        kbias=jnp.asarray(ec.kbias.numpy()), wc=jnp.asarray(g.wc),
+        ga_re=jnp.asarray(ec.ga_re.numpy()), ga_im=jnp.asarray(ec.ga_im
+                                                               .numpy()),
+        gb_re=jnp.asarray(ec.gb_re.numpy()), gb_im=jnp.asarray(ec.gb_im
+                                                               .numpy()),
+        dft_np=None, dft_2np=None)
+
+
+# (nk, np_factor, lanes): the ragged grids (nk = 37: np / 2 = 74 = 2 x
+# 37; nk = 12 at np_factor 8 and nk = 48: a radix-3 stage), the main
+# grid and the presets' (np = 2048)
+MODEL_GRIDS = [(37, 4, 2), (16, 4, 3), (12, 8, 2), (48, 4, 2), (128, 4, 2),
+               (128, 8, 1), (512, 4, 1)]
+
+
+@pytest.mark.parametrize("nk,np_factor,B", MODEL_GRIDS)
+def test_engine_front_model_within_bound_and_near_jax_fft(nk, np_factor, B):
+    """K9's stage order (_engine_front_model) on a state's clipped ln P
+    rows: P_ext and ci within engine_front.error_bound of the plain
+    version, and ci within twice the bound's FFT term (16 eps l wc_c sum
+    |Q|, l = fft_levels(np / 2) + 3) of JAX's FFT path
+    (_coeff_spectra_pair: jnp.fft.rfft of P_ext kbias, times wc) on the
+    same P_ext."""
     tc = TCfg(nk=nk, np_factor=np_factor)
-    ec = tf.engine_consts(tc, "cpu")
-    rng = np.random.default_rng(B * nfam + nk)
+    ec, g = tf.engine_consts(tc, "cpu"), make_grids(tc)
+    y = _t(_state_lnP(nk, B, nk * B))
+    ns = _t(np.linspace(0.92, 0.99, B))
+    P, ci = _model_front(ec, y[:, :3], ns, True)
+    P_ref, ci_ref, dP, dci = k9.error_bound(*_front(ec, y[:, :3], ns),
+                                            clip=True)
+    assert np.all(np.abs(P - P_ref.numpy()) <= dP.numpy())
+    assert np.all(np.abs(ci - ci_ref.numpy()) <= dci.numpy())
     half = tc.npts // 2
-    ci = torch.as_tensor(rng.standard_normal((B, 3, 2 * half)))
-    g = (ec.ga_re, ec.ga_im, ec.gb_re, ec.gb_im)
-    tab, cover = _tab_leg_model(ci.numpy(), *(x.numpy() for x in g),
-                                ec.dft_bwd_half.numpy(), nfam)
-    assert np.all(cover == 1)
-    ref, bound = k10.error_bound(ci, *g, ec.dft_bwd_half, nfam)
-    assert bool(np.isfinite(tab).all())
+    jec = _jax_fft_consts(ec, g)
+    re, im = jfourier.rfft(jnp.asarray(P) * jec.kbias, "fft")
+    ci_j = np.concatenate([np.asarray(re * jec.wc)[..., :half],
+                           np.asarray(im * jec.wc)[..., :half]], -1)
+    Q = np.abs(P * ec.kbias.numpy()).sum(-1, keepdims=True)
+    tol = (2 * 16 * EPS * (fourier.fft_levels(half) + 3) * Q
+           * np.tile(g.wc[:half], 2))
+    assert np.all(np.abs(ci - ci_j) <= tol)
+
+
+@pytest.mark.parametrize("nk,np_factor,B,nfam,sms", [
+    (37, 4, 2, 14, 132), (16, 4, 3, 7, 132), (12, 8, 2, 14, 132),
+    (48, 4, 1, 1, 132), (128, 4, 2, 14, 4), (128, 4, 1, 7, 132),
+    (512, 4, 1, 14, 132)])
+def test_tab_leg_model_within_bound_and_near_jax_fft(nk, np_factor, B, nfam,
+                                                     sms):
+    """K10's stage order (_tab_leg_model) on the ci of a state's rows, at
+    launch plans with S = 1 (sms = 4: 4 rows a block), 2, 4 and 8: every
+    tab element written once, within tab_leg.error_bound of the plain
+    version; and on JAX's own coefficient spectra (_coeff_spectra_pair,
+    FFT path) the model's tab_a tab_b / 2np within the products' share
+    of twice the bound's FFT term (d = 32 eps l sum_k c_k |X_k| on each
+    factor) of JAX's _conv_prod."""
+    tc = TCfg(nk=nk, np_factor=np_factor)
+    ec, g = tf.engine_consts(tc, "cpu"), make_grids(tc)
+    half, n2 = tc.npts // 2, 2 * tc.npts
+    y = _t(_state_lnP(nk, B, 3 * nk + B))
+    ns = _t(np.linspace(0.93, 0.98, B))
+    P, ci = k9.engine_front_plain(*_front(ec, y[:, :3], ns), clip=True)
+    gs = (ec.ga_re, ec.ga_im, ec.gb_re, ec.gb_im)
+    tab, writes = _tab_leg_model(ci.numpy(), *(x.numpy() for x in gs),
+                                 ec.twiddle.numpy(), nfam, sms)
+    assert np.all(writes == 1)
+    ref, bound = k10.error_bound(ci, *gs, ec.dft_bwd_half, nfam)
     assert np.all(np.abs(tab - ref.numpy()) <= bound.numpy())
+    jec = _jax_fft_consts(ec, g)
+    levels = fourier.fft_levels(tc.npts) + k10.S_MAX + 4
+    for b in range(B):
+        sa_re, sa_im, sb_re, sb_im = jf._coeff_spectra_pair(
+            jnp.asarray(P[b].numpy()), nfam, "fft", jec, half)
+        conv = np.asarray(jf._conv_prod(sa_re, sa_im, sb_re, sb_im,
+                                        tc.npts, "fft", jec))
+        # the model fed JAX's ci: ca = rfft * wc, first half frequencies
+        re, im = jfourier.rfft(jnp.asarray(P[b].numpy()) * jec.kbias,
+                                 "fft")
+        ci_b = np.concatenate([np.asarray(re * jec.wc)[..., :half],
+                               np.asarray(im * jec.wc)[..., :half]], -1)
+        t, _ = _tab_leg_model(ci_b[None], *(x.numpy() for x in gs),
+                              ec.twiddle.numpy(), nfam, sms)
+        ta, tb = t[0, 0], t[0, 1]                   # [nfam, 3, 2np]
+        X = [np.hypot(np.asarray(x_re), np.asarray(x_im))
+             for x_re, x_im in ((sa_re, sa_im), (sb_re, sb_im))]
+        c = np.full(half, 2.0)
+        c[0] = 1.0
+        da, db = (32 * EPS * levels * (x @ c)[..., None] for x in X)
+        tol = (np.abs(ta)[:, :, None] * db[:, None] + da[:, :, None]
+               * np.abs(tb)[:, None] + da[:, :, None] * db[:, None]) / n2
+        got = ta[:, :, None] * tb[:, None] / n2
+        assert np.all(np.abs(got - conv) <= tol)
 
 
-@pytest.mark.parametrize("nk,npts,nc", [(128, 512, 512), (512, 2048, 2048),
-                                        (37, 148, 148), (16, 64, 64),
-                                        (48, 384, 384), (512, 4096, 4096)])
-def test_engine_front_tiling_covers_once(nk, npts, nc):
-    """K9's split (csrc/engine_front.cu, engine_front.grid): the ranks of
-    every cluster extend each m of the grid once, the blocks own each
-    column of ci once (with a cluster of blocks a lane group, the column
-    tiles rounded up to whole clusters), and a column's PARTS threads sum
-    each m once; one block's shared memory stays within the SM's, with
-    one lane a cluster at every grid the solver takes."""
-    grid_x, ms = k9.grid(nk, npts, nc)
-    assert grid_x % k9.CLUSTER == 0
-    assert k9.smem_bytes(1, nk, npts) <= k9.SMEM_MAX
-    for q in range(grid_x // k9.CLUSTER):
-        m_seen = np.concatenate([np.arange(r * ms, min(npts, (r + 1) * ms))
-                                 for r in range(k9.CLUSTER)])
-        np.testing.assert_array_equal(m_seen, np.arange(npts))
-    n = (np.arange(grid_x)[:, None] * k9.COLS
-         + np.arange(k9.COLS)).ravel()
-    np.testing.assert_array_equal(n[n < nc], np.arange(nc))
-    kc = -(-npts // k9.PARTS)
-    parts = np.concatenate([np.arange(p * kc, min(npts, (p + 1) * kc))
-                            for p in range(k9.PARTS)])
-    np.testing.assert_array_equal(parts, np.arange(npts))
+@pytest.mark.parametrize("nk,np_factor", [(12, 4), (16, 4), (37, 4),
+                                          (48, 8), (128, 4), (512, 8)])
+def test_pab_band_reproduces_pab_M(nk, np_factor):
+    """The band (grids.pab_band, in EngineConsts as pab_j0 / pab_w) holds
+    every non-zero of pab_M and nothing else: scattered back it is pab_M
+    bit for bit, inside the grid (j0 + 3 < nk)."""
+    tc = TCfg(nk=nk, np_factor=np_factor)
+    M = pab_extension_matrix(make_grids(tc))[0]
+    j0, w = pab_band(M)
+    assert j0.dtype == np.int32 and np.all(j0 + 3 < nk)
+    if nk <= 48:       # the pack carries it (a small grid: G is slow)
+        ec = tf.engine_consts(tc, "cpu")
+        assert ec.pab_j0.dtype == torch.int32
+        np.testing.assert_array_equal(ec.pab_j0.numpy(), j0)
+        np.testing.assert_array_equal(ec.pab_w.numpy(), w)
+    R = np.zeros_like(M)
+    for m in range(len(j0)):
+        R[m, j0[m]:j0[m] + 4] = w[m]
+    np.testing.assert_array_equal(R, M)
+    assert np.all((M != 0).sum(1) <= 4)
 
 
-@pytest.mark.parametrize("B,clusters,want", [
-    (16, 15, 2), (15, 15, 1), (8, 15, 1), (2, 15, 1), (64, 15, 2),
-    (16, 0, 1), (16, 16, 1)])
-def test_engine_front_takes_two_lanes_a_cluster_only_to_save_a_wave(
-        B, clusters, want):
-    """Two lanes a cluster halve the clusters and double each one's
-    work: the wrapper takes them only where one lane a cluster needs more
-    waves of the clusters the device runs at once (15 on an H100), and
-    never where two lanes' rows overflow shared memory."""
-    assert k9.lanes(B, 128, 512, 512, lambda n: clusters) == want
-    assert k9.lanes(64, 512, 4096, 4096, lambda n: 15) == 1
+@pytest.mark.parametrize("n", [64, 74, 96, 148, 512, 2048])
+def test_twiddles_and_plans_against_numpy_fft(n):
+    """fourier.twiddles(2n) within an ulp or two of the exact roots (long
+    double), with the quadrants' exact symmetries; fourier.fft_plan(n)'s
+    radices multiply to n, the odd part last; the plan's FFT
+    (_fft_model) of random rows, both ways, within 16 eps l sum |x| of
+    numpy.fft."""
+    N = 2 * n
+    tw = fourier.twiddles(N)
+    j = np.arange(N, dtype=np.longdouble)
+    ang = 2 * np.pi * j / N
+    assert np.all(np.abs(tw[:, 0] - np.cos(ang)) <= 2 * EPS)
+    assert np.all(np.abs(tw[:, 1] - np.sin(ang)) <= 2 * EPS)
+    q = N // 4
+    np.testing.assert_array_equal(tw[q:2 * q, 0], -tw[:q, 1])
+    np.testing.assert_array_equal(tw[2 * q:3 * q], -tw[:q])
+    plan = fourier.fft_plan(n)
+    assert int(np.prod(plan)) == n
+    assert all(p in (2, 4, 8) for p in plan[:-1])
+    assert plan[-1] in (2, 4, 8) or plan[-1] % 2 == 1
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n))
+    tol = 16 * EPS * fourier.fft_levels(n) * np.abs(x).sum(1, keepdims=True)
+    for inv, ref in ((False, np.fft.fft(x)), (True, np.fft.ifft(x) * n)):
+        got = _fft_model(lambda i: x[:, i], 3, n, inv, tw)
+        assert np.all(np.abs(got - ref) <= tol)
+
+
+@pytest.mark.parametrize("bad,clip", [(np.nan, True), (np.nan, False),
+                                      (np.inf, False), (-np.inf, False)])
+def test_non_finite_ln_p_as_the_dense_product(bad, clip):
+    """One NaN or inf in a row of ln P: the model of K9 gives NaN in P_ext
+    exactly where the plain version's dense product does (a NaN: the whole
+    row; an inf: every point whose row of pab_M is zero there, inf * 0)
+    and a whole NaN row of ci, and leaves the other rows finite; with the
+    clip an inf is clipped and stays finite."""
+    tc = TCfg(nk=16)
+    ec = tf.engine_consts(tc, "cpu")
+    y = _t(_state_lnP(16, 2, 17))
+    y[1, 1, 5] = bad
+    ns = _t([0.96, 0.97])
+    P, ci = _model_front(ec, y[:, :3], ns, clip)
+    P_ref, ci_ref = k9.engine_front_plain(*_front(ec, y[:, :3], ns),
+                                          clip=clip)
+    np.testing.assert_array_equal(np.isnan(P), P_ref.isnan().numpy())
+    np.testing.assert_array_equal(np.isnan(ci), ci_ref.isnan().numpy())
+    assert np.isnan(ci[1, 1]).all() and np.isfinite(np.delete(
+        ci.reshape(6, -1), 4, 0)).all()
+    if np.isnan(bad):
+        assert np.isnan(P[1, 1]).all()
+    else:
+        assert 0 < np.isfinite(P[1, 1]).sum() <= 4
+
+
+@pytest.mark.parametrize("B,nfam,npts,sms,want", [
+    (16, 14, 512, 132, (4, 1, 256)), (2, 14, 2048, 132, (1, 2, 128)),
+    (2, 7, 2048, 132, (1, 4, 64)), (64, 7, 512, 132, (4, 1, 256)),
+    (1, 1, 148, 132, (1, 2, 64)), (16, 14, 4096, 132, (1, 1, 256))])
+def test_tab_leg_launch_plan(B, nfam, npts, sms, want):
+    """launch_plan: 4 rows a block where the blocks fill every SM twice,
+    fewer rows and then S blocks a row where they do not (the presets' 2
+    lanes), fewer rows where a block's shared memory would pass the SM's
+    (np = 4096 at 16 lanes), S dividing np, threads one a radix-8
+    butterfly; a row whose Z alone passes the SM's shared memory raises
+    (np = 16384), where the wrapper checks its inputs."""
+    RB, S, threads = got = k10.launch_plan(B, nfam, npts, sms)
+    assert got == want
+    assert npts % S == 0 and k10.smem_bytes(RB, S, npts) <= k10.SMEM_MAX
+    assert 64 <= threads <= k10.MAX_THREADS and threads % 32 == 0
+    with pytest.raises(ValueError, match="shared memory"):
+        k10.launch_plan(2, 14, 16384, sms)
 
 
 # --- the wrappers --------------------------------------------------------
@@ -378,34 +595,40 @@ def test_engine_front_takes_two_lanes_a_cluster_only_to_save_a_wave(
 def _front_args(B=2, nk=16, npts=64, nc=64):
     rng = np.random.default_rng(3)
     t = lambda *s: torch.as_tensor(rng.standard_normal(s))
+    j0 = torch.as_tensor(rng.integers(0, nk - 3, npts), dtype=torch.int32)
     return [t(B, 3, nk), t(B), t(npts, nk), t(npts), t(npts), t(npts),
-            t(npts, nc)]
+            t(npts, nc), j0, t(npts, 4), t(nc // 2), t(2 * npts, 2)]
 
 
 def _tab_args(B=2, half=8, N=32):
     rng = np.random.default_rng(4)
     t = lambda *s: torch.as_tensor(rng.standard_normal(s))
     return [t(B, 3, 2 * half), t(14, half), t(14, half), t(14, half),
-            t(14, half), t(2 * half, N)]
+            t(14, half), t(2 * half, N), t(N, 2)]
 
 
 def test_wrappers_validate_and_cpu_takes_plain():
     before = counts.snapshot()
     args = _front_args()
     for got, want in zip(k9.engine_front(*args, clip=True),
-                         k9.engine_front_plain(*args, clip=True)):
+                         k9.engine_front_plain(*args[:7], clip=True)):
         assert torch.equal(got, want)
     targs = _tab_args()
     assert torch.equal(k10.tab_leg(*targs, 7),
-                       k10.tab_leg_plain(*targs, 7))
+                       k10.tab_leg_plain(*targs[:6], 7))
     assert counts.snapshot() == before      # the plain path never counts
     bad_front = [
         (TypeError, 0, lambda x: x.float()),            # dtype
+        (TypeError, 7, lambda x: x.double()),
         (ValueError, 0, lambda x: x[:, :2]),            # shape
         (ValueError, 1, lambda x: x[:1]),
         (ValueError, 2, lambda x: x[:, :5]),
         (ValueError, 3, lambda x: x[:7]),
         (ValueError, 6, lambda x: x[:9]),
+        (ValueError, 7, lambda x: x[:9]),
+        (ValueError, 8, lambda x: x[:, :3]),
+        (ValueError, 9, lambda x: x[:5]),
+        (ValueError, 10, lambda x: x[:9]),
         (ValueError, 4, lambda x: x.to("meta")),        # device
     ]
     for err, i, f in bad_front:
@@ -418,6 +641,7 @@ def test_wrappers_validate_and_cpu_takes_plain():
         (ValueError, 0, lambda x: x[:, :2]),
         (ValueError, 2, lambda x: x[:, :5]),
         (ValueError, 5, lambda x: x[:9]),
+        (ValueError, 6, lambda x: x[:9]),
         (ValueError, 5, lambda x: x.t().contiguous().t()),  # stride
         (ValueError, 0, lambda x: x.transpose(1, 2).contiguous()
          .transpose(1, 2)),
@@ -435,16 +659,33 @@ def test_wrappers_validate_and_cpu_takes_plain():
 
 def test_kernel_checks_refuse_what_the_kernels_cannot_take():
     """What only the card's path checks: K9's lnP needs a unit column
-    stride and its shared memory must fit; K10's 2np must be even."""
+    stride, an even np with all its np / 2 frequencies, and its shared
+    memory must fit; K10's transform must be the inverse of length 2np =
+    4 half."""
     args = _front_args()
     bad = list(args)
     bad[0] = args[0].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="column stride"):
         k9._check_kernel_shape(bad[0], *args[2:])
     k9._check_kernel_shape(args[0][:, :, :8], *_front_args(nk=8)[2:])
-    big = _front_args(nk=16, npts=9472, nc=16)
+    odd = _front_args(npts=63, nc=62)
+    with pytest.raises(ValueError, match="even np"):
+        k9._check_kernel_shape(odd[0], *odd[2:])
+    npts = 16384       # 2 np + nk doubles: more than an SM's 227 KB
+    big = _front_args(npts=64, nc=64)
+    big[2] = torch.zeros((npts, 16), dtype=torch.float64)
+    big[6] = torch.zeros((1, 1), dtype=torch.float64).expand(npts, npts)
+    big[7:] = [torch.zeros(npts, dtype=torch.int32),
+               torch.zeros((npts, 4), dtype=torch.float64),
+               torch.zeros(npts // 2, dtype=torch.float64),
+               torch.zeros((2 * npts, 2), dtype=torch.float64)]
     with pytest.raises(ValueError, match="shared memory"):
         k9._check_kernel_shape(big[0], *big[2:])
+    targs = _tab_args()
+    k10._check_kernel_shape(targs[0], targs[5], targs[6])
+    with pytest.raises(ValueError, match="4 half"):
+        k10._check_kernel_shape(targs[0], targs[5][:, :24],
+                                targs[6][:24])
 
 
 def test_wrappers_raise_off_the_cpu_without_a_kernel():

@@ -759,18 +759,19 @@ def test_cuda_engine_legs_match_plain(cuda_device, nk, np_factor, B):
     lnP = torch.as_tensor(y, device=cuda_device)[:, :3]
     n_s = torch.as_tensor(rng.uniform(0.9, 1.0, B), device=cuda_device)
     front = (lnP, n_s, ec.pab_M, ec.pab_v, ec.wp, ec.kbias, ec.dft_fwd_half)
+    band = (ec.pab_j0, ec.pab_w, ec.wc_half, ec.twiddle)
     before = counts.snapshot()
-    P, ci = k9.engine_front(*front, clip=True)
+    P, ci = k9.engine_front(*front, *band, clip=True)
     P_ref, ci_ref, dP, dci = k9.error_bound(*front, clip=True)
     assert _within(P, P_ref, dP) and _within(ci, ci_ref, dci)
     assert bool(torch.isfinite(P[0]).all() and torch.isfinite(ci[0]).all())
-    P2, ci2 = k9.engine_front(*front, clip=True)
+    P2, ci2 = k9.engine_front(*front, *band, clip=True)
     assert torch.equal(P.nan_to_num(), P2.nan_to_num())
     assert torch.equal(ci.nan_to_num(), ci2.nan_to_num())
-    g = (ec.ga_re, ec.ga_im, ec.gb_re, ec.gb_im, ec.dft_bwd_half)
+    g = (ec.ga_re, ec.ga_im, ec.gb_re, ec.gb_im, ec.dft_bwd_half, ec.twiddle)
     for nfam in (7, tf.NFAM):
         tab = k10.tab_leg(ci_ref, *g, nfam)
-        ref, bound = k10.error_bound(ci_ref, *g, nfam)
+        ref, bound = k10.error_bound(ci_ref, *g[:5], nfam)
         assert _within(tab, ref, bound), nfam
         assert torch.equal(tab.nan_to_num(), k10.tab_leg(ci_ref, *g, nfam)
                            .nan_to_num()), nfam
