@@ -886,7 +886,9 @@ def check_kernels(rng, detail: dict) -> list:
 # chunks (32), packed lanes (64), the split's shards (8, 32), the ragged
 # grid (48, 2) and the presets (512, 256; 2 lanes); its modes as
 # RunSettings; the bound against K8's plain version (of each (lane, row)'s
-# max |plain| over k) and the device kernels of one RHS evaluation
+# max |plain| over k) and the device kernels of one RHS evaluation: the
+# hand kernels alone (full TRG K9, K10, K1, K2 and K8; 1-loop and linear
+# K8)
 RT_SHAPES = ((128, 16), (128, 32), (128, 64), (128, 8), (48, 2), (512, 2),
              (256, 2))
 RT_MODES = {"full": dict(one_loop=False),
@@ -894,7 +896,12 @@ RT_MODES = {"full": dict(one_loop=False),
             "oneloop": dict(one_loop=True),
             "linear": dict(one_loop=False, nonlinear=False)}
 RT_BOUND = 1e-11
-RHS_KERNELS_MAX = {"full": 250, "oneloop": 150}
+RHS_KERNELS = {"full": 5, "oneloop": 1, "linear": 1}
+RHS_KERNEL_NAMES = {"full": ("engine_front", "tab_leg", "out_leg", "pz_leg",
+                             "rhs_tail"),
+                    "oneloop": ("rhs_tail",), "linear": ("rhs_tail",)}
+# the (nk, lanes) at which K8 also runs on edge-case lanes (rt_edges)
+RT_EDGE_SHAPE = (128, 8)
 # the (nk, lanes, mode) at which the paths run K8, timed on the device
 RT_TIMED = ((128, 16, "full"), (128, 64, "full"), (128, 8, "full"),
             (48, 2, "full"), (128, 32, "oneloop"), (512, 2, "oneloop"),
@@ -945,8 +952,14 @@ def rt_cost(args) -> dict:
     """least_time of one rhs_tail: read once, each row of y, Jw, PZw, A_u
     and R that the variant's work items read (rhs_tail.item_rows: the A/R
     program reads 102 of full TRG's 189 feature rows; no column of Jw past
-    nk), beta and k, in 1-loop mode D, dD/da and D_z1l, and the lane
-    scalars; dy written once; the distinct operations a k point."""
+    nk), k, the 4 rows of the beta table that each lane's a brackets
+    (with a table) and its nodes, in 1-loop mode the 4 rows each of G and
+    dD/da, Dnorm, D_z1l and the ln a nodes, and the 15 lane scalars (f_nu,
+    Omega_m, the 13 constants) and eta; dy written once.  Operations: the
+    distinct ones a k point, the lookups' 4-node sums (8 a table) and
+    o10, D, dD/da, fz, pre; a lane's bracketing (one compare a node, the
+    4 weights' 24) and Omega scalars (~40, pow and exp counted as 20
+    each)."""
     from redtime_tpu_torch.kernels import rhs_tail as rt
 
     y, eta, k, om, src, evolve_q = args
@@ -954,10 +967,11 @@ def rt_cost(args) -> dict:
     var = rt.variant(rt.mode_of(src), evolve_q)
     rows = set().union(*(rt.item_rows(var, it) for it in rt.items(var)))
     oneloop = isinstance(src, rt.OneLoopSrc)
-    per_point = len(rows) + 1 + 3 * oneloop + rt.NU_STATE
-    per_lane = len(om) - 1 + 1 + oneloop                  # eta, z
-    nbytes = 8.0 * (B * nk * per_point + B * per_lane
-                    + nk * (src is not None))
+    nz = om.beta_a.shape[1]
+    nn = src.g_lna.shape[1] if oneloop else 0
+    per_point = len(rows) + rt.NU_STATE + 4 * (nz > 0) + 10 * oneloop
+    per_lane = 1 + 2 + len(om.consts) + nz + nn
+    nbytes = 8.0 * (B * nk * per_point + B * per_lane + nk)
     nout = 0 if src is None else 14 + (24 if evolve_q else 0)
     omega = sum(len(t) for t in rt.kernel_table()[0][:nout])
     if isinstance(src, rt.FullSrc):
@@ -967,25 +981,129 @@ def rt_cost(args) -> dict:
     else:
         ops_pt = 12 + 3 * nout
     ops_pt += 2 * omega + 40                       # Omega terms, dlnP
-    return least_time(nbytes, float(ops_pt) * B * nk, PEAK_FP64)
+    ops_pt += 8 * (nz > 0) + 4 + oneloop * (2 * 8 + 3)   # the lookups
+    ops_lane = 140 + nz + 24 + oneloop * (nn + 24 + 60)
+    return least_time(nbytes, float(ops_pt) * B * nk + ops_lane * B,
+                      PEAK_FP64)
 
 
-def rhs_device_kernels(rhs, eta, y) -> tuple:
-    """(device kernels, device busy ms) of one rhs(eta, y) under
+def device_kernels(fn, calls: int = 10, tries: int = 3) -> tuple:
+    """(device kernels, device busy ms) a call of fn() under
     torch.profiler (CUDA activity, as profile_torch_port.device_profile
-    counts them), after one untimed call."""
+    counts them), after one untimed call, and the names of the kernels:
+    `calls` calls in a window between two marker kernels
+    (torch.cuda._sleep's spin_kernel: a window loses the record of its
+    first or last kernel now and then, the markers take that loss and
+    are not counted), the window with the most kernels of `tries`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    rhs(eta, y)
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        rhs(eta, y)
-        torch.cuda.synchronize()
-    cuda = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (sum(e.count for e in cuda),
-            sum(e.self_device_time_total for e in cuda) / 1e3)
+    best = (-1, 0.0, ())
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        cuda = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "spin_kernel" not in e.key]
+        n = sum(e.count for e in cuda)
+        if n > best[0]:
+            best = (n, sum(e.self_device_time_total for e in cuda) / 1e3,
+                    tuple(sorted({e.key for e in cuda})))
+    return best[0] / calls, best[1] / calls, best[2]
+
+
+def attempt_device_kernels(cfg, rhs, eta, y) -> int:
+    """The device kernels of one controller attempt (ode.attempt: the
+    stages' RHS evaluations, K3 and the attempt's own operations) from
+    eta at step 1e-2 on every lane."""
+    import torch
+
+    from redtime_tpu_torch import ode, trg
+    from redtime_tpu_torch.kernels import rk_finish as k3
+
+    B, dev = y.shape[0], y.device
+    consts = k3.attempt_consts(trg.eta_tableau(cfg), cfg.eabs_P,
+                               cfg.erel_P, dev)
+    t = eta.clone()
+    t1 = t + 0.5
+    h = torch.full_like(t, 1e-2)
+    n = torch.zeros(B, dtype=torch.int64, device=dev)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    return device_kernels(lambda: ode.attempt(rhs, t, h, y, t1, n, active,
+                                              consts), calls=2)[0]
+
+
+def rt_edges(args, prologue, eta, y) -> dict:
+    """K8's arguments at edge cases, from the 8-lane arguments `args` that
+    prologue(eta, y) made (rhs_prologue's): lane 0 as it is, lane 1 with
+    f_nu = 0, lane 2 at a = 1.3 (clamped to the table's a = 1), lane 3 at
+    half the table's first a, lane 4 with a beta node (and, 1-loop, a ln a
+    node) moved onto its a (ln a), lanes 5 and 6 with a_nu just above and
+    on their a, lane 7 with eta and y NaN; then the same with a table of
+    4 beta nodes and with none (nz = 0).  a and ln a are computed as the
+    plain version computes them, on the card.  Returns name -> args."""
+    import torch
+
+    from redtime_tpu_torch.kernels import rhs_tail as rt
+
+    _, _, _, om, src, evolve_q = args
+    eta, y = eta.clone(), y.clone()
+    a_in = om.a_in
+    beta_a = om.beta_a.clone()
+    eta[2] = float(np.log(1.3 / a_in))
+    eta[3] = float(np.log(0.5 * float(beta_a[3, 0]) / a_in))
+    eta[4] = float(np.log(0.5 * float(beta_a[4, 2] + beta_a[4, 4]) / a_in))
+    eta[7] = float("nan")
+    y[7] = float("nan")
+    a = a_in * torch.exp(eta)
+    beta_a[4, 3] = a[4]
+    f_nu = om.f_nu.clone()
+    f_nu[1] = 0.0
+    a_nu = om.consts.a_nu.clone()
+    a_nu[5] = torch.nextafter(a[5], a[5] + 1.0)
+    a_nu[6] = a[6]
+    om8 = om._replace(beta_a=beta_a, f_nu=f_nu,
+                      consts=om.consts._replace(a_nu=a_nu))
+    if isinstance(src, rt.OneLoopSrc):
+        z = torch.exp(-eta) * (1.0 + src.z_in) - 1.0
+        lna = torch.log(torch.reciprocal(1.0 + z))
+        g_lna = src.g_lna.clone()
+        g_lna[4, int((g_lna[4] - lna[4]).abs().argmin())] = lna[4]
+        src = src._replace(g_lna=g_lna)
+    y_, eta_, k, _, src_, _ = prologue(eta, y)
+    if isinstance(src, rt.OneLoopSrc) or src is None:
+        src_ = src
+    pick = torch.tensor([0, 3, 5, 7], device=beta_a.device)
+    om4 = om8._replace(beta_a=beta_a[:, pick].contiguous(),
+                       beta_solver=om.beta_solver[:, pick].contiguous())
+    om0 = om8._replace(beta_a=beta_a[:, :0].contiguous(),
+                       beta_solver=om.beta_solver[:, :0].contiguous())
+    return {f"edges nz={o.beta_a.shape[1]}": (y_, eta_, k, o, src_,
+                                              evolve_q)
+            for o in (om8, om4, om0)}
+
+
+def rt_compare(got, ref, what: str) -> tuple:
+    """K8's dy against its plain version's: NaN and inf in the same
+    places, within RT_BOUND of row scale; (deviation, bit-equal share of
+    the finite elements, max |delta|)."""
+    import torch
+
+    check(bool(torch.equal(got.isnan(), ref.isnan())
+               and torch.equal(got.isinf(), ref.isinf())),
+          f"{what}: NaN or inf where the plain version has none")
+    err = rt_dev(got, ref)
+    check(err <= RT_BOUND, f"{what}: {err:.3g} of row scale from plain "
+                           f"(bound {RT_BOUND:g})")
+    fin = torch.isfinite(ref)
+    return (err, float((got == ref)[fin].double().mean()),
+            float(torch.where(fin, (got - ref).abs(), 0.0).max()))
 
 
 def check_rhs_tail(rng, detail: dict, engine_inputs: list) -> dict:
@@ -1033,32 +1151,28 @@ def check_rhs_tail(rng, detail: dict, engine_inputs: list) -> dict:
             if (nk, B, mode) in ENGINE_CASES:
                 engine_inputs += engine_inputs_of(cfg, settings, m, ec, y,
                                                   mode)
-            args = trg.rhs_prologue(cfg, settings, m, ec, cache)(eta, y)
-            got = rt.rhs_tail(*args)
-            ref = rt.rhs_tail_plain(*args)
-            what = f"rhs_tail {mode} nk={nk} B={B}"
+            prologue = trg.rhs_prologue(cfg, settings, m, ec, cache)
+            args = prologue(eta, y)
             var = rt.variant(rt.mode_of(args[4]), args[5])
             plan = rt.launch_plan(var, nk, B)
-            check(same_bits(got, rt.rhs_tail(*args)),
-                  f"{what}: two calls on the same inputs differ")
-            check(bool(torch.equal(got.isnan(), ref.isnan())
-                       and torch.equal(got.isinf(), ref.isinf())),
-                  f"{what}: NaN or inf where the plain version has none")
-            check(bool(got[-1, :3].isnan().all()),
-                  f"{what}: the NaN lane's dlnP is not NaN")
-            err = rt_dev(got, ref)
-            fin = torch.isfinite(ref)
-            case = dict(mode=mode, nk=nk, B=B, dev_row_scale=err,
-                        bit_equal_share=float((got == ref)[fin].double()
-                                              .mean()), **plan)
-            check(err <= RT_BOUND, f"{what}: {err:.3g} of row scale from "
-                                   f"plain (bound {RT_BOUND:g})")
-            max_err = max(max_err, float(torch.where(
-                fin, (got - ref).abs(), 0.0).max()))
-            cases.append(case)
-            print(f"{what}: {err:.3g} of row scale from plain, "
-                  f"{case['bit_equal_share']:.4f} of the finite elements "
-                  "bit-equal")
+            edges = (rt_edges(args, prologue, eta, y)
+                     if (nk, B) == RT_EDGE_SHAPE and mode != "full_no_rsd"
+                     else {})
+            for tag, a in [("", args)] + list(edges.items()):
+                got = rt.rhs_tail(*a)
+                ref = rt.rhs_tail_plain(*a)
+                what = f"rhs_tail {mode} nk={nk} B={B}{' ' + tag * bool(tag)}"
+                check(same_bits(got, rt.rhs_tail(*a)),
+                      f"{what}: two calls on the same inputs differ")
+                check(bool(got[-1, :3].isnan().all()),
+                      f"{what}: the NaN lane's dlnP is not NaN")
+                err, share, delta = rt_compare(got, ref, what)
+                max_err = max(max_err, delta)
+                cases.append(dict(mode=mode, nk=nk, B=B, edges=tag,
+                                  dev_row_scale=err, bit_equal_share=share,
+                                  **plan))
+                print(f"{what}: {err:.3g} of row scale from plain, "
+                      f"{share:.4f} of the finite elements bit-equal")
             if (nk, B, mode) in RT_TIMED:
                 runs = [graph_ms(lambda: rt.rhs_tail(*args))
                         for _ in range(3)]
@@ -1072,28 +1186,38 @@ def check_rhs_tail(rng, detail: dict, engine_inputs: list) -> dict:
                       f"{plan['threads']} threads); bound "
                       f"{row['bound_ms']:.5f} ms by {row['bound_by']}, "
                       f"launch floor {floor:.5f} ms")
-            if (nk, B, mode) in ((128, 16, "full"), (128, 32, "oneloop")):
+            if (nk, B, mode) in ((128, 16, "full"), (128, 32, "oneloop"),
+                                 (128, 32, "linear")):
+                what = f"rhs_tail {mode} nk={nk} B={B}"
+                rhs = trg.make_rhs(cfg, settings, m, ec, cache)
+                n_kernels, busy, names = device_kernels(lambda: rhs(eta, y))
+                hand = [n for n in names
+                        if any(k in n for k in RHS_KERNEL_NAMES[mode])]
+                check(n_kernels == RHS_KERNELS[mode] and hand == list(names)
+                      and len(names) == RHS_KERNELS[mode],
+                      f"{what}: one RHS evaluation ran {n_kernels} device "
+                      f"kernels {names} (the hand kernels are "
+                      f"{RHS_KERNELS[mode]}: {RHS_KERNEL_NAMES[mode]})")
+                n_attempt = attempt_device_kernels(cfg, rhs, eta, y)
+                host = rhs_host_ms(rhs, eta, y)
+                print(f"{what}: one RHS evaluation {n_kernels} device "
+                      f"kernels, {busy:.4f} ms busy, {host:.3f} ms host; "
+                      f"one attempt {n_attempt} device kernels")
+                row = dict(B=B, nk=nk, rhs_device_kernels=n_kernels,
+                           rhs_device_busy_ms=busy, rhs_host_ms=host,
+                           attempt_device_kernels=n_attempt)
+                if mode == "linear":
+                    detail["rhs_linear"] = row
+                    continue
                 t, runs = measure(lambda: rt.rhs_tail(*args),
                                   lambda: rt.rhs_tail_plain(*args))
-                rhs = trg.make_rhs(cfg, settings, m, ec, cache)
-                n_kernels, busy = rhs_device_kernels(rhs, eta, y)
-                key = "full" if mode == "full" else "oneloop"
-                host = rhs_host_ms(rhs, eta, y)
-                check(n_kernels <= RHS_KERNELS_MAX[key],
-                      f"{what}: one RHS evaluation ran {n_kernels} device "
-                      f"kernels (at most {RHS_KERNELS_MAX[key]})")
-                timed[key] = dict(t, **rt_cost(args), B=B, nk=nk,
-                                  rhs_device_kernels=n_kernels,
-                                  rhs_device_busy_ms=busy,
-                                  rhs_host_ms=host)
-                detail[f"rhs_tail_timing_{key}"] = runs
-                print(f"rhs_tail {key} (B={B}): {t['ms']:.4f} ms eager, "
+                timed[mode] = dict(t, **rt_cost(args), **row)
+                detail[f"rhs_tail_timing_{mode}"] = runs
+                print(f"rhs_tail {mode} (B={B}): {t['ms']:.4f} ms eager, "
                       f"{t['device_ms']:.5f} ms device (plain "
                       f"{t['plain_ms']:.4f} / {t['plain_device_ms']:.4f}); "
-                      f"bound {timed[key]['bound_ms']:.5f} ms by "
-                      f"{timed[key]['bound_by']}; one RHS evaluation "
-                      f"{n_kernels} device kernels, {busy:.4f} ms busy, "
-                      f"{host:.3f} ms host")
+                      f"bound {timed[mode]['bound_ms']:.5f} ms by "
+                      f"{timed[mode]['bound_by']}")
     detail.update(rhs_tail_cases=cases, rhs_tail_by_shape=by_shape,
                   rhs_tail_ptxas=ptxas)
     full = timed["full"]
@@ -1102,7 +1226,10 @@ def check_rhs_tail(rng, detail: dict, engine_inputs: list) -> dict:
         source="redtime_tpu_torch/csrc/rhs_tail.cu",
         replaces="redtime_tpu/trg.py:178",
         also_replaces="redtime_tpu/trg.py:84 (omega_matrix), :136 "
-                      "(oneloop_rescale), redtime_tpu/assembly.py:172 (A/R)",
+                      "(oneloop_rescale), redtime_tpu/assembly.py:172 (A/R), "
+                      "redtime_tpu/model.py:126 (beta_P lookup), :509 "
+                      "(growth_D_f), redtime_tpu/background.py:71 (H2_H02, "
+                      "dlnH_dlna)",
         max_abs_err=max_err,
         max_dev_row_scale=max(c["dev_row_scale"] for c in cases),
         launch_floor_ms=floor, oneloop=timed["oneloop"], by_shape=by_shape,
@@ -1111,7 +1238,7 @@ def check_rhs_tail(rng, detail: dict, engine_inputs: list) -> dict:
                                 "plain_device_ms", "library_ms", "bound_ms",
                                 "bound_by", "bound_bytes", "bound_ops",
                                 "rhs_device_kernels", "rhs_device_busy_ms",
-                                "rhs_host_ms")})
+                                "rhs_host_ms", "attempt_device_kernels")})
 
 
 # the (nk, lanes, mode) of check_rhs_tail at which K9 and K10 are checked

@@ -1,5 +1,5 @@
 // K8 rhs_tail: the Time-RG right-hand side after the mode-coupling engine,
-// one launch an evaluation.
+// one launch an evaluation, its lookups included.
 //
 // Per lane b and k point, from the state y[b, 0..40, k] at eta[b]:
 //   dlnP (rows 0-2)   from Omega(a, k) = ((1, -1), (o10(k), o11)), the I
@@ -9,12 +9,20 @@
 // A_u / R: in full Time-RG the A/R half of the assembly applied to the
 // engine's transforms (J, Jn0 from K1's output as K1 wrote it, PZ from
 // K2's); in 1-loop mode the z1l cache's rows rescaled by growth factors,
-// pre fz^n A; in linear mode dlnP alone.
+// pre fz^n A; in linear mode dlnP alone.  Omega's inputs and the 1-loop
+// growth are looked up here, from the model's tables: a = a_in e^eta,
+// beta_P(min(a, 1), k) on the beta table (f_nu beta/f_nu, 0 below
+// f_nu = 1e-10 or with no table), a^3 H^2/H0^2 and 3 + dlnH/dlna from the
+// cosmology's constants; in 1-loop mode D and dD/da at z = e^-eta (1 +
+// z_in) - 1 on the growth table (ln a nodes).
 //
 // Replaces the JAX package's jitted RHS, one XLA fusion on the TPU with no
 // Pallas kernel: redtime_tpu/trg.py:178-254 (make_rhs's rhs), :84-98
-// (omega_matrix), :136-159 (oneloop_rescale) and the A/R part of
-// redtime_tpu/assembly.py:172-524.
+// (omega_matrix), :136-159 (oneloop_rescale, with the growth lookup of
+// :143-144), the A/R part of redtime_tpu/assembly.py:172-524, and the
+// lookups it inlines: redtime_tpu/model.py:126-148 (beta_P_solver),
+// :509-518 (growth_D_f), redtime_tpu/background.py:71-88 (H2_H02,
+// dlnH_dlna).
 //
 // The work items and their code are generated (rhs_tail_ar.cuh, written
 // at build time by kernels/rhs_tail.py ar_source), one instantiation of
@@ -54,8 +62,8 @@
 //     the first design, 87 of them never read) and ~120 in 1-loop mode
 //     (6 items);
 //   * a warp computes the scalars its item reads (k, o10, e^eta, o11;
-//     in 1-loop mode pre fz^n) once, with the plain version's operations
-//     in its order;
+//     in 1-loop mode pre and fz) once (prologue), with the plain
+//     version's operations in its order;
 //   * there is no table: the Omega and trace weights are constants in the
 //     generated code.
 // What is left is latency: a launch whose tasks each store one row of
@@ -63,23 +71,49 @@
 // 3.45 us at full TRG 16 lanes; taking out the row loads, the scalars or
 // the outputs saves 0.3-0.6 us each.
 //
+// The lookups (since the prologue moved here) are per task: every warp
+// computes its lane's scalars and its 32 points' lookups before its item
+// (prologue): it brackets a (and, 1-loop, ln a) with a ballot over 32
+// table nodes at a time, forms the 4 weights, loads 4 rows of beta/f_nu
+// (1-loop: 4 each of G and dD/da, Dnorm and D_z1l) and computes the
+// Omega scalars (three pow, ~10 divisions in three stages).  They add 4
+// rows a lane to the bytes (1-loop 10) and a dependent chain to each
+// task's latency.  Inlined at each item's first use they cost ~6.5 us
+// (0.0101 ms at full TRG 16 lanes against 0.0035 without them): each
+// item carried its own copy of three pow, ~25 divisions and the loops,
+// after its scalars and before its loads.  So the warp computes them once
+// a task, before the item, issues every load first (the nodes before a
+// is known, a bracket's rows as soon as it is placed) and spreads each
+// stage over its threads (one pow, one division a stage, read back by
+// shuffles): 2.5 us at full TRG 16, 3.7 us at 1-loop 32 (the growth's
+// chain is longer), ~2.4 us of it the chain's latency, which a task
+// that only stores zeros now also waits.
+//
 // No tensor cores and no TMA: an Omega term is at most 5 products a k
 // point, each with a per-k factor, so there is no GEMM shape; a row is
 // 32-512 points (0.25-4 KB), which coalesced __ldg serves.
 //
 // Semantics kept from the plain version: the clamps are compare-and-select
 // (a NaN stays NaN, where fmin/fmax would drop it); divisions are IEEE
-// (no fast math); Omega, dlnP, the 1-loop rescale and the assembly are
-// written with __dmul_rn / __dadd_rn in the plain version's order; the
-// Omega and trace sums are plain `t += w * x` in the table's column order
-// (nvcc contracts them to fma), which gives cuBLAS's bits for the plain
-// version's matrix products on the card.
+// (no fast math); the lookups, Omega, dlnP, the 1-loop rescale and the
+// assembly are written with __dmul_rn / __dadd_rn / __ddiv_rn in the plain
+// version's order; the Omega and trace sums are plain `t += w * x` in the
+// table's column order (nvcc contracts them to fma), which gives cuBLAS's
+// bits for the plain version's matrix products on the card; a table
+// lookup sums its 4 nodes by fma in the order cuBLAS reduces the plain
+// version's dense weight row (whose other entries are 0).  A NaN a or
+// ln a brackets at the table's end (as torch.searchsorted), so no index
+// leaves the table.
 //
 // Built with -DRT_DROP=<bits> (scripts/time_rhs_tail.py), a part is taken
 // out for timing: 1 the row loads (rows from the thread's index), 2 the
 // dI / dQ outputs, 4 dlnP, 8 the scalars (from the thread's index), 16
 // every task runs item 0 (one item's code on the whole card), 32 every
-// task stores one row of zeros and nothing else.
+// task stores one row of zeros and nothing else, 64 the lookups' prologue
+// (fixed a and z, no bracketing: the rows of nodes 0-3 with fixed
+// weights, no pow / exp / log, fixed Omega scalars); 128 (not a timing
+// build) item 0's tasks write the lookups' values (den, o11, beta, o10;
+// 1-loop D, dD/da, fz, pre) in rows 0-7 and nothing else.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -96,21 +130,55 @@ constexpr double LNP_MIN = -80.0, LNP_MAX = 20.0;
 constexpr double DLNP_GUARD = 1e4, DLNP11_GUARD = 10.0;
 constexpr double PI = 3.141592653589793;   // np.pi
 
+// bg.OmegaConsts' fields, in its order
+enum Const {
+  C_FCB, C_FCB_OM, C_OL, C_OG, C_OG4, C_ANU, C_YCOLD, C_YHOT, C_DYHOT,
+  C_WA, C_W1, C_EPOW, C_EWA, NCONST
+};
+// rt_rhs_tail's pointer table (kernels/rhs_tail.py launch)
+constexpr int SRC_SLOTS = 7;
+constexpr int N_POINTERS = 3 + 4 + NCONST + SRC_SLOTS + 1;
+
 struct Args {
-  const double *y, *eta, *k, *beta, *Om, *fcb, *den, *o11;
-  const double *s0, *s1, *s2, *s3, *s4, *s5;
+  const double *y, *eta, *k;
+  const double *beta_a, *beta_solver, *f_nu, *Om;
+  const double* cst[NCONST];
+  const double* s[SRC_SLOTS];
   double* dy;
-  int B, nk, nfam, pitch;
+  double a_in, zc;                     // a_in; 1 + z_in (1-loop)
+  int B, nk, nz, nn, nfam, pitch;
 };
 
-// One thread's view: its lane's rows at its k point
+// A bracket of interp.axis_weights: f(x) = sum_j w[j] f[i0 + j]
+struct Bracket {
+  int i0, n;
+  double w[4];
+};
+
+// A table's nodes as the warp holds them: thread t node 32 q + t of round q
+// (tables of up to 32 NODE_ROUNDS nodes in registers; the rest are read
+// again by count_below)
+constexpr int NODE_ROUNDS = 4;
+struct Nodes {
+  double v[NODE_ROUNDS];
+};
+
+// One thread's view: its lane's rows at its k point, and the scalars the
+// items read (prologue)
 struct Ctx {
   const double *Y, *JW, *PZ, *AU, *RR;   // row 0 of y, Jw, PZw, A_u, R
+  const double *BS, *GG, *GD;            // row 0 of beta_solver, g_G,
+                                         // g_dDda
   double* out;                           // dy's row 0
-  const double *eta, *kgrid, *beta, *Om, *fcb, *den, *o11;
-  const double *D, *dDda, *Dz1l, *z;
-  int b, kk, nk, pitch;
+  const double *eta, *kgrid, *beta_a, *f_nu, *Om, *glna;
+  const double *Dnorm, *Dz1l;            // at the thread's k
+  const double* cst[NCONST];             // bg.OmegaConsts [B] each
+  double a_in, zc;
+  int b, kk, nk, pitch, nz, nn;
   bool valid;
+  // prologue's: k, e^eta, o10 (beta_P, a^3 H^2/H0^2 beside), o11; 1-loop
+  // fz and pre (D, dD/da beside)
+  double k, e, o10, o11, fz, pre, beta, den, D, dDda;
 };
 
 // torch.clamp's rule: a NaN stays NaN
@@ -123,38 +191,281 @@ __device__ __forceinline__ void store(const Ctx& c, int row, double v) {
   if (c.valid) c.out[(size_t)row * c.nk] = v;
 }
 
-// The scalars, as the plain version computes them: k and o10 at the
-// thread's point, e^eta and o11 of its lane; in 1-loop mode pre and fz
-// (trg.oneloop_rescale: pre = dr^4 e^(-4 eta), dr = D / D_z1l,
-// fz = dD/da / (D (1 + z))).
-__device__ __forceinline__ size_t at(const Ctx& c) {
-  return (size_t)c.b * c.nk + (c.valid ? c.kk : 0);
+__device__ __forceinline__ double cst(const Ctx& c, Const i) {
+  return __ldg(c.cst[i] + c.b);
 }
-__device__ __forceinline__ double k_at(const Ctx& c) {
-  return c.valid ? __ldg(c.kgrid + c.kk) : 1.0;
+
+// The warp computes a lane's scalars a stage at a time, thread t the t-th
+// value of the stage (one call site of pow or a division for the stage,
+// so the code an item runs stays short); piece(v, t) reads thread t's.
+// Every thread of the warp takes part.
+__device__ __forceinline__ double piece(double v, int t) {
+  return __shfl_sync(0xffffffffu, v, t);
 }
-__device__ __forceinline__ double lane_e(const Ctx& c) {
-  return exp(__ldg(c.eta + c.b));
+
+// interp.axis_weights on one lane's nodes [nn] (nn >= 4) at x, in
+// phases, every thread of the warp with the same x, so that a task issues
+// its loads before the arithmetic that waits on them (prologue):
+//   load_nodes: the nodes into registers, before x is known;
+//   count_below: pos = torch.searchsorted(nodes, x, side="left"), the
+//     count of nodes with !(node >= x), a ballot a round (torch's lower
+//     bound: a NaN x counts them all, pos = nn, so every index below
+//     stays in range);
+//   place: n = clamp(pos - 1, 0, nn - 2), i0 = clamp(n - 1, 0, nn - 4);
+//   weights: 0 < n < nn - 2: _lagrange4's, each factor (num (x - x_l)) /
+//     (x_j - x_l) over l != j in increasing order (thread j & 3 computes
+//     weight j); else linear on nodes n, n + 1 at offset n - i0, as
+//     (1 - t) e_off + t e_off+1 (the plain version's zeros included).
+// RT_DROP 64: no nodes, i0 = 0 and fixed weights.
+__device__ __forceinline__ Nodes load_nodes(const double* nodes, int nn) {
+  Nodes h;
+  const int t = threadIdx.x & 31;
+#pragma unroll
+  for (int q = 0; q < NODE_ROUNDS; ++q) {
+    const int j = 32 * q + t;
+#if RT_DROP & 64
+    h.v[q] = 0.0 * j;
+#else
+    h.v[q] = j < nn ? __ldg(nodes + j) : 0.0;
+#endif
+  }
+  return h;
 }
-__device__ __forceinline__ double lane_o11(const Ctx& c) {
-  return __ldg(c.o11 + c.b);
+
+__device__ __forceinline__ int count_below(const Nodes& h,
+                                           const double* nodes, int nn,
+                                           double x) {
+#if RT_DROP & 64
+  (void)h;
+  (void)nodes;
+  (void)nn;
+  (void)x;
+  return 1;
+#else
+  const int t = threadIdx.x & 31;
+  int pos = 0;
+#pragma unroll
+  for (int q = 0; q < NODE_ROUNDS; ++q) {
+    const int j = 32 * q + t;
+    pos += __popc(__ballot_sync(0xffffffffu, j < nn && !(h.v[q] >= x)));
+  }
+  for (int j0 = 32 * NODE_ROUNDS; j0 < nn; j0 += 32) {
+    const int j = j0 + t;
+    const double v = j < nn ? __ldg(nodes + j) : 0.0;
+    pos += __popc(__ballot_sync(0xffffffffu, j < nn && !(v >= x)));
+  }
+  return pos;
+#endif
 }
-__device__ __forceinline__ double o10_at(const Ctx& c) {
-  return __ddiv_rn(__dmul_rn(__dmul_rn(-1.5, __ldg(c.Om + c.b)),
-                             __dadd_rn(__ldg(c.fcb + c.b),
-                                       __ldg(c.beta + at(c)))),
-                   __ldg(c.den + c.b));
+
+__device__ __forceinline__ Bracket place(int pos, int nn) {
+  Bracket r;
+  r.n = min(max(pos - 1, 0), nn - 2);
+  r.i0 = min(max(r.n - 1, 0), nn - 4);
+  return r;
 }
-__device__ __forceinline__ double fz_at(const Ctx& c) {
-  return __ddiv_rn(__ldg(c.dDda + at(c)),
-                   __dmul_rn(__ldg(c.D + at(c)),
-                             __dadd_rn(1.0, __ldg(c.z + c.b))));
+
+__device__ __forceinline__ void weights(Bracket& r, const double* nodes,
+                                        int nn, double x, bool has) {
+#if RT_DROP & 64
+  (void)nodes;
+  (void)nn;
+  (void)has;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) r.w[m] = 0.25 * x;
+#else
+  double xs[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) xs[m] = has ? __ldg(nodes + r.i0 + m) : m;
+  const auto at = [&xs](int m) {
+    return m == 0 ? xs[0] : m == 1 ? xs[1] : m == 2 ? xs[2] : xs[3];
+  };
+  const int j = threadIdx.x & 3;
+  const double xj = at(j);
+  double wc = 1.0;
+#pragma unroll
+  for (int f = 0; f < 3; ++f) {
+    const double xl = at(f + (f >= j));
+    wc = __ddiv_rn(__dmul_rn(wc, __dsub_rn(x, xl)), __dsub_rn(xj, xl));
+  }
+  const int off = r.n - r.i0;        // 0 (n = 0) or 2 (n = nn - 2)
+  const double xn = at(off), xn1 = at(off + 1);
+  const double t = __ddiv_rn(__dsub_rn(x, xn), __dsub_rn(xn1, xn));
+  const double wl =
+      __dadd_rn(__dmul_rn(__dsub_rn(1.0, t), j == off ? 1.0 : 0.0),
+                __dmul_rn(t, j == off + 1 ? 1.0 : 0.0));
+  const double w = r.n > 0 && r.n < nn - 2 ? wc : wl;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) r.w[m] = piece(w, m);
+#endif
 }
-__device__ __forceinline__ double pre_at(const Ctx& c) {
-  const double dr = __ddiv_rn(__ldg(c.D + at(c)), __ldg(c.Dz1l + at(c)));
-  const double dr2 = __dmul_rn(dr, dr);
-  return __dmul_rn(__dmul_rn(dr2, dr2),
-                   exp(__dmul_rn(-4.0, __ldg(c.eta + c.b))));
+
+// The 4 rows of a bracket at the thread's k (rows: row 0 of the lane's
+// table at k, rows nk apart), then their sum, w_j t_j in the order
+// cuBLAS takes the plain version's contraction of the dense weight row
+// (whose other terms are +0) at the tables' sizes, 8 or 4 beta nodes and
+// 101 growth nodes (scripts/probe_rhs_prologue.py): its bits there, an
+// ulp or so apart where cuBLAS reduces another way
+__device__ __forceinline__ void rows4(const Ctx& c, const Bracket& r,
+                                      const double* rows, bool has,
+                                      double v[4]) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    v[m] = has && c.valid
+               ? __ldg(rows + (size_t)(r.i0 + m) * (size_t)c.nk)
+               : 0.0;
+  }
+}
+
+// beta's: nodes 0, 2 and 1, 3 each an fma on its first product, then the
+// two added (cuBLAS splits the beta table's row by k mod 2)
+__device__ __forceinline__ double dot4_pairs(const Bracket& r,
+                                             const double v[4]) {
+  return __dadd_rn(__fma_rn(r.w[2], v[2], __dmul_rn(r.w[0], v[0])),
+                   __fma_rn(r.w[3], v[3], __dmul_rn(r.w[1], v[1])));
+}
+
+// the growth's: the nodes of each chunk of 4 (by k = i0 + j) an fma
+// chain from 0, the chunks added in order (cuBLAS's reduction of the
+// growth table's row)
+__device__ __forceinline__ double dot4_chunks(const Bracket& r,
+                                              const double v[4]) {
+  const int first = 4 - (r.i0 & 3);       // nodes in i0's chunk
+  double lo = 0.0, hi = 0.0;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    if (m < first) {
+      lo = __fma_rn(r.w[m], v[m], lo);
+    } else {
+      hi = __fma_rn(r.w[m], v[m], hi);
+    }
+  }
+  return first == 4 ? lo : __dadd_rn(lo, hi);
+}
+
+// bg.omega_scalars at a: den = a^3 H^2/H0^2 and o11 = 3 + dlnH/dlna, the
+// plain version's operations in its order, as torch's CUDA kernels run
+// them: a ** 3 is a * a * a, a ** 4, a ** e_pow, a ** 5 are pow; the
+// selects at a >= a_nu compute both sides.  Three stages of pieces: the
+// powers; the divisions by a, a^4, a^5; those by a^3, a^4.
+__device__ __forceinline__ void omega_scalars(const Ctx& c, double a,
+                                              double& den, double& o11) {
+  const int t = threadIdx.x & 31;
+  const double fcb_om = cst(c, C_FCB_OM), OL = cst(c, C_OL);
+  const double pw = pow(a, t == 1 ? cst(c, C_EPOW) : t == 2 ? 5.0 : 4.0);
+  const double a4 = piece(pw, 0), a5 = piece(pw, 2);
+  const double a3 = __dmul_rn(__dmul_rn(a, a), a);
+  const double E = __dmul_rn(
+      piece(pw, 1), exp(__dmul_rn(cst(c, C_EWA), __dsub_rn(1.0, a))));
+  const bool cold = a >= cst(c, C_ANU);
+  const double fa = __dmul_rn(fcb_om, a);
+  // Y_nu's hot side, w1 / a, dY's hot side, Og / a^4, 4 Og / a^5
+  const double q1 = __ddiv_rn(
+      t == 0 ? cst(c, C_YHOT) : t == 1 ? cst(c, C_W1)
+          : t == 2 ? cst(c, C_DYHOT) : t == 3 ? cst(c, C_OG) : cst(c, C_OG4),
+      t == 0 ? fa : t == 1 ? a : t == 2 ? __dmul_rn(fa, a) : t == 3 ? a4 : a5);
+  const double Y1 = __dadd_rn(1.0, cold ? cst(c, C_YCOLD) : piece(q1, 0));
+  const double dY = cold ? 0.0 : piece(q1, 2);
+  const double dE = __dmul_rn(__dmul_rn(3.0, E),
+                              __dsub_rn(cst(c, C_WA), piece(q1, 1)));
+  // f_cb Omega_m Y1 / a^3, f_cb Omega_m (-3 Y1 + a dY) / a^4
+  const double q2 = __ddiv_rn(
+      __dmul_rn(fcb_om, t == 0 ? Y1
+                               : __dadd_rn(__dmul_rn(-3.0, Y1),
+                                           __dmul_rn(a, dY))),
+      t == 0 ? a3 : a4);
+  const double H2 = __dadd_rn(
+      __dadd_rn(piece(q2, 0), __dmul_rn(OL, E)), piece(q1, 3));
+  const double inner = __dsub_rn(
+      __dadd_rn(piece(q2, 1), __dmul_rn(OL, dE)), piece(q1, 4));
+  den = __dmul_rn(a3, H2);
+  o11 = __dadd_rn(3.0, __dmul_rn(__ddiv_rn(__dmul_rn(0.5, a), H2), inner));
+}
+
+// The scalars the items read, once a task, as the plain version computes
+// them (rhs_tail.prologue_plain, then omega_from and oneloop_rescale):
+// k at the thread's point; e^eta and a = a_in e^eta of its lane; o10 =
+// -1.5 Omega_m (f_cb + beta) / den with beta_P = where(f_nu < 1e-10, 0,
+// f_nu raw) at min(a, 1) (torch.clamp: a NaN stays NaN; 0 with no table)
+// and den, o11 from omega_scalars; in 1-loop mode, at z = e^-eta (1 +
+// z_in) - 1 and a = 1 / (1 + z) (torch.reciprocal divides), D = (Gv a) /
+// Dnorm and dD/da = dDv / Dnorm on the growth table at ln a, then fz =
+// dD/da / (D (1 + z)) and pre = dr^4 e^(-4 eta), dr = D / D_z1l.  In
+// issue order: every load that does not wait on a bracket, the brackets
+// and their rows' loads, then the arithmetic (pow and the divisions)
+// while the rows arrive.  RT_DROP 8: the scalars from the thread's index;
+// 64: fixed a, z, nodes and Omega scalars.
+template <int MODE>
+__device__ __forceinline__ void prologue(Ctx& c) {
+#if RT_DROP & 8
+  c.k = c.kk + 2;
+  c.e = c.b + 3;
+  c.o11 = c.b + 4;
+  c.o10 = c.kk + 5;
+  c.fz = c.kk + 6;
+  c.pre = c.kk + 7;
+  c.den = c.beta = c.D = c.dDda = 0.0;
+#else
+  const double eta = __ldg(c.eta + c.b);
+  c.k = c.valid ? __ldg(c.kgrid + c.kk) : 1.0;
+  const double f_nu = __ldg(c.f_nu + c.b);
+  const double om15 = __dmul_rn(-1.5, __ldg(c.Om + c.b));
+  const double fcb = cst(c, C_FCB);
+  const bool has_b = c.nz > 0;
+  const int nzb = max(c.nz, 4);
+  const double* bnodes = c.beta_a + (size_t)c.b * c.nz;
+  const double* gnodes = c.glna + (size_t)c.b * c.nn;
+  const Nodes hb = load_nodes(bnodes, c.nz);
+  Nodes hg;
+  if constexpr (MODE == 2) hg = load_nodes(gnodes, c.nn);
+  c.e = exp(eta);
+#if RT_DROP & 64
+  const double a = 0.5;
+#else
+  const double a = __dmul_rn(c.e, c.a_in);
+#endif
+  const double am = a > 1.0 ? 1.0 : a;
+  Bracket rb = place(count_below(hb, bnodes, c.nz, am), nzb);
+  double vb[4];
+  rows4(c, rb, c.BS, has_b, vb);
+  Bracket rg;
+  double vG[4], vD[4], z = 0.0, ag = 1.0, lx = 0.0, Dn = 1.0, Dz = 1.0;
+  if constexpr (MODE == 2) {
+#if RT_DROP & 64
+    z = 1.0;
+    ag = 0.5;
+#else
+    z = __dsub_rn(__dmul_rn(exp(-eta), c.zc), 1.0);
+    ag = __ddiv_rn(1.0, __dadd_rn(1.0, z));
+#endif
+    lx = log(ag);
+    rg = place(count_below(hg, gnodes, c.nn, lx), c.nn);
+    rows4(c, rg, c.GG, true, vG);
+    rows4(c, rg, c.GD, true, vD);
+    Dn = c.valid ? __ldg(c.Dnorm) : 1.0;
+    Dz = c.valid ? __ldg(c.Dz1l) : 1.0;
+  }
+#if RT_DROP & 64
+  c.den = 1.0 + c.b;
+  c.o11 = 2.0 + c.b;
+#else
+  omega_scalars(c, a, c.den, c.o11);
+#endif
+  weights(rb, bnodes, nzb, am, has_b);
+  c.beta = !has_b     ? 0.0
+           : f_nu < 1e-10 ? 0.0
+                          : __dmul_rn(f_nu, dot4_pairs(rb, vb));
+  c.o10 = __ddiv_rn(__dmul_rn(om15, __dadd_rn(fcb, c.beta)), c.den);
+  if constexpr (MODE == 2) {
+    weights(rg, gnodes, c.nn, lx, true);
+    c.D = __ddiv_rn(__dmul_rn(dot4_chunks(rg, vG), ag), Dn);
+    c.dDda = __ddiv_rn(dot4_chunks(rg, vD), Dn);
+    c.fz = __ddiv_rn(c.dDda, __dmul_rn(c.D, __dadd_rn(1.0, z)));
+    const double dr = __ddiv_rn(c.D, Dz);
+    const double dr2 = __dmul_rn(dr, dr);
+    c.pre = __dmul_rn(__dmul_rn(dr2, dr2), exp(__dmul_rn(-4.0, eta)));
+  }
+#endif
 }
 
 // dlnP from lnP (y0-2) and, nonlinear, Isum's rows (i0-3)
@@ -198,21 +509,12 @@ __device__ __forceinline__ void dlnp(const Ctx& c, double y0, double y1,
 #define LD_PZ(r) LD_(PZ, c.nk, r)
 #define LD_AU(r) LD_(AU, c.nk, r)
 #define LD_R(r) LD_(RR, c.nk, r)
-#if RT_DROP & 8
-#define K_AT() ((double)(c.kk + 2))
-#define LANE_E() ((double)(c.b + 3))
-#define LANE_O11() ((double)(c.b + 4))
-#define O10_AT() ((double)(c.kk + 5))
-#define FZ_AT() ((double)(c.kk + 6))
-#define PRE_AT() ((double)(c.kk + 7))
-#else
-#define K_AT() k_at(c)
-#define LANE_E() lane_e(c)
-#define LANE_O11() lane_o11(c)
-#define O10_AT() o10_at(c)
-#define FZ_AT() fz_at(c)
-#define PRE_AT() pre_at(c)
-#endif
+#define K_AT() (c.k)
+#define LANE_E() (c.e)
+#define LANE_O11() (c.o11)
+#define O10_AT() (c.o10)
+#define FZ_AT() (c.fz)
+#define PRE_AT() (c.pre)
 #define DIVC_(x, d) __dmul_rn((x), 1.0 / (d))
 #define ZERO_(r) store(c, (r), 0.0)
 #if RT_DROP & 2
@@ -254,30 +556,52 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
   c.kk = (int)(pair - b * ntiles) * KT + lane;
   c.nk = nk;
   c.pitch = a.pitch;
+  c.nz = a.nz;
+  c.nn = a.nn;
   c.valid = c.kk < nk;
   c.Y = a.y + (size_t)b * NU * nk + c.kk;
   c.out = a.dy + (size_t)b * NU * nk + c.kk;
-  c.JW = c.PZ = c.AU = c.RR = nullptr;
-  c.D = c.dDda = c.Dz1l = c.z = nullptr;
+  c.JW = c.PZ = c.AU = c.RR = c.GG = c.GD = nullptr;
+  c.glna = c.Dnorm = c.Dz1l = nullptr;
   if constexpr (S::MODE == 1) {
-    c.JW = a.s0 + (size_t)b * 9 * a.nfam * a.pitch + c.kk;
-    c.PZ = a.s1 + 63 * (size_t)b * nk + c.kk;
+    c.JW = a.s[0] + (size_t)b * 9 * a.nfam * a.pitch + c.kk;
+    c.PZ = a.s[1] + 63 * (size_t)b * nk + c.kk;
   } else if constexpr (S::MODE == 2) {
-    c.AU = a.s0 + 14 * (size_t)b * nk + c.kk;
-    c.RR = a.s1 + 24 * (size_t)b * nk + c.kk;
-    c.D = a.s2;
-    c.dDda = a.s3;
-    c.Dz1l = a.s4;
-    c.z = a.s5;
+    c.AU = a.s[0] + 14 * (size_t)b * nk + c.kk;
+    c.RR = a.s[1] + 24 * (size_t)b * nk + c.kk;
+    c.glna = a.s[2];
+    c.GG = a.s[3] + (size_t)b * a.nn * nk + c.kk;
+    c.GD = a.s[4] + (size_t)b * a.nn * nk + c.kk;
+    c.Dnorm = a.s[5] + (size_t)b * nk + c.kk;
+    c.Dz1l = a.s[6] + (size_t)b * nk + c.kk;
   }
   c.eta = a.eta;
   c.kgrid = a.k;
-  c.beta = a.beta;
+  c.beta_a = a.beta_a;
+  c.BS = a.beta_solver + (size_t)b * a.nz * nk + c.kk;
+  c.f_nu = a.f_nu;
   c.Om = a.Om;
-  c.fcb = a.fcb;
-  c.den = a.den;
-  c.o11 = a.o11;
-#if RT_DROP & 32
+#pragma unroll
+  for (int i = 0; i < NCONST; ++i) c.cst[i] = a.cst[i];
+  c.a_in = a.a_in;
+  c.zc = a.zc;
+  prologue<S::MODE>(c);
+#if RT_DROP & 128
+  // item 0's tasks write the lookups' values in rows 0-7 and nothing else
+  // (scripts/probe_rhs_prologue.py)
+  if (it == 0) {
+    store(c, 0, c.den);
+    store(c, 1, c.o11);
+    store(c, 2, c.beta);
+    store(c, 3, c.o10);
+    if constexpr (S::MODE == 2) {
+      store(c, 4, c.D);
+      store(c, 5, c.dDda);
+      store(c, 6, c.fz);
+      store(c, 7, c.pre);
+    }
+  }
+#elif RT_DROP & 32
   store(c, it % NU, 0.0);
 #elif RT_DROP & 16
   S::item(0, c);
@@ -294,24 +618,45 @@ int launch(const Args& a, int blocks, int threads, cudaStream_t stream) {
 
 }  // namespace
 
-// y [B, 41, nk], eta [B], k [nk], beta [B, nk], Om / fcb / den / o11 [B];
-// full TRG: s0 = Jw [B, nfam, 3, 3, pitch], s1 = PZw [B, 7, 3, 3, nk];
-// 1-loop: s0 = A_u [B, 14, nk], s1 = R [B, 24, nk], s2 = D, s3 = dD/da,
-// s4 = D_z1l [B, nk], s5 = z [B]; linear: none.  variant: the index of
-// kernels/rhs_tail.py VARIANTS (enum Variant); blocks of threads (a
-// multiple of 32, at most MAX_BLOCK_THREADS) as rhs_tail.launch_plan
-// sets them, enough warps for every task.
-extern "C" int rt_rhs_tail(const double* y, const double* eta,
-                           const double* k, const double* beta,
-                           const double* Om, const double* fcb,
-                           const double* den, const double* o11,
-                           const double* s0, const double* s1,
-                           const double* s2, const double* s3,
-                           const double* s4, const double* s5, double* dy,
-                           int B, int nk, int variant, int nfam, int pitch,
+// ptrs[N_POINTERS] (read here, at the call): y [B, 41, nk], eta [B],
+// k [nk]; the Omega tables beta_a [B, nz], beta_solver [B, nz, nk], f_nu,
+// Omega_m [B] and bg.OmegaConsts' 13 fields [B]; SRC_SLOTS sources (full
+// TRG: Jw [B, nfam, 3, 3, pitch], PZw [B, 7, 3, 3, nk]; 1-loop: A_u
+// [B, 14, nk], R [B, 24, nk], g_lna [B, nn], g_G, g_dDda [B, nn, nk],
+// g_Dnorm, D_z1l [B, nk]; linear: none; the rest null); dy [B, 41, nk].
+// a_in; zc = 1 + z_in (1-loop).  nz: 0 (no beta_P table) or >= 4; nn >=
+// 4 (1-loop).  variant: the index of kernels/rhs_tail.py VARIANTS (enum
+// Variant); blocks of threads (a multiple of 32, at most
+// MAX_BLOCK_THREADS) as rhs_tail.launch_plan sets them, enough warps for
+// every task.
+extern "C" int rt_rhs_tail(const double* const* ptrs, int nptrs,
+                           double a_in, double zc, int B, int nk, int nz,
+                           int nn, int variant, int nfam, int pitch,
                            int blocks, int threads, void* stream) {
-  const Args a{y,  eta, k,  beta, Om, fcb, den, o11, s0,   s1,
-               s2, s3,  s4, s5,   dy, B,   nk,  nfam, pitch};
+  if (nptrs != N_POINTERS || (nz > 0 && nz < 4) ||
+      (variant >= V_ONELOOP && nn < 4)) {
+    return cudaErrorInvalidValue;
+  }
+  Args a;
+  int p = 0;
+  a.y = ptrs[p++];
+  a.eta = ptrs[p++];
+  a.k = ptrs[p++];
+  a.beta_a = ptrs[p++];
+  a.beta_solver = ptrs[p++];
+  a.f_nu = ptrs[p++];
+  a.Om = ptrs[p++];
+  for (int i = 0; i < NCONST; ++i) a.cst[i] = ptrs[p++];
+  for (int i = 0; i < SRC_SLOTS; ++i) a.s[i] = ptrs[p++];
+  a.dy = const_cast<double*>(ptrs[p++]);
+  a.a_in = a_in;
+  a.zc = zc;
+  a.B = B;
+  a.nk = nk;
+  a.nz = nz;
+  a.nn = nn;
+  a.nfam = nfam;
+  a.pitch = pitch;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (threads % 32 != 0 || threads > MAX_BLOCK_THREADS) {
     return cudaErrorInvalidValue;

@@ -184,8 +184,8 @@ def bind_engine(handle: ctypes.CDLL) -> ctypes.CDLL:
 
 def bind_rhs_tail(handle: ctypes.CDLL) -> ctypes.CDLL:
     """Declare K8's entry point rt_rhs_tail on a loaded library."""
-    p, i = ctypes.c_void_p, ctypes.c_int
-    handle.rt_rhs_tail.argtypes = [p] * 15 + [i] * 7 + [p]
+    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    handle.rt_rhs_tail.argtypes = [p, i, d, d] + [i] * 9 + [p]
     handle.rt_rhs_tail.restype = i
     return handle
 

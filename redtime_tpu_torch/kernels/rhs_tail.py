@@ -1,5 +1,5 @@
-"""K8 rhs_tail: the Time-RG right-hand side after the mode-coupling engine
-(csrc/rhs_tail.cu).
+"""K8 rhs_tail: the Time-RG right-hand side after the mode-coupling engine,
+its lookups included (csrc/rhs_tail.cu).
 
 Per lane b and k point, from the state y [B, 41, nk] at eta [B]:
   dlnP (rows 0-2)   d ln P_ab / d eta from Omega(a, k), the I coupling and
@@ -7,20 +7,23 @@ Per lane b and k point, from the state y [B, 41, nk] at eta [B]:
   dI   (rows 3-16)  2 e^eta A_u - CI . (Of x I14)     (reference :1500-1513);
   dQ   (rows 17-40) 2 e^eta R - CQ . (Of x Q24) when Q evolves, else 0
                     (reference :1516-1539).
-A_u and R come, in full Time-RG, from the engine's transforms through the
-A/R half of the assembly (assembly.assemble_ar; the kernel applies it as
-the coefficient table assembly.ar_table), and in 1-loop mode from the
-z1l cache rescaled by growth factors (trg.oneloop_rescale).  In linear
-mode only dlnP is nonzero.
+Omega(a, k) comes from the model's tables (OmegaIn): a = a_in e^eta,
+beta_P(a, k) and the background scalars.  A_u and R come, in full
+Time-RG, from the engine's transforms through the A/R half of the assembly
+(assembly.assemble_ar), and in 1-loop mode from the z1l cache rescaled by
+growth factors (trg.oneloop_rescale) that the growth table gives at eta's
+z (OneLoopSrc).  In linear mode only dlnP is nonzero.
 
 Replaces the JAX package's jitted RHS, which XLA fused on the TPU (no
 Pallas kernel): redtime_tpu/trg.py:178-254 (make_rhs's rhs), :84-98
-(omega_matrix), :136-159 (oneloop_rescale) and the A/R part of
-redtime_tpu/assembly.py:172-524.
+(omega_matrix), :136-159 (oneloop_rescale), the A/R part of
+redtime_tpu/assembly.py:172-524 and the lookups inlined in them
+(redtime_tpu/model.py:126-148, :509-518; redtime_tpu/background.py:71-88).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import itertools
 from typing import NamedTuple
@@ -29,6 +32,8 @@ import numpy as np
 import torch
 
 from redtime_tpu_torch import assembly
+from redtime_tpu_torch import background as bg
+from redtime_tpu_torch import model as mdl
 from redtime_tpu_torch.kernels import build, counts
 
 F64 = torch.float64
@@ -60,8 +65,23 @@ MAX_LANES = 65535          # lanes a launch: the grid's y extent
 
 
 class OmegaIn(NamedTuple):
-    """What Omega(a, k) is built from (trg.omega_inputs): its rows are
-    (1, -1) and (o10(k), o11), o10 = -1.5 Omega_m (f_cb + beta) / den."""
+    """What Omega(a, k) is built from: the model's beta_P table and the
+    cosmology's lane constants, made once per trg.make_rhs.  At each
+    evaluation the RHS takes a = a_in e^eta, beta_P(a, k) (model.beta_P_at)
+    and a^3 H^2/H0^2, 3 + dlnH/dlna (bg.omega_scalars) from them."""
+
+    beta_a: torch.Tensor        # [B, nz] the table's scale factors (nz 0:
+                                # no neutrino table, beta_P = 0)
+    beta_solver: torch.Tensor   # [B, nz, nk] beta/f_nu on the solver grid
+    f_nu: torch.Tensor          # [B]
+    Omega_m: torch.Tensor       # [B]
+    consts: bg.OmegaConsts      # 13 x [B] (bg.omega_consts)
+    a_in: float
+
+
+class OmegaAt(NamedTuple):
+    """Omega(a, k) at per-lane a: its rows are (1, -1) and (o10(k), o11),
+    o10 = -1.5 Omega_m (f_cb + beta) / den."""
 
     beta: torch.Tensor      # [B, nk] beta_P(a, k)
     Omega_m: torch.Tensor   # [B]
@@ -79,17 +99,40 @@ class FullSrc(NamedTuple):
 
 
 class OneLoopSrc(NamedTuple):
-    """1-loop mode: the z1l cache's rows and the growth at eta's z."""
+    """1-loop mode: the z1l cache's rows and the model's growth tables,
+    made once per trg.make_rhs; the RHS looks the growth up at eta's z =
+    e^-eta (1 + z_in) - 1 (model.growth_at)."""
 
-    A_u: torch.Tensor    # [B, 14, nk] the cache's A64[:, JU]
-    R: torch.Tensor      # [B, 3, 8, nk]
-    D: torch.Tensor      # [B, nk] model.growth_D_f at z
-    dDda: torch.Tensor   # [B, nk]
-    D_z1l: torch.Tensor  # [B, nk]
-    z: torch.Tensor      # [B]
+    A_u: torch.Tensor      # [B, 14, nk] the cache's A64[:, JU]
+    R: torch.Tensor        # [B, 3, 8, nk]
+    g_lna: torch.Tensor    # [B, nn] the growth table's ln a nodes
+    g_G: torch.Tensor      # [B, nn, nk]
+    g_dDda: torch.Tensor   # [B, nn, nk]
+    g_Dnorm: torch.Tensor  # [B, nk]
+    D_z1l: torch.Tensor    # [B, nk]
+    z_in: float
 
 
-def omega_from(om: OmegaIn) -> torch.Tensor:
+def omega_at(om: OmegaIn, a: torch.Tensor) -> OmegaAt:
+    """Omega's inputs at per-lane a [B] (trg.omega_inputs' operations)."""
+    beta = mdl.beta_P_at(om.beta_a, om.beta_solver, om.f_nu, a)
+    return OmegaAt(beta, om.Omega_m, om.consts.f_cb,
+                   *bg.omega_scalars(a, om.consts))
+
+
+def prologue_plain(eta: torch.Tensor, om: OmegaIn, src):
+    """The RHS's lookups at eta [B], as the eager prologue computed them
+    before K8 took them over: (OmegaAt, and in 1-loop mode (D, dD/da, z)
+    [B, nk], [B, nk], [B] at eta's z, else None)."""
+    at = omega_at(om, om.a_in * torch.exp(eta))
+    if not isinstance(src, OneLoopSrc):
+        return at, None
+    z = torch.exp(-eta) * (1.0 + src.z_in) - 1.0        # [B]
+    D, dDda = mdl.growth_at(src.g_lna, src.g_G, src.g_dDda, src.g_Dnorm, z)
+    return at, (D, dDda, z)
+
+
+def omega_from(om: OmegaAt) -> torch.Tensor:
     """Omega(a, k) [B, 2, 2, nk] (reference :1383-1411)."""
     B, nk = om.beta.shape
     ones = torch.ones((B, nk), dtype=F64, device=om.beta.device)
@@ -112,11 +155,13 @@ def _mats(device: torch.device):
             torch.tensor(ABC_IDX, device=device))
 
 
-def _rescale(src: OneLoopSrc, eta: torch.Tensor):
-    """trg.oneloop_rescale's A_u and R: the same operations in the same
-    order, on the JU rows of A."""
-    fz = src.dDda / (src.D * (1.0 + src.z)[:, None])
-    dr = src.D / src.D_z1l
+def _rescale(src: OneLoopSrc, growth, eta: torch.Tensor):
+    """trg.oneloop_rescale's A_u and R at the growth (D, dD/da, z) of
+    prologue_plain: the same operations in the same order, on the JU rows
+    of A."""
+    D, dDda, z = growth
+    fz = dDda / (D * (1.0 + z)[:, None])
+    dr = D / src.D_z1l
     dr2 = dr * dr
     pre = (dr2 * dr2 * torch.exp(-4.0 * eta)[:, None])[:, None]  # [B,1,nk]
     f2 = fz * fz
@@ -129,11 +174,13 @@ def _rescale(src: OneLoopSrc, eta: torch.Tensor):
 
 def rhs_tail_plain(y, eta, k, om: OmegaIn, src, evolve_q: bool):
     """The plain PyTorch version: the eager RHS of make_rhs after the
-    engine, with omega_matrix, assemble's A/R and oneloop_rescale, in
-    their order.  src: FullSrc, OneLoopSrc, or None (linear mode).
-    Returns dy [B, 41, nk]."""
+    engine, from the lookups (prologue_plain: a, beta_P, the Omega
+    scalars; the 1-loop growth) through omega_matrix, assemble's A/R and
+    oneloop_rescale, in their order.  src: FullSrc, OneLoopSrc, or None
+    (linear mode).  Returns dy [B, 41, nk]."""
     B, _, nk = y.shape
-    O = omega_from(om)                                   # [B, 2, 2, nk]
+    at, growth = prologue_plain(eta, om, src)
+    O = omega_from(at)                                   # [B, 2, 2, nk]
     e_eta = torch.exp(eta)[:, None]
 
     lnP = torch.clamp(y[:, 0:3], LNP_MIN, LNP_MAX)
@@ -144,7 +191,7 @@ def rhs_tail_plain(y, eta, k, om: OmegaIn, src, evolve_q: bool):
         CI, CQ, TR14 = _mats(y.device)[:3]
         I14 = y[:, NUP:NUP + NUI]
         if isinstance(src, OneLoopSrc):
-            A_u, R = _rescale(src, eta)
+            A_u, R = _rescale(src, growth, eta)
         else:
             Jf = src.Jw[..., :nk]
             A_u, R = assembly.assemble_ar(Jf[:, :7], src.PZw, Jf[:, 7:], k,
@@ -517,7 +564,13 @@ def ar_source() -> str:
 
 
 def _src_tensors(src) -> list:
-    return [] if src is None else list(src)
+    if src is None:
+        return []
+    return list(src[:-1]) if isinstance(src, OneLoopSrc) else list(src)
+
+
+def _om_tensors(om: OmegaIn) -> list:
+    return [om.beta_a, om.beta_solver, om.f_nu, om.Omega_m, *om.consts]
 
 
 def _check(y, eta, k, om: OmegaIn, src, evolve_q: bool) -> None:
@@ -525,10 +578,19 @@ def _check(y, eta, k, om: OmegaIn, src, evolve_q: bool) -> None:
         raise ValueError(f"rhs_tail: y must be [B, {NU_STATE}, nk], got "
                          f"{tuple(y.shape)}")
     B, _, nk = y.shape
+    if not isinstance(om, OmegaIn) or not isinstance(om.consts,
+                                                     bg.OmegaConsts):
+        raise TypeError("rhs_tail: om must be OmegaIn with bg.OmegaConsts")
+    nz = om.beta_a.shape[-1]
+    if 0 < nz < 4:
+        raise ValueError(f"rhs_tail: the beta_P table needs 0 or at least "
+                         f"4 nodes, got {nz}")
     shapes = [("eta", eta, (B,)), ("k", k, (nk,)),
-              ("beta", om.beta, (B, nk))]
-    shapes += [(name, x, (B,)) for name, x in
-               zip(OmegaIn._fields[1:], om[1:])]
+              ("beta_a", om.beta_a, (B, nz)),
+              ("beta_solver", om.beta_solver, (B, nz, nk)),
+              ("f_nu", om.f_nu, (B,)), ("Omega_m", om.Omega_m, (B,))]
+    shapes += [(name, x, (B,)) for name, x in om.consts._asdict().items()]
+    scalars = [("a_in", om.a_in)]
     if isinstance(src, FullSrc):
         Jw = src.Jw
         nfam = Jw.shape[1] if Jw.dim() == 5 else -1
@@ -541,10 +603,17 @@ def _check(y, eta, k, om: OmegaIn, src, evolve_q: bool) -> None:
                              "of J with RSD")
         shapes.append(("PZw", src.PZw, (B, 7, 3, 3, nk)))
     elif isinstance(src, OneLoopSrc):
+        nn = src.g_lna.shape[-1]
+        if nn < 4:
+            raise ValueError(f"rhs_tail: the growth table needs at least 4 "
+                             f"nodes, got {nn}")
         shapes += [("A_u", src.A_u, (B, NUI, nk)),
-                   ("R", src.R, (B, 3, 8, nk)), ("D", src.D, (B, nk)),
-                   ("dDda", src.dDda, (B, nk)),
-                   ("D_z1l", src.D_z1l, (B, nk)), ("z", src.z, (B,))]
+                   ("R", src.R, (B, 3, 8, nk)), ("g_lna", src.g_lna, (B, nn)),
+                   ("g_G", src.g_G, (B, nn, nk)),
+                   ("g_dDda", src.g_dDda, (B, nn, nk)),
+                   ("g_Dnorm", src.g_Dnorm, (B, nk)),
+                   ("D_z1l", src.D_z1l, (B, nk))]
+        scalars.append(("z_in", src.z_in))
     elif src is not None:
         raise TypeError(f"rhs_tail: src must be FullSrc, OneLoopSrc or None, "
                         f"got {type(src).__name__}")
@@ -552,6 +621,10 @@ def _check(y, eta, k, om: OmegaIn, src, evolve_q: bool) -> None:
         if tuple(x.shape) != shape:
             raise ValueError(f"rhs_tail: {name} must be {list(shape)}, got "
                              f"{list(x.shape)}")
+    for name, v in scalars:
+        if isinstance(v, torch.Tensor) or not isinstance(v, (int, float)):
+            raise TypeError(f"rhs_tail: {name} must be a Python float, got "
+                            f"{type(v).__name__}")
     for name, x in [("y", y)] + [(n, x) for n, x, _ in shapes] + (
             [("Jw", src.Jw)] if isinstance(src, FullSrc) else []):
         if x.dtype != F64:
@@ -563,8 +636,8 @@ def _check(y, eta, k, om: OmegaIn, src, evolve_q: bool) -> None:
 
 def rhs_tail(y, eta, k, om: OmegaIn, src, evolve_q: bool) -> torch.Tensor:
     """dy [B, 41, nk]: the hand kernel for CUDA tensors, the plain version
-    for CPU tensors.  src: FullSrc (full Time-RG), OneLoopSrc (1-loop) or
-    None (linear)."""
+    for CPU tensors.  om: the Omega tables (OmegaIn); src: FullSrc (full
+    Time-RG), OneLoopSrc (1-loop) or None (linear)."""
     _check(y, eta, k, om, src, evolve_q)
     if y.device.type == "cpu":
         return rhs_tail_plain(y, eta, k, om, src, evolve_q)
@@ -578,7 +651,7 @@ def rhs_tail(y, eta, k, om: OmegaIn, src, evolve_q: bool) -> torch.Tensor:
             >= 2 ** 31:
         raise ValueError(f"rhs_tail: {B} lanes of {nk} points are more "
                          "tasks than a launch numbers")
-    ins = [y, eta, k, *om, *_src_tensors(src)]
+    ins = [y, eta, k, *_om_tensors(om), *_src_tensors(src)]
     if not all(x.is_contiguous() for x in ins):
         raise ValueError("rhs_tail: the kernel takes contiguous tensors")
     out = torch.empty_like(y)
@@ -594,22 +667,35 @@ def mode_of(src) -> str:
             "full" if isinstance(src, FullSrc) else "oneloop")
 
 
+# rt_rhs_tail's pointer table: y, eta, k, the Omega tables (OmegaIn's
+# tensors, consts in bg.OmegaConsts' order), SRC_SLOTS source tensors
+# (FullSrc's or OneLoopSrc's, null-padded), dy
+SRC_SLOTS = 7
+N_POINTERS = 3 + 4 + len(bg.OmegaConsts._fields) + SRC_SLOTS + 1
+
+
 def launch(lib, out, y, eta, k, om: OmegaIn, src, evolve_q: bool) -> None:
     """One launch of `lib`'s rt_rhs_tail into `out` on the current stream
     (the wrapper's, after its checks; scripts/time_rhs_tail.py also calls
-    it on builds with a part of the kernel taken out).  Counts nothing."""
+    it on builds with a part of the kernel taken out).  Counts nothing.
+    The pointers go in a host array the C side reads at the call: nothing
+    is copied to the card."""
     B, _, nk = y.shape
     var = variant(mode_of(src), evolve_q)
     plan = launch_plan(var, nk, B)
-    ptrs = [x.data_ptr() for x in _src_tensors(src)]
-    ptrs += [None] * (6 - len(ptrs))
+    srcs = [x.data_ptr() for x in _src_tensors(src)]
+    ptrs = ([y.data_ptr(), eta.data_ptr(), k.data_ptr()]
+            + [x.data_ptr() for x in _om_tensors(om)]
+            + srcs + [None] * (SRC_SLOTS - len(srcs)) + [out.data_ptr()])
+    table = (ctypes.c_void_p * N_POINTERS)(*ptrs)
     nfam, pitch = (src.Jw.shape[1], src.Jw.shape[4]) \
         if isinstance(src, FullSrc) else (0, 0)
+    nn = src.g_lna.shape[1] if isinstance(src, OneLoopSrc) else 0
+    zc = 1.0 + src.z_in if isinstance(src, OneLoopSrc) else 0.0
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.rt_rhs_tail(
-            y.data_ptr(), eta.data_ptr(), k.data_ptr(),
-            *[x.data_ptr() for x in om], *ptrs, out.data_ptr(), B, nk,
-            VARIANTS.index(var), nfam, pitch, plan["blocks"],
-            plan["threads"], stream)
+            table, N_POINTERS, float(om.a_in), zc, B, nk,
+            om.beta_a.shape[1], nn, VARIANTS.index(var), nfam, pitch,
+            plan["blocks"], plan["threads"], stream)
     build.check(status, "rhs_tail")

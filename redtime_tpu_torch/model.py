@@ -141,13 +141,20 @@ def beta_P_solver(model: Model, a) -> torch.Tensor:
     """beta_P(a, k) on the solver grid [B, nk] (reference :513-637):
     a > 1 evaluates at a = 1; zero when f_nu < 1e-10 or the table is
     empty."""
-    B, nk = model.T_solver.shape
-    if model.beta_a.shape[1] == 0:
-        return model.T_solver.new_zeros((B, nk))
-    a = lane_values(a, B, model.T_solver.device)
-    raw = beta_raw_at_a(model.beta_a, model.beta_solver,
-                        torch.clamp(a, max=1.0))
-    f_nu = _col(model.f_nu)
+    B = model.batch
+    return beta_P_at(model.beta_a, model.beta_solver, model.f_nu,
+                     lane_values(a, B, model.norm.device))
+
+
+def beta_P_at(beta_a: torch.Tensor, beta_solver: torch.Tensor,
+              f_nu: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """beta_P_solver on a model's tables: beta_a [B, nz], beta_solver
+    [B, nz, nk], f_nu [B] at a [B]."""
+    B, nz, nk = beta_solver.shape
+    if nz == 0:
+        return beta_solver.new_zeros((B, nk))
+    raw = beta_raw_at_a(beta_a, beta_solver, torch.clamp(a, max=1.0))
+    f_nu = _col(f_nu)
     return torch.where(f_nu < 1e-10, torch.zeros_like(raw), f_nu * raw)
 
 
@@ -469,13 +476,20 @@ def growth_D_f(model: Model, z):
     """D(z, k) and dD/da(z, k) on the solver grid, [B, nk] each
     (reference :727-730).  z: float or [B]."""
     B = model.batch
-    z = lane_values(z, B, model.norm.device)
+    return growth_at(model.g_lna, model.g_G, model.g_dDda, model.g_Dnorm,
+                     lane_values(z, B, model.norm.device))
+
+
+def growth_at(g_lna: torch.Tensor, g_G: torch.Tensor, g_dDda: torch.Tensor,
+              g_Dnorm: torch.Tensor, z: torch.Tensor):
+    """growth_D_f on a model's growth tables (g_lna [B, nn], g_G and
+    g_dDda [B, nn, nk], g_Dnorm [B, nk]) at z [B]."""
     a = torch.reciprocal(1.0 + z)       # 1 / (1 + z), as torch divides so
-    wx = interp.axis_weights_full(model.g_lna, torch.log(a))   # [B, nn]
-    Gv = torch.einsum("bn,bnk->bk", wx, model.g_G)
-    dDv = torch.einsum("bn,bnk->bk", wx, model.g_dDda)
-    D = Gv * _col(a) / model.g_Dnorm
-    dDda = dDv / model.g_Dnorm
+    wx = interp.axis_weights_full(g_lna, torch.log(a))   # [B, nn]
+    Gv = torch.einsum("bn,bnk->bk", wx, g_G)
+    dDv = torch.einsum("bn,bnk->bk", wx, g_dDda)
+    D = Gv * _col(a) / g_Dnorm
+    dDda = dDv / g_Dnorm
     return D, dDda
 
 

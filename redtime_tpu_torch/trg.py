@@ -31,7 +31,7 @@ from redtime_tpu_torch.kernels.rhs_tail import (ABC_IDX, BEF_IDX, NU_STATE,
                                                 NUI, NUP, NUQ)
 from redtime_tpu_torch.kernels.rk_finish import attempt_consts
 from redtime_tpu_torch.ode import (DOP853, DOPRI5, RKF45, attempt,
-                                   integrate_interval)
+                                   integrate_interval, lane_values)
 
 NELL = 3
 
@@ -51,17 +51,24 @@ class OneLoopCache(NamedTuple):
     D_z1l: torch.Tensor   # [B, nk]
 
 
-def omega_inputs(model: mdl.Model, a: torch.Tensor,
-                 consts: bg.OmegaConsts | None = None) -> rt.OmegaIn:
-    """What Omega(a, k) is built from at per-lane a [B]: beta_P [B, nk]
-    and the lane scalars Omega_m, f_cb, a^3 H^2/H0^2, 3 + dlnH/dlna.
-    consts (bg.omega_consts of the model's cosmology) may come
-    precomputed."""
+def omega_tables(model: mdl.Model, a_in: float) -> rt.OmegaIn:
+    """The tables Omega(a, k) is looked up in (K8's OmegaIn), at
+    a = a_in e^eta: the model's beta_P table, f_nu, Omega_m and the
+    cosmology's constants (bg.omega_consts)."""
     c = model.cosmo
-    consts = bg.omega_consts(c) if consts is None else consts
-    beta = mdl.beta_P_solver(model, a)                   # [B, nk]
-    return rt.OmegaIn(beta, c.Omega_m, consts.f_cb,
-                      *bg.omega_scalars(a, consts))
+    consts = bg.omega_consts(c)
+    return rt.OmegaIn(model.beta_a.contiguous(),
+                      model.beta_solver.contiguous(),
+                      model.f_nu.contiguous(), c.Omega_m.contiguous(),
+                      bg.OmegaConsts(*[x.contiguous() for x in consts]),
+                      float(a_in))
+
+
+def omega_inputs(model: mdl.Model, a: torch.Tensor) -> rt.OmegaAt:
+    """What Omega(a, k) is built from at per-lane a [B]: beta_P [B, nk]
+    and the lane scalars Omega_m, f_cb, a^3 H^2/H0^2, 3 + dlnH/dlna."""
+    a = lane_values(a, model.batch, model.norm.device)
+    return rt.omega_at(omega_tables(model, 1.0), a)
 
 
 def omega_matrix(cfg: SolverConfig, model: mdl.Model, a: torch.Tensor):
@@ -130,12 +137,13 @@ def _collapse_pt(PT: torch.Tensor) -> torch.Tensor:
 def rhs_prologue(cfg: SolverConfig, settings: RunSettings,
                  model: mdl.Model, ec: fastpt.EngineConsts,
                  cache: OneLoopCache | None = None):
-    """The eager part of one RHS evaluation: prologue(eta [B],
+    """What one RHS evaluation runs before K8: prologue(eta [B],
     y [B, 41*nk]) returns the arguments of kernels.rhs_tail.rhs_tail
-    (y [B, 41, nk], eta, k, OmegaIn, src, evolve_q): a and the Omega
-    inputs; in full Time-RG the engine, K9, K10, K1 and K2 (FullSrc); in
-    1-loop mode the growth at eta's z beside `cache`'s rows
-    (OneLoopSrc); in linear mode src None."""
+    (y [B, 41, nk], eta, k, OmegaIn, src, evolve_q): in full Time-RG the
+    engine, K9, K10, K1 and K2 (FullSrc); in 1-loop mode `cache`'s rows
+    and the growth tables (OneLoopSrc); in linear mode src None.  The
+    tables (OmegaIn, OneLoopSrc) are made once here: K8 looks a, beta_P,
+    the Omega scalars and the 1-loop growth up in them itself."""
     one_loop = settings.nonlinear and settings.one_loop
     if one_loop and cache is None:
         raise ValueError("1-loop mode needs the z1l cache "
@@ -143,28 +151,26 @@ def rhs_prologue(cfg: SolverConfig, settings: RunSettings,
     g = make_grids(cfg)
     nk = g.nk
     k = torch.as_tensor(g.k, dtype=F64, device=model.norm.device)
-    a_in = settings.a_in
     evolve_q = settings.print_rsd or cfg.print_q
     nonlinear = settings.nonlinear
+    om = omega_tables(model, settings.a_in)
     # once per model: the cache's unique A rows (the RHS reads no others)
-    # and the cosmology's constants
-    A_u = cache.A64[:, assembly.JU] if one_loop else None
-    consts = bg.omega_consts(model.cosmo)
+    # and the growth tables
+    src = (rt.OneLoopSrc(cache.A64[:, assembly.JU].contiguous(),
+                         cache.R.contiguous(), model.g_lna.contiguous(),
+                         model.g_G.contiguous(), model.g_dDda.contiguous(),
+                         model.g_Dnorm.contiguous(),
+                         cache.D_z1l.contiguous(), float(settings.z_in))
+           if one_loop else None)
 
     def prologue(eta, yflat):
         B = yflat.shape[0]
         y = yflat.reshape(B, NU_STATE, nk)
-        a = a_in * torch.exp(eta)
-        om = omega_inputs(model, a, consts)
-        if not nonlinear:
-            src = None
-        elif one_loop:
-            z = torch.exp(-eta) * (1.0 + settings.z_in) - 1.0   # [B]
-            D, dDda = mdl.growth_D_f(model, z)               # [B, nk]
-            src = rt.OneLoopSrc(A_u, cache.R, D, dDda, cache.D_z1l, z)
-        else:
-            src = rt.FullSrc(*fastpt.compute_J_PZ(
-                cfg, y[:, 0:3], model.cosmo.n_s, evolve_q, ec, clip=True))
+        if nonlinear and not one_loop:
+            return (y.contiguous(), eta.contiguous(), k, om,
+                    rt.FullSrc(*fastpt.compute_J_PZ(
+                        cfg, y[:, 0:3], model.cosmo.n_s, evolve_q, ec,
+                        clip=True)), evolve_q)
         return y.contiguous(), eta.contiguous(), k, om, src, evolve_q
 
     return prologue
@@ -175,8 +181,8 @@ def make_rhs(cfg: SolverConfig, settings: RunSettings, model: mdl.Model,
     """The flattened-state RHS dy/deta (reference derivatives()):
     rhs(eta [B], y [B, 41*nk]) -> [B, 41*nk].  In 1-loop mode the
     mode coupling comes from `cache` (build_oneloop_cache).  Each
-    evaluation is rhs_prologue's eager part, then K8 rhs_tail for all
-    that follows the engine."""
+    evaluation is rhs_prologue (in full Time-RG the engine: K9, K10, K1,
+    K2), then K8 rhs_tail for all that follows the engine."""
     prologue = rhs_prologue(cfg, settings, model, ec, cache)
 
     def rhs(eta, yflat):

@@ -12,11 +12,12 @@ redshifts), and measures:
     included) and _finalize, host clock with torch.cuda.synchronize()
     around each, two repeats after one untimed warm-up, with each phase's
     kernel launch counts and attempts per lane;
-  * one RHS evaluation at the cell's lanes and its pieces: the eager
-    prologue (trg.rhs_prologue) and K8 rhs_tail, and within the prologue
-    omega_inputs, growth_D_f, K9 engine_front and the whole engine (K9,
-    K10 tab_leg, K1, K2); K8's plain version beside them: host clock over
-    20 calls and CUDA events over 20 calls;
+  * one RHS evaluation at the cell's lanes and its pieces: what runs
+    before K8 (trg.rhs_prologue: in full TRG the engine, K9 engine_front,
+    K10 tab_leg, K1, K2; nothing else) and K8 rhs_tail, K9 alone; off the
+    path, K8's plain version and the pieces of its prologue
+    (rhs_tail.prologue_plain: omega_inputs, growth_D_f), which K8 computes
+    itself: host clock over 20 calls and CUDA events over 20 calls;
   * torch.profiler over one RHS evaluation and over one controller
     attempt: the device kernels of each, and so the kernels an attempt
     launches outside its RHS evaluations;
@@ -124,8 +125,9 @@ def _rhs(cfg, settings, m, ec):
 
 def rhs_pieces(cfg, settings, m, ys, cs, ec, out: dict) -> None:
     """Host-clock and CUDA-event ms of one RHS evaluation and of its
-    pieces: the eager prologue (trg.rhs_prologue) and K8 rhs_tail on its
-    output, with the prologue's own pieces and the plain version of K8."""
+    pieces: what runs before K8 (trg.rhs_prologue) and K8 rhs_tail on its
+    output; off the path, the plain version of K8 and its prologue's
+    pieces (plain_*)."""
     dev = ys.device
     B = ys.shape[0]
     cache = (trg.build_oneloop_cache(cfg, settings, m, ec)
@@ -142,8 +144,8 @@ def rhs_pieces(cfg, settings, m, ys, cs, ec, out: dict) -> None:
         "prologue": lambda: prologue(eta, y),
         "rhs_tail": lambda: rhs_tail.rhs_tail(*args),
         "rhs_tail_plain": lambda: rhs_tail.rhs_tail_plain(*args),
-        "omega_inputs": lambda: trg.omega_inputs(m, a),
-        "growth_D_f": lambda: model.growth_D_f(m, 1.0 / a - 1.0),
+        "plain_omega_inputs": lambda: trg.omega_inputs(m, a),
+        "plain_growth_D_f": lambda: model.growth_D_f(m, 1.0 / a - 1.0),
         "engine_front": lambda: fastpt.engine_front(cfg, lnP, cs.n_s, ec,
                                                     clip=True),
         "engine": lambda: fastpt.compute_J_PZ(cfg, lnP, cs.n_s, True, ec,

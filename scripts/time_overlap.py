@@ -17,8 +17,9 @@ print_bias in 2 chunks of 32), each with a StageTimer (prepare, solve
 and, where the checkout has it, the overlap's stats); the rhs_ cells
 take one RHS evaluation (trg.make_rhs) of a full-TRG chunk of 16 and a
 1-loop chunk of 32 design cosmologies, on chip_smoke.rt_state's states,
-and count its device kernels and device busy ms (torch.profiler) and
-its host ms (20 calls, synchronized).  --cells times only the named
+and count its device kernels and device busy ms (torch.profiler,
+chip_smoke.device_kernels: a window of 10 calls) and its host ms (20
+calls, synchronized).  --cells times only the named
 ones of CELLS (and warms up only their modes).  Prints one JSON
 line per (round, root) and writes them all, with the card's name and
 power limit, to PATH (default chiprun_out/time_overlap.json).  Imports
@@ -101,7 +102,7 @@ def time_one(root: str, cells=CELLS) -> dict:
         eta, y = smoke.rt_state(np.random.default_rng(7), cfg, settings, m,
                                 B)
         rhs = trg.make_rhs(cfg, settings, m, ec, cache)
-        kernels, busy = smoke.rhs_device_kernels(rhs, eta, y)
+        kernels, busy, _ = smoke.device_kernels(lambda: rhs(eta, y))
         out[name] = dict(rhs_device_kernels=kernels,
                          rhs_device_busy_ms=busy,
                          rhs_host_ms=smoke.rhs_host_ms(rhs, eta, y))

@@ -16,12 +16,15 @@ kernels and times its rhs_tail on the saved inputs with this checkout's
 chip_smoke.graph_ms (20 calls in a CUDA graph, replayed 5 times), five
 readings a case.  ROOT defaults to this checkout.
 
-With --drops, this checkout's kernel is also built six more times with
+With --drops, this checkout's kernel is also built seven more times with
 one part taken out (csrc/rhs_tail.cu RT_DROP: 1 the row loads, 2 the dI
 / dQ outputs, 4 dlnP, 8 the scalars; 16 every task running item 0, one
 item's code on the whole card; 32 every task storing one row of zeros
-and nothing else) and timed on the same inputs in the same turns; what a
-part costs is the whole kernel's time less the variant's.  Prints the card, each reading's medians as JSON lines and a table with
+and nothing else; 64 the lookups' prologue: no bracketing, pow, exp or
+log, the table rows of fixed nodes) and timed on the same inputs in the
+same turns; what a part costs is the whole kernel's time less the
+variant's.  A ROOT whose K8 predates the lookups (its OmegaIn holds beta)
+is fed the lookups' values, computed here by the plain version.  Prints the card, each reading's medians as JSON lines and a table with
 the bound and the launch floor; writes everything to
 chiprun_out/time_rhs_tail.json.  Imports nothing of JAX.
 """
@@ -40,7 +43,7 @@ READINGS = 5
 # builds beside the package's, each with one part taken out: name -> RT_DROP
 DROPS = {"without the row loads": 1, "without dI/dQ": 2, "without dlnP": 4,
          "without the scalars": 8, "item 0 everywhere": 16,
-         "zeros alone": 32}
+         "zeros alone": 32, "without the lookups' prologue": 64}
 
 
 def _smoke():
@@ -61,6 +64,7 @@ def make_inputs(path: str) -> list:
     from redtime_tpu_torch import driver, fastpt, trg
     from redtime_tpu_torch import model as mdl
     from redtime_tpu_torch.config import RunSettings
+    from redtime_tpu_torch.kernels import rhs_tail as rt
 
     smoke = _smoke()
     dev = torch.device("cuda")
@@ -83,9 +87,14 @@ def make_inputs(path: str) -> list:
             eta, y = smoke.rt_state(rng, cfg, settings, m, B)
             args = trg.rhs_prologue(cfg, settings, m, ec, cache)(eta, y)
             y, eta, k, om, src, evolve_q = args
+            # the lookups as a checkout whose K8 takes them ready made
+            # (before its prologue moved into the kernel) is fed them
+            at, growth = rt.prologue_plain(eta, om, src)
             cases.append(dict(
                 key=f"{mode} nk={nk} B={B}", y=y, eta=eta, k=k,
-                om=list(om), src=None if src is None else list(src),
+                om=list(om[:4]) + [list(om.consts), om.a_in],
+                src=None if src is None else list(src),
+                looked_up=dict(om=list(at), growth=growth),
                 full=mode == "full", evolve_q=evolve_q))
             bounds.append(dict(key=cases[-1]["key"], **smoke.rt_cost(args)))
     torch.save(cases, path)
@@ -120,11 +129,8 @@ def time_one(root: str, inputs: str, builds: list) -> dict:
         libs = {name: build.bind_rhs_tail(ctypes.CDLL(str(p)))
                 for name, p in paths.items()}
     out = {}
-    for case in torch.load(inputs):
-        om = rt.OmegaIn(*case["om"])
-        src = (None if case["src"] is None else
-               (rt.FullSrc if case["full"] else rt.OneLoopSrc)(*case["src"]))
-        args = (case["y"], case["eta"], case["k"], om, src, case["evolve_q"])
+    for case in torch.load(inputs, weights_only=False):
+        args = _args(rt, case)
         fns = {"whole": lambda: rt.rhs_tail(*args)}
         for name, lib in libs.items():
             dy = torch.empty_like(case["y"])
@@ -140,6 +146,28 @@ def time_one(root: str, inputs: str, builds: list) -> dict:
     return dict(root=root, cases=out,
                 ptxas={v: smoke.ptxas_of(log, f"rhs_tail_kernelILi{i}E")
                        for i, v in enumerate(getattr(rt, "VARIANTS", ()))})
+
+
+def _args(rt, case: dict) -> tuple:
+    """rhs_tail's arguments of a saved case in the interface of the
+    checkout's K8 (rt): the model's tables, or, where its OmegaIn still
+    holds beta (K8 before the lookups moved into it), the lookups' values
+    saved beside them."""
+    src = case["src"]
+    if "beta" not in rt.OmegaIn._fields:
+        from redtime_tpu_torch import background as bg
+        om = rt.OmegaIn(*case["om"][:4], bg.OmegaConsts(*case["om"][4]),
+                        case["om"][5])
+        if src is not None:
+            src = (rt.FullSrc if case["full"] else rt.OneLoopSrc)(*src)
+    else:
+        om = rt.OmegaIn(*case["looked_up"]["om"])
+        if src is not None and case["full"]:
+            src = rt.FullSrc(*src)
+        elif src is not None:
+            D, dDda, z = case["looked_up"]["growth"]
+            src = rt.OneLoopSrc(src[0], src[1], D, dDda, src[6], z)
+    return (case["y"], case["eta"], case["k"], om, src, case["evolve_q"])
 
 
 def main() -> int:

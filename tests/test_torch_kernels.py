@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from torch_port_util import cuda_device  # noqa: F401
+from redtime_tpu_torch import background as bg
 from redtime_tpu_torch import fastpt as tf
 from redtime_tpu_torch import ode as tode
 from redtime_tpu_torch.config import SolverConfig as TCfg
@@ -997,26 +998,37 @@ def test_cuda_probes_entry_point(cuda_device):
     assert any(line.startswith("probe4 in-loop:") for line in lines)
 
 
-def _k8_inputs(rng, B: int, nk: int, dev):
+def _k8_inputs(rng, B: int, nk: int, dev, nz: int = 8, nn: int = 41):
     """K8's arguments of each mode on generated inputs: y with lnP rows
-    near a spectrum's and small I/Q rows, a NaN last lane."""
+    near a spectrum's and small I/Q rows, a NaN last lane; Omega tables
+    of nz beta nodes (the lanes' a below, inside and past the table) and
+    cosmology constants near the defaults', growth tables of nn ln a
+    nodes."""
     t = lambda x: torch.as_tensor(x, dtype=torch.float64, device=dev)
     y = rng.standard_normal((B, 41, nk))
     y[:, :3] += 6.0
     y[:, 3:] *= 1e-3
     y[-1] = np.nan
-    eta = t(rng.uniform(0.5, 4.0, B))
+    eta = t(rng.uniform(-0.5, 5.8, B))
     k = t(np.geomspace(1e-3, 1.0, nk))
-    om = k8.OmegaIn(t(0.01 * rng.uniform(size=(B, nk))),
-                    t(rng.uniform(0.25, 0.35, B)),
-                    t(rng.uniform(0.95, 1.0, B)), t(rng.uniform(0.5, 2.0, B)),
-                    t(rng.uniform(1.0, 2.0, B)))
+    u = lambda lo, hi: t(rng.uniform(lo, hi, B))
+    beta_a = np.sort(rng.uniform(0.005, 1.0, (B, nz)), axis=1)
+    consts = bg.OmegaConsts(
+        f_cb=u(0.95, 1.0), fcb_om=u(0.28, 0.32), OL=u(0.68, 0.72),
+        Og=u(5e-5, 6e-5), og4=u(2e-4, 2.4e-4), a_nu=u(0.003, 0.02),
+        y_cold=u(0.0, 0.05), y_hot=u(3e-5, 4e-5), dy_hot=u(-4e-5, -3e-5),
+        wa=u(-0.3, 0.3), w1=u(-0.3, 0.3), e_pow=u(-0.9, 0.9),
+        e_wa=u(-0.9, 0.9))
+    om = k8.OmegaIn(t(beta_a), t(0.3 + rng.uniform(size=(B, nz, nk))),
+                    u(0.0, 0.05), u(0.25, 0.35), consts, 1.0 / 201.0)
     full = k8.FullSrc(t(rng.standard_normal((B, 14, 3, 3, nk + 1))),
                       t(rng.standard_normal((B, 7, 3, 3, nk))))
-    pos = lambda: t(rng.uniform(0.5, 1.5, (B, nk)))
+    pos = lambda *shape: t(rng.uniform(0.5, 1.5, shape))
+    g_lna = np.tile(np.linspace(np.log(1e-3), np.log(1.1), nn), (B, 1))
     oneloop = k8.OneLoopSrc(t(rng.standard_normal((B, 14, nk))),
-                            t(rng.standard_normal((B, 3, 8, nk))), pos(),
-                            pos(), pos(), t(rng.uniform(0.0, 3.0, B)))
+                            t(rng.standard_normal((B, 3, 8, nk))), t(g_lna),
+                            pos(B, nn, nk), pos(B, nn, nk), pos(B, nk),
+                            pos(B, nk), 200.0)
     return t(y), eta, k, om, {"full": full, "oneloop": oneloop,
                               "linear": None}
 
@@ -1024,11 +1036,12 @@ def _k8_inputs(rng, B: int, nk: int, dev):
 @pytest.mark.cuda
 def test_cuda_rhs_tail_matches_plain(cuda_device):
     """On the card: K8 against its plain version in each mode, with and
-    without Q, at nk 48 and 128: within 1e-13 of each (lane, row)'s
-    scale, NaN in the same places, the same bits from two calls."""
+    without Q, at nk 48 and 128, with beta tables of 8, 4 and no nodes:
+    within 1e-13 of each (lane, row)'s scale, NaN in the same places, the
+    same bits from two calls."""
     rng = np.random.default_rng(13)
-    for B, nk in ((4, 48), (3, 128)):
-        y, eta, k, om, srcs = _k8_inputs(rng, B, nk, cuda_device)
+    for B, nk, nz in ((4, 48, 8), (3, 128, 4), (3, 128, 0)):
+        y, eta, k, om, srcs = _k8_inputs(rng, B, nk, cuda_device, nz)
         for mode, src in srcs.items():
             for evolve_q in (True, False):
                 if mode == "full" and not evolve_q:

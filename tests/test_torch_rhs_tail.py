@@ -25,7 +25,7 @@ import pytest
 import torch
 
 import chip_smoke
-from torch_port_util import jax_batch
+from torch_port_util import jax_batch, k8_prologue
 from redtime_tpu import assembly as ja
 from redtime_tpu import fastpt as jf
 from redtime_tpu import model as jm
@@ -180,22 +180,27 @@ def _kernel_model(y, eta, k, om, src, evolve_q):
     """dy [B, 41, nk] computed as the kernel computes it, in torch on the
     CPU: each work item of the variant's generated code, every C
     statement run as Python on all lanes and k points at once (its
-    scalars, its row loads LD_*, its A/R values or cache rows times
-    pre fz^n, the Omega terms and OUT_, the trace and dlnp, the zero
-    rows).  A division by a constant (DIVC_) is x / c here, as torch's
-    CPU kernels divide."""
+    scalars, from the lookups as the warps compute them (k8_prologue),
+    its row loads LD_*, its A/R values or cache rows times pre fz^n, the
+    Omega terms and OUT_, the trace and dlnp, the zero rows).  A division
+    by a constant (DIVC_) is x / c here, as torch's CPU kernels divide."""
     B, _, nk = y.shape
     var = rt.variant(rt.mode_of(src), evolve_q)
     dy = torch.full_like(y, float("nan"))
     rows = {"y": y}
     pre = fz = None
+    beta, den, o11, growth = k8_prologue(eta, om, src)
+    beta, den, o11 = (torch.tensor(x) for x in (beta, den, o11))
+    o10 = (-1.5 * om.Omega_m[:, None] * (om.consts.f_cb[:, None] + beta)
+           / den[:, None])
     if isinstance(src, rt.FullSrc):
         rows.update(jw=src.Jw[..., :nk].reshape(B, -1, nk),
                     pz=src.PZw.reshape(B, 63, nk))
     elif src is not None:
         rows.update(au=src.A_u, r=src.R.reshape(B, 24, nk))
-        fz = src.dDda / (src.D * (1.0 + src.z)[:, None])
-        dr = src.D / src.D_z1l
+        D, dDda, z = (torch.tensor(x) for x in growth)
+        fz = dDda / (D * (1.0 + z)[:, None])
+        dr = D / src.D_z1l
         dr2 = dr * dr
         pre = dr2 * dr2 * torch.exp(-4.0 * eta)[:, None]
 
@@ -220,9 +225,7 @@ def _kernel_model(y, eta, k, om, src, evolve_q):
 
     calls = dict(
         K_AT=lambda: k, LANE_E=lambda: torch.exp(eta)[:, None],
-        LANE_O11=lambda: om.o11[:, None],
-        O10_AT=lambda: (-1.5 * om.Omega_m[:, None]
-                        * (om.f_cb[:, None] + om.beta) / om.den[:, None]),
+        LANE_O11=lambda: o11[:, None], O10_AT=lambda: o10,
         FZ_AT=lambda: fz, PRE_AT=lambda: pre,
         OUT_=out, ZERO_=lambda r: out(r, torch.zeros_like(y[:, r])),
         DIVC_=lambda x, c: x / c,
@@ -479,11 +482,21 @@ def test_nan_lane_stays_nan():
     assert torch.equal(got[0], clean.reshape(2, 41, NK)[0])
 
 
+def _meta_tables(B, nk, nz=8, nn=6):
+    """K8's table tuples on the meta device: (OmegaIn, OneLoopSrc)."""
+    f = lambda *shape: torch.zeros(shape, dtype=F64, device="meta")
+    om = rt.OmegaIn(f(B, nz), f(B, nz, nk), f(B), f(B),
+                    bg.OmegaConsts(*[f(B)] * 13), 0.005)
+    return om, rt.OneLoopSrc(f(B, 14, nk), f(B, 3, 8, nk), f(B, nn),
+                             f(B, nn, nk), f(B, nn, nk), f(B, nk), f(B, nk),
+                             200.0)
+
+
 def _meta_args(**change):
     B, nk = 2, 8
     f = lambda *shape: torch.zeros(shape, dtype=F64, device="meta")
     args = dict(y=f(B, 41, nk), eta=f(B), k=f(nk),
-                om=rt.OmegaIn(f(B, nk), f(B), f(B), f(B), f(B)),
+                om=_meta_tables(B, nk)[0],
                 src=rt.FullSrc(f(B, 14, 3, 3, nk + 1), f(B, 7, 3, 3, nk)),
                 evolve_q=True)
     args.update(change)
@@ -505,13 +518,35 @@ def test_wrapper_errors():
     with pytest.raises(ValueError, match="14 families"):
         rt.rhs_tail(**_meta_args(src=rt.FullSrc(f(2, 7, 3, 3, 9),
                                                 f(2, 7, 3, 3, 8))))
-    with pytest.raises(ValueError, match="beta must be"):
-        rt.rhs_tail(**_meta_args(om=rt.OmegaIn(f(2, 9), f(2), f(2), f(2),
-                                               f(2))))
+    om, ol = _meta_tables(2, 8)
+    with pytest.raises(ValueError, match="beta_solver must be"):
+        rt.rhs_tail(**_meta_args(om=om._replace(beta_solver=f(2, 8, 9))))
+    with pytest.raises(ValueError, match="4 nodes"):
+        rt.rhs_tail(**_meta_args(om=om._replace(beta_a=f(2, 3),
+                                                beta_solver=f(2, 3, 8))))
+    with pytest.raises(ValueError, match="e_pow must be"):
+        rt.rhs_tail(**_meta_args(om=om._replace(
+            consts=om.consts._replace(e_pow=f(3)))))
+    with pytest.raises(TypeError, match="OmegaConsts"):
+        rt.rhs_tail(**_meta_args(om=om._replace(consts=tuple(om.consts))))
+    with pytest.raises(TypeError, match="a_in must be a Python float"):
+        rt.rhs_tail(**_meta_args(om=om._replace(a_in=f())))
+    with pytest.raises(ValueError, match="growth table needs at least 4"):
+        rt.rhs_tail(**_meta_args(src=ol._replace(
+            g_lna=f(2, 3), g_G=f(2, 3, 8), g_dDda=f(2, 3, 8))))
+    with pytest.raises(ValueError, match="g_dDda must be"):
+        rt.rhs_tail(**_meta_args(src=ol._replace(g_dDda=f(2, 5, 8))))
+    with pytest.raises(TypeError, match="z_in must be a Python float"):
+        rt.rhs_tail(**_meta_args(src=ol._replace(z_in=None)))
     with pytest.raises(TypeError, match="FullSrc"):
         rt.rhs_tail(**_meta_args(src=(f(2, 14, 3, 3, 9),)))
     with pytest.raises(ValueError, match="different devices"):
         rt.rhs_tail(**_meta_args(eta=torch.zeros(2, dtype=F64)))
+    # no beta_P table (nz 0) and a 1-loop source pass every check
+    om0 = om._replace(beta_a=f(2, 0), beta_solver=f(2, 0, 8))
+    for src, q in ((ol, True), (ol, False), (None, False)):
+        with pytest.raises(RuntimeError, match="no kernel for device"):
+            rt.rhs_tail(**_meta_args(om=om0, src=src, evolve_q=q))
 
 
 def test_omega_scalars_keep_the_bits():
