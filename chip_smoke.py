@@ -48,6 +48,18 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
      bound (the FFTs' and, for the history, the GEMM form's), and at full
      TRG 16 lanes eager and against plain, (K10) the library's matmul and
      both against cuFFT (torch.fft: yardsticks the port never calls);
+     K11 out_block on each path's output block (OB_CASES: full TRG 16 x
+     8 redshifts, 1-loop 32 x 7 with and without print_bias, every
+     switch on (84 columns), fill_pt_full_trg, linear, the presets, nk =
+     48, production's 16 x 33 in both modes, kmin != 1e-3) and on
+     edge-case lanes (ob_edges: f_nu = 0, NaN and zero states, a past 1,
+     a growth node on ln a, 4 and no beta nodes), fed what
+     driver._finalize feeds it (the engine over the B n_z lanes where the
+     layout needs it): within 1e-11 of column scale of its plain version,
+     NaN and inf in the same places, two calls the same bits, the
+     bit-equal share printed; eager, device and plain ms and its bound
+     each; and each path case's finalize launches K11 alone, or K9, K10,
+     K1, K2 then K11, and no other kernel;
   4. checks the probe kernels K4 affine, K5 int8_dot and K6 dd_mul
      against their plain versions on the card, bit for bit, at the
      probes' shapes, at one larger shape each and on ragged sizes, and
@@ -71,8 +83,8 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
      prepare_on_host=False (prepared on the card), each with every
      launch counter reset just before it and read just after (split into
      run_batch's prepare and solve phases); checks that every table is
-     finite, that the solve launched K1-K3 (rk_stage and rk_finish) and
-     K8, that
+     finite, that the solve launched K1-K3 (rk_stage and rk_finish), K8
+     and K11, that
      host prepare launched no kernel on the card and card prepare K3, and
      that lanes 0-1 match the JAX golden
      (tests/data/torch_port_golden_nk128.npz, written by
@@ -131,7 +143,7 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
  13. prints the kernels' JSON line, the card line and, last, the result.
 
 Every path from step 4 on runs with the launch counters set to 0 just
-before it and read just after, and must have launched K1-K3 and K8-K10
+before it and read just after, and must have launched K1-K3 and K8-K11
 (the probes: K4-K7 and K1), with as many launches of K9 and K10 as of K1
 and K2 (every engine evaluation K9 -> K10 -> K1 + K2); a worker process's
 launches come back with its answer.
@@ -175,7 +187,7 @@ HBM_BYTES_S = 3.35e12
 PEAK_FP64_TC, PEAK_FP64, PEAK_FP32, PEAK_INT8_TC = 67e12, 34e12, 67e12, \
     1979e12
 MAIN_KERNELS = ("engine_front", "tab_leg", "out_leg", "pz_leg", "rk_stage",
-                "rk_finish", "rhs_tail")
+                "rk_finish", "rhs_tail", "out_block")
 # the engine's kernels: one launch each an engine evaluation, on every path
 ENGINE_KERNELS = ("engine_front", "tab_leg", "out_leg", "pz_leg")
 # the production chain (run_production): a Latin-hypercube design of
@@ -1457,6 +1469,342 @@ def check_engine_legs(cases: list, detail: dict) -> list:
     return out
 
 
+# K11 out_block's cases (check_out_block): the output block of each path,
+# (name, SolverConfig kwargs or preset, RunSettings kwargs, lanes, z_out
+# by name); "edges" runs EDGE lanes on the every-switch layout.  The
+# bound against out_block_plain (of each (lane, column)'s max |plain| over
+# z and k; sigma_v^2's and H's over z) and the device kernels of one
+# finalize: K11 alone, or the engine's four over B n_z lanes first
+OB_ALL = dict(print_a=True, print_i=True, print_q=True, print_bias=True)
+OB_CASES = (
+    ("full_trg", {}, dict(one_loop=False), 16, "Z_OUT"),
+    ("oneloop", {}, dict(one_loop=True), 32, "Z_OUT_1L"),
+    ("oneloop_bias", dict(print_bias=True), dict(one_loop=True), 32,
+     "Z_OUT_1L"),
+    ("every_switch", OB_ALL, dict(one_loop=True), 8, "Z_OUT_1L"),
+    ("fill_pt_full_trg", dict(OB_ALL, fill_pt_full_trg=True),
+     dict(one_loop=False), 16, "Z_OUT"),
+    ("linear", OB_ALL, dict(nonlinear=False), 16, "Z_OUT"),
+    ("high_accuracy", "high_accuracy", dict(one_loop=True), 2,
+     "Z_OUT_PRESETS"),
+    ("v01_compat", "v01_compat", dict(one_loop=True), 2, "Z_OUT_PRESETS"),
+    ("nk48", dict(nk=48), dict(one_loop=False), 2, "Z_OUT"),
+    ("production", {}, dict(one_loop=False), 16, "CAMB"),
+    ("production_1loop", dict(print_bias=True), dict(one_loop=True), 16,
+     "CAMB"),
+    ("kmin", dict(OB_ALL, kmin=5e-4), dict(one_loop=True), 8, "Z_OUT_1L"),
+)
+OB_TIMED = ("full_trg", "oneloop_bias")
+OB_BOUND = 1e-11
+# the edge cases' redshifts: a past 1 (z < 0, beta clamped at a = 1),
+# a = 1 (min(1, a 1.001) = 1), a node's a
+OB_EDGE_Z = (3.0, 1.0, 0.0, -0.002)
+
+
+def ob_models() -> dict:
+    """The 2-lane models of each config of OB_CASES (host prepare), by
+    (nk, kmin)."""
+    import torch
+
+    from redtime_tpu_torch import driver
+
+    cs, lins = design_inputs(2)
+    chunk = ([x.numpy() for x in cs], list(lins), None)
+    out = {}
+    for _, kw, _, _, _ in OB_CASES:
+        cfg = ob_config(kw)
+        key = (cfg.nk, cfg.kmin)
+        if key not in out:
+            out[key] = driver._prepare(cfg, chunk, torch.device("cuda"),
+                                       True)
+    return out
+
+
+def ob_config(kw):
+    from redtime_tpu_torch.config import SolverConfig
+    return (getattr(SolverConfig, kw)() if isinstance(kw, str)
+            else SolverConfig(**kw))
+
+
+def ob_z(name: str) -> tuple:
+    from redtime_tpu_torch import orchestrate
+    if name == "CAMB":
+        return tuple(float(z) for z in orchestrate.CAMB_Z_LIST.split())
+    return globals()[name]
+
+
+def ob_states(rng, cfg, settings, m, S: int):
+    """ys [B, S, 41, nk] on the model's device: each lane's initial ln P rows grown
+    by 2 eta at S etas from 1.5 to 4.6, I and Q rows of the spectrum's
+    scale from the generator."""
+    import torch
+
+    from redtime_tpu_torch import trg
+
+    B, nk = m.batch, cfg.nk
+    y0 = trg.initial_state(cfg, settings, m).reshape(B, 41, nk).cpu().numpy()
+    ys = np.repeat(y0[:, None], S, axis=1)
+    ys[:, :, :3] += 2.0 * np.linspace(1.5, 4.6, S)[None, :, None, None]
+    ys[:, :, 3:] = 1e-3 * np.exp(ys[:, :, :1]) * rng.standard_normal(
+        (B, S, 38, nk))
+    return torch.as_tensor(ys, device=m.norm.device)
+
+
+def ob_args(cfg, settings, m, ys, ec):
+    """out_block's arguments as driver._finalize makes them (the engine
+    over the B S lanes where the layout needs it)."""
+    from redtime_tpu_torch import driver, fastpt
+    from redtime_tpu_torch.grids import make_grids
+    from redtime_tpu_torch.kernels import out_block as ob
+
+    B, S, _, nk = ys.shape
+    lay = ob.layout_of(cfg, settings)
+    src = (fastpt.compute_J_PZ(cfg, ys[:, :, 0:3].reshape(B * S, 3, nk),
+                               m.cosmo.n_s, settings.print_rsd, ec, n_rep=S)
+           if lay.mc else None)
+    return (lay, ys, driver._headers(cfg, settings, ys.device)[0], m,
+            tuple(float(z) for z in settings.z_out), settings.a_in, src,
+            ob.sv_weights(make_grids(cfg).k, cfg.kmin))
+
+
+def ob_compare(got, ref, what: str) -> tuple:
+    """K11's (table, sigma_v2, H) against the plain version's: NaN and inf
+    in the same places, within OB_BOUND of each (lane, column)'s scale
+    over z and k (sigma_v^2's and H's over z); (deviation, bit-equal
+    share of the finite elements, max |delta|)."""
+    import torch
+
+    err, same, n, delta = 0.0, 0, 0, 0.0
+    for g, r in zip(got, ref):
+        check(bool(torch.equal(g.isnan(), r.isnan())
+                   and torch.equal(g.isinf(), r.isinf())),
+              f"{what}: NaN or inf where the plain version has none")
+        fin = torch.isfinite(r)
+        dims = (1, 2) if r.dim() == 4 else (1,)
+        scale = torch.where(fin, r.abs(), 0.0).amax(dims, keepdim=True)
+        d = torch.where(fin, (g - r).abs(), 0.0)
+        err = max(err, float((d / (scale + 1e-300)).max()))
+        delta = max(delta, float(d.max()))
+        same += int((g == r)[fin].sum())
+        n += int(fin.sum())
+    check(err <= OB_BOUND, f"{what}: {err:.3g} of column scale from plain "
+                           f"(bound {OB_BOUND:g})")
+    return err, same / max(n, 1), delta
+
+
+def ob_cost(args) -> dict:
+    """least_time of one out_block: read once, the state rows its layout
+    prints or reads (ln P; I; P_B's Q rows; Q), the engine's rows its
+    programs read (and J_lo), the 4-node rows of the growth and beta
+    tables that this run's brackets touch (each lane's distinct ones),
+    Dnorm, T_solver and k, the nodes and the lane scalars; the table,
+    sigma_v^2 and H written once.  Operations: the traced programs' and
+    ~80 a point for the lookups' sums and the linear block, ~150 a (lane,
+    redshift) for the brackets and H (pow, exp counted as 20)."""
+    import torch
+
+    from redtime_tpu_torch import assembly, interp
+    from redtime_tpu_torch.kernels import out_block as ob
+
+    lay, ys, k, m, zs, a_in, src, sv = args
+    B, S, _, nk = ys.shape
+    progs = ob.programs()
+    leaves = lambda name: {a for op, a, _ in progs[name][0].ops
+                           if op == "f"}
+    rows_y = set(range(3)) | (set(range(3, 17)) if lay.i else set()) | (
+        leaves("pbis_rows") if lay.rsd != "off" else set()) | (
+        set(range(17, 41)) if lay.q else set())
+    eng = set()
+    if lay.mc:
+        eng |= leaves("a_rows") if lay.a else set()
+        eng |= leaves("pt_pmr_rows") if lay.rsd != "off" else set()
+    ops_pt = 3 * 20 + ob.n_columns(lay)
+    for name, on in (("a_rows", lay.mc and lay.a),
+                     ("pt_pmr_rows", lay.mc and lay.rsd != "off"),
+                     ("pbis_rows", lay.rsd != "off")):
+        if on:
+            ops_pt += sum(op not in ("f", "k")
+                          for op, _, _ in progs[name][0].ops)
+    ops_pt += 80 if lay.lin else 12
+    per_zk = len(rows_y) + len(eng - {assembly.PT_JLO}) + ob.n_columns(lay)
+    # the growth and beta rows this run's brackets touch, per lane
+    a = torch.as_tensor(1.0 / (1.0 + np.asarray(zs)))
+    gl = m.g_lna.cpu()
+    i0 = interp.axis_weights(gl, torch.log(a).expand(B, -1))[0]
+    g_rows = sum(len({int(i) + j for i in row for j in range(4)})
+                 for row in i0)
+    b_rows = 0
+    nz = m.beta_a.shape[1]
+    if lay.lin and nz:
+        aL, aR = a * 0.999, torch.clamp(a * 1.001, max=1.0)
+        x = torch.clamp(torch.cat([a, aL, aR, torch.ones(1)]), max=1.0)
+        ib = interp.axis_weights(m.beta_a.cpu(), x.expand(B, -1))[0]
+        b_rows = sum(len({int(i) + j for i in row for j in range(4)})
+                     for row in ib)
+    per_lane_k = 2 * g_rows / B + 1 + (b_rows / B + 1 if lay.lin else 0)
+    nbytes = 8.0 * (B * S * nk * per_zk + B * nk * per_lane_k + nk
+                    + B * (m.g_lna.shape[1] + nz + 9)
+                    + B * S * (1 + 2) + (B * S if lay.mc else 0))
+    ops = float(ops_pt) * B * S * nk + 150.0 * B * S
+    return least_time(nbytes, ops, PEAK_FP64)
+
+
+def ob_edges(rng, m8, cfg, ec) -> dict:
+    """K11's arguments at edge cases on 8 lanes of the every-switch
+    1-loop layout at OB_EDGE_Z (a at z = 1 and z = 0 on a node of the
+    design's beta table): lane 0 as it is, lane 1 with f_nu = 0
+    (Omega_nu = 0), lane 2's state NaN at one redshift (the chunked
+    scheduler's poisoned lane), lane 3's zero (a packed model never
+    finished), lane 5 with a growth node moved onto its ln a at z = 1;
+    then the same with a table of 4 beta nodes and with none (nz = 0).
+    Returns name -> (args, settings)."""
+    import torch
+
+    from redtime_tpu_torch.config import RunSettings
+
+    settings = RunSettings(one_loop=True, z_out=OB_EDGE_Z)
+    c = m8.cosmo
+    m = m8._replace(cosmo=c._replace(Omega_nu=c.Omega_nu.clone()),
+                    g_lna=m8.g_lna.clone())
+    m.cosmo.Omega_nu[1] = 0.0
+    lx = torch.log(torch.reciprocal(torch.tensor(1.0 + OB_EDGE_Z[1])))
+    g = m.g_lna[5]
+    g[int((g.cpu() - lx).abs().argmin())] = float(lx)
+    ys = ob_states(rng, cfg, settings, m, len(OB_EDGE_Z))
+    ys[2, 1] = float("nan")
+    ys[3, 2] = 0.0
+    pick = torch.tensor([0, 3, 5, 7], device=ys.device)
+    out = {}
+    for tag, mm in (
+            ("edges", m),
+            ("edges nz=4", m._replace(
+                beta_a=m.beta_a[:, pick].contiguous(),
+                beta_solver=m.beta_solver[:, pick].contiguous())),
+            ("edges nz=0", m._replace(
+                beta_a=m.beta_a[:, :0].contiguous(),
+                beta_solver=m.beta_solver[:, :0].contiguous()))):
+        out[tag] = (ob_args(cfg, settings, mm, ys, ec), settings)
+    return out
+
+
+def check_out_block(rng, detail: dict) -> dict:
+    """K11 out_block against its plain version on the card at each path's
+    output block (OB_CASES: the lanes and redshifts of the paths' chunks,
+    every layout family, the presets, nk = 48, production's 16 x 33 in
+    both modes, kmin != 1e-3) and at edge cases (ob_edges): within
+    OB_BOUND of column scale, NaN and inf in the same places, two calls
+    the same bits, the bit-equal share printed; one launch a call.  Each
+    case: eager ms (CUDA events over 20 calls), device ms (20 calls in a
+    CUDA graph x 5 replays), the plain version's eager ms (3 calls: it
+    copies scalars to the card, so no graph), the bound (ob_cost); each
+    path case's finalize (driver._finalize on the same states) runs 1
+    device kernel, or 5 where the layout takes the engine (K9, K10, K1,
+    K2 over the B n_z lanes first), and no other: the launch counters over
+    one call give those and nothing else, and a profiler window (the
+    fullest of 5, of one call between markers: a window drops a record
+    now and then) sees no other kernel.  Returns the kernels' line row
+    (full TRG 16 x 8, the headline's block)."""
+    import torch
+
+    from redtime_tpu_torch import driver, fastpt
+    from redtime_tpu_torch import model as mdl
+    from redtime_tpu_torch.config import RunSettings
+    from redtime_tpu_torch.kernels import build, counts
+    from redtime_tpu_torch.kernels import out_block as ob
+
+    dev = torch.device("cuda")
+    log = build.BUILD_LOG.get("output", "")
+    ptxas = ptxas_of(log, "out_block_kernel")
+    print(f"out_block ptxas: {ptxas}")
+    models = ob_models()
+    cases, rows, max_err = [], {}, 0.0
+    todo = []
+    for name, kw, skw, B, zname in OB_CASES:
+        cfg = ob_config(kw)
+        m2 = models[(cfg.nk, cfg.kmin)]
+        m = mdl.take_lanes(m2, torch.arange(B, device=dev) % 2)
+        settings = RunSettings(z_out=ob_z(zname), **skw)
+        ec = fastpt.engine_consts(cfg, dev)
+        ys = ob_states(rng, cfg, settings, m, len(settings.z_out))
+        if name == "full_trg":
+            ys[-1, 0] = float("nan")     # a poisoned lane at one redshift
+        todo.append((name, cfg, settings, ob_args(cfg, settings, m, ys, ec),
+                     ec, True))
+        if name == "every_switch":
+            todo += [(tag, cfg, s, a, ec, False) for tag, (a, s) in
+                     ob_edges(rng, m, cfg, ec).items()]
+    for name, cfg, settings, args, ec, path in todo:
+        lay, ys = args[0], args[1]
+        B, S, _, nk = ys.shape
+        what = f"out_block {name} (B={B}, {S} z, nk={nk}, " \
+               f"{ob.n_columns(lay)} columns)"
+        before = counts.snapshot()["out_block"]
+        got = ob.out_block(*args)
+        check(counts.snapshot()["out_block"] == before + 1,
+              f"{what}: not one launch")
+        check(all(same_bits(g, h) for g, h in zip(got, ob.out_block(*args))),
+              f"{what}: two calls on the same inputs differ")
+        ref = ob.out_block_plain(*args)
+        err, share, delta = ob_compare(got, ref, what)
+        max_err = max(max_err, delta)
+        row = dict(case=name, B=B, n_z=S, nk=nk, ncol=ob.n_columns(lay),
+                   mc=lay.mc, dev_col_scale=err, bit_equal_share=share,
+                   ms=time_ms(lambda: ob.out_block(*args)),
+                   device_ms=graph_ms(lambda: ob.out_block(*args)),
+                   plain_ms=time_ms(lambda: ob.out_block_plain(*args),
+                                    iters=3, warmup=1),
+                   **ob.launch_plan(nk, B, S), **ob_cost(args))
+        if path:
+            m = args[3]
+            fin = lambda: driver._finalize(cfg, settings, m, ys, ec)
+            want = ["out_block"] + (list(ENGINE_KERNELS) if lay.mc else [])
+            before = counts.snapshot()
+            fin()
+            launched = {k: v - before[k] for k, v in counts.snapshot().items()
+                        if v != before[k]}
+            n_dev, busy, names = device_kernels(fin, calls=1, tries=5)
+            hand = [n for n in names if any(k in n for k in want)]
+            check(launched == dict.fromkeys(want, 1) and hand == list(names)
+                  and n_dev <= len(want),
+                  f"{what}: one finalize launched {launched} and ran "
+                  f"{n_dev} device kernels {names} (the hand kernels are "
+                  f"{len(want)}: {want})")
+            row.update(finalize_launches=len(want),
+                       finalize_device_kernels=n_dev, finalize_busy_ms=busy)
+        rows[name] = row
+        cases.append(row)
+        print(f"{what}: {err:.3g} of column scale from plain, {share:.4f} "
+              f"of the finite elements bit-equal; {row['ms']:.4f} ms "
+              f"eager, {row['device_ms']:.5f} ms device (plain "
+              f"{row['plain_ms']:.3f} ms); bound {row['bound_ms']:.5f} ms "
+              f"by {row['bound_by']}"
+              + (f"; finalize {row['finalize_launches']} launches, "
+                 f"{row['finalize_device_kernels']:g} device kernels seen "
+                 f"by the profiler (its fullest of 5 windows)" if path
+                 else ""))
+    detail.update(out_block_cases=cases, out_block_ptxas=ptxas)
+    main = rows["full_trg"]
+    return dict(
+        name="out_block", route="cuda",
+        source="redtime_tpu_torch/csrc/out_block.cu",
+        replaces="redtime_tpu/driver.py:133",
+        also_replaces="redtime_tpu/driver.py:240 (_finalize), "
+                      "redtime_tpu/trg.py:563 (pbis_j), :161 (_collapse_pt),"
+                      " redtime_tpu/assembly.py:465 (PT), :507 (PMR), "
+                      "redtime_tpu/model.py:135 (beta_P_solver), :509 "
+                      "(growth_D_f), :521 (plin_all), :581 (sigma_v2), "
+                      "redtime_tpu/background.py:78 (H_H0)",
+        max_abs_err=max_err,
+        max_dev_col_scale=max(c["dev_col_scale"] for c in cases),
+        min_bit_equal_share=min(c["bit_equal_share"] for c in cases),
+        plain_device_ms=None, library_ms=None, oneloop=rows["oneloop_bias"],
+        ptxas=ptxas,
+        **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                "bound_by", "bound_bytes", "bound_ops",
+                                "finalize_launches",
+                                "finalize_device_kernels")})
+
+
 def rhs_host_ms(rhs, eta, y, n: int = 20) -> float:
     """Host-clock ms of one rhs(eta, y), the device synchronized, over n
     calls after one untimed call."""
@@ -1912,8 +2260,9 @@ def band_dev(got, ref) -> float:
 def timed_run(what: str, cfg, settings, cs, lins, detail: dict, **kw):
     """One run_batch on the card with every launch counter set to 0 just
     before it and read just after; checks that every lane is finite, that
-    the launches by phase add up and that the solve launched K1-K3 and K8; with
-    host prepare (the default) that prepare launched none of them, with
+    the launches by phase add up and that the solve launched K1-K3, K8 and
+    K11; with host prepare (the default) that prepare launched none of
+    them, with
     card prepare that it ran K3.  kw goes to run_batch.  Returns (result,
     launches with by_phase, wall seconds, the run's StageTimer: its
     stages' times and its stats, attempts per cosmology and, packed,
@@ -2925,6 +3274,8 @@ def main() -> int:
                       np.random.default_rng(3579), detail, engine_inputs))
     rows += timed("engine_legs", check_engine_legs, engine_inputs, detail)
     del engine_inputs
+    rows.append(timed("out_block", check_out_block,
+                      np.random.default_rng(8642), detail))
     timed("leg_shapes", check_leg_shapes, np.random.default_rng(2468),
           detail)
     presets = timed("preset_rows", preset_rows, np.random.default_rng(1357),
@@ -2935,10 +3286,11 @@ def main() -> int:
     rows += timed("probe_kernels", check_probe_kernels,
                   np.random.default_rng(4321), detail)
     for r in rows:
-        lib_ms = r["library_ms"]
+        lib_ms, plain_dev = r["library_ms"], r["plain_device_ms"]
+        plain_dev = "-" if plain_dev is None else f"{plain_dev:.4f}"
         print(f"kernel {r['name']}: {r['ms']:.4f} ms eager, "
               f"{r['device_ms']:.4f} ms device (plain {r['plain_ms']:.4f} / "
-              f"{r['plain_device_ms']:.4f} ms; library "
+              f"{plain_dev} ms; library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; bound "
               f"{r['bound_ms']:.5f} ms by {r['bound_by']}), max |delta| "
               f"{r['max_abs_err']:.3g}")

@@ -489,10 +489,23 @@ def assemble(Jf, PZf, Jn0f, J_lo, k, with_rsd: bool):
     PMR [..., 8, nk]).
     """
     A_unique, Rarr = assemble_ar(Jf, PZf, Jn0f, k, with_rsd)
-    J, PZ, Jn0 = _readers(Jf, PZf, Jn0f)
-    J_lo = J_lo[..., None]
     lead = Jf.shape[:-4]
+    PT, PMR = pt_pmr_rows(*_readers(Jf, PZf, Jn0f), J_lo[..., None], k,
+                          with_rsd)
+    PTarr = (torch.stack(PT, dim=-2) if with_rsd
+             else Jf.new_zeros(lead + (9,) + k.shape))
+    PMRarr = torch.stack(PMR, dim=-2)
+    return A_unique, Rarr, PTarr, PMRarr
+
+
+def pt_pmr_rows(J, PZ, Jn0, J_lo, k, with_rsd: bool):
+    """The P_T / P_MR half of `assemble`: P_T's 9 rows (with_rsd, else
+    None) and P_MR's 8, as lists, from the element readers J(n, idx),
+    PZ(n, idx), Jn0(n, idx), J_lo (J[0, 0, 0] at the low-k point,
+    broadcastable against a row) and k.  Arithmetic operators only, so
+    that pt_pmr_program can trace it (K11 out_block's code)."""
     k2 = k * k
+    PT = None
 
     # ---------------- P_{T,jm} (reference :1168-1243)
     if with_rsd:
@@ -533,9 +546,6 @@ def assemble(Jf, PZf, Jn0f, J_lo, k, with_rsd: bool):
                   (63.0 / 5.0) * Jn0(0, 8)) / k2 +
                  (59.0 / 70.0) * J(6, 8) + 2.0 * J(5, 8) -
                  (36.0 / 7.0) * J(3, 8) + (63.0 / 10.0) * J(0, 8))
-        PTarr = torch.stack(PT, dim=-2)
-    else:
-        PTarr = Jf.new_zeros(lead + (9,) + k.shape)
 
     # ---------------- P_{MR,n} McDonald-Roy bias integrals
     # (reference :1245-1278; low-k subtraction J_lo at nloMR)
@@ -555,9 +565,8 @@ def assemble(Jf, PZf, Jn0f, J_lo, k, with_rsd: bool):
     PMR[7] = 0.5 * ((-15.0 / 128.0) * PZ(6, 0) + (15.0 / 32.0) * PZ(4, 0) -
                     (15.0 / 128.0) * PZ(3, 0) - (45.0 / 128.0) * PZ(2, 0) +
                     (15.0 / 64.0) * PZ(1, 0) + (55.0 / 128.0) * PZ(0, 0))
-    PMRarr = torch.stack(PMR, dim=-2)
 
-    return A_unique, Rarr, PTarr, PMRarr
+    return PT, PMR
 
 
 # ---------------------------------------------------------------------------
@@ -630,23 +639,50 @@ class _Traced:
         return self.node("neg", self.i, None)
 
 
+class Recorder:
+    """The operations of a traced program, in order: node(op, a, b)
+    appends one and returns its value; leaf(key) appends ("f", key, None)
+    the first time key is read."""
+
+    def __init__(self):
+        self.ops, self._leaves = [], {}
+
+    def node(self, op, a=None, b=None) -> _Traced:
+        self.ops.append((op, a, b))
+        return _Traced(self.node, len(self.ops) - 1)
+
+    def leaf(self, key) -> _Traced:
+        if key not in self._leaves:
+            self._leaves[key] = self.node("f", key)
+        return self._leaves[key]
+
+    def reader(self, base: int):
+        """A feature reader (n, idx) -> leaf base + 9 n + idx."""
+        return lambda n, idx: self.leaf(base + 9 * n + idx)
+
+
 @functools.lru_cache(maxsize=1)
 def ar_program() -> ARProgram:
     """`ar_rows` (with RSD) traced once into an ARProgram."""
-    ops, leaves = [], {}
-
-    def node(op, a=None, b=None):
-        ops.append((op, a, b))
-        return _Traced(node, len(ops) - 1)
-
-    def reader(base):
-        def read(n, idx):
-            f = base + 9 * n + idx
-            if f not in leaves:
-                leaves[f] = node("f", f)
-            return leaves[f]
-        return read
-
-    A, R = ar_rows(reader(0), reader(126), reader(63), node("k"), True)
+    rec = Recorder()
+    A, R = ar_rows(rec.reader(0), rec.reader(126), rec.reader(63),
+                   rec.node("k"), True)
     outs = [v.i for v in A] + [v.i for Rl in R for v in Rl]
-    return ARProgram(tuple(ops), tuple(outs))
+    return ARProgram(tuple(rec.ops), tuple(outs))
+
+
+# J_lo, the feature after the transforms' rows in pt_pmr_program
+PT_JLO = AR_NFEAT
+
+
+@functools.lru_cache(maxsize=1)
+def pt_pmr_program() -> ARProgram:
+    """`pt_pmr_rows` (with RSD) traced once into an ARProgram: features
+    as in ar_program, J_lo the feature PT_JLO; outs P_T's 9 rows, then
+    P_MR's 8."""
+    rec = Recorder()
+    jlo = rec.leaf(PT_JLO)
+    PT, PMR = pt_pmr_rows(rec.reader(0), rec.reader(126), rec.reader(63),
+                          jlo, rec.node("k"), True)
+    return ARProgram(tuple(rec.ops), tuple(v.i for v in PT + PMR))
+

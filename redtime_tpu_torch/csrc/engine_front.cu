@@ -84,7 +84,8 @@ __device__ __forceinline__ Point fetch(const int* j0, const double* w4,
 __global__ void __launch_bounds__(THREADS)
     engine_front_kernel(const double* __restrict__ lnP, long long lane_st,
                         long long row_st, const double* __restrict__ n_s,
-                        long long ns_st, const int* __restrict__ j0,
+                        long long ns_st, int ns_rep,
+                        const int* __restrict__ j0,
                         const double* __restrict__ w4,
                         const double* __restrict__ pab_v,
                         const double* __restrict__ wp,
@@ -136,7 +137,7 @@ __global__ void __launch_bounds__(THREADS)
     infs += __syncthreads_count(isinf(v));
   }
 
-  const double c = __dsub_rn(n_s[b * ns_st], 3.0);
+  const double c = __dsub_rn(n_s[(b / ns_rep) * ns_st], 3.0);
   double* P_row = P_ext + (size_t)row * np;
   auto extend = [&](int m, const Point& p) {
     const double* l = L + p.j0;
@@ -202,7 +203,9 @@ __global__ void __launch_bounds__(THREADS)
 }  // namespace
 
 // lnP [B, 3, nk] with lane stride lane_st, row stride row_st and unit
-// column stride; n_s [B] with stride ns_st; j0 [np] (int32), w4 [np, 4]
+// column stride; n_s [B / ns_rep] with stride ns_st, lane b reading
+// entry b / ns_rep (the output block runs B lanes x n_z redshifts at once,
+// ns_rep = n_z); j0 [np] (int32), w4 [np, 4]
 // the band (j0 + 3 < nk), pab_v, wp, kbias [np], wc [np / 2], tw [2np]
 // (w_{2np}^j as (cos, sin) pairs) contiguous; P_ext [B, 3, np] and ci [B,
 // 3, np] contiguous outputs; f64 on the current device, w4 and tw
@@ -211,7 +214,8 @@ __global__ void __launch_bounds__(THREADS)
 // smem_bytes).  Returns cudaGetLastError().
 extern "C" int rt_engine_front(const double* lnP, long long lane_st,
                                long long row_st, const double* n_s,
-                               long long ns_st, const int* j0,
+                               long long ns_st, int ns_rep,
+                               const int* j0,
                                const double* w4, const double* pab_v,
                                const double* wp, const double* kbias,
                                const double* wc, const double* tw,
@@ -233,7 +237,7 @@ extern "C" int rt_engine_front(const double* lnP, long long lane_st,
   }
   engine_front_kernel<<<3 * B, THREADS, smem,
                         static_cast<cudaStream_t>(stream)>>>(
-      lnP, lane_st, row_st, n_s, ns_st, j0, w4, pab_v, wp, kbias, wc,
+      lnP, lane_st, row_st, n_s, ns_st, ns_rep, j0, w4, pab_v, wp, kbias, wc,
       reinterpret_cast<const double2*>(tw), P_ext, ci, nk, np, clip, p);
   return static_cast<int>(cudaGetLastError());
 }

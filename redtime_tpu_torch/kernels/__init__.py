@@ -10,6 +10,8 @@
   * `rhs_tail`  — K8, CUDA C++ (csrc/rhs_tail.cu): the Time-RG RHS after
                   the engine (Omega, the A/R assembly or the 1-loop
                   rescale, dlnP / dI / dQ);
+  * `out_block` — K11, CUDA C++ (csrc/out_block.cu): the output block,
+                  every output redshift's columns, sigma_v^2 and H;
   * `probes`    — K4 `affine`, K5 `int8_dot`, K6 `dd_mul`, CUDA C++
                   (csrc/probes.cu): the Pallas feasibility probes P1-P3.
 

@@ -4,11 +4,11 @@ The sources in `redtime_tpu_torch/csrc/` have a plain C interface and are
 compiled by `nvcc` for Hopper (`sm_90a`), one `nvcc` per source and all
 of them at once, then linked into one shared library, loaded with
 ctypes.  Headers generated from the package's Python (`generated`: K8's
-A/R code) are written beside them in the build's scratch directory.  The
-library is built at first use into `build/redtime_tpu_torch/` at the
-repository root, under a name that carries the hash of the sources, the
-generated headers and the flags, so an edited source rebuilds and an
-unchanged one is reused.
+A/R code, K11's programs and layouts) are written beside them in the
+build's scratch directory.  The library is built at first use into
+`build/redtime_tpu_torch/` at the repository root, under a name that
+carries the hash of the sources, the generated headers and the flags, so
+an edited source rebuilds and an unchanged one is reused.
 
 Every C entry point takes device pointers, sizes and the CUDA stream, and
 returns `cudaGetLastError()` after its launch; the Python wrappers raise
@@ -56,9 +56,11 @@ def nvcc_path() -> str:
 def generated() -> dict:
     """Headers generated from the package's Python, name -> text, written
     beside the sources at build time: K8's A/R code (rhs_tail.ar_source,
-    traced from assembly.ar_rows)."""
-    from redtime_tpu_torch.kernels import rhs_tail
-    return {"rhs_tail_ar.cuh": rhs_tail.ar_source()}
+    traced from assembly.ar_rows) and K11's programs and layouts
+    (out_block.out_source)."""
+    from redtime_tpu_torch.kernels import out_block, rhs_tail
+    return {"rhs_tail_ar.cuh": rhs_tail.ar_source(),
+            "out_block_gen.cuh": out_block.out_source()}
 
 
 def source_hash(defines: tuple = (), only: tuple = ()) -> str:
@@ -167,6 +169,7 @@ def lib() -> ctypes.CDLL:
         handle.rt_rk_stage.restype = i
         bind_rhs_tail(handle)
         bind_engine(handle)
+        bind_out_block(handle)
         _lib = handle
     return _lib
 
@@ -174,7 +177,7 @@ def lib() -> ctypes.CDLL:
 def bind_engine(handle: ctypes.CDLL) -> ctypes.CDLL:
     """Declare K9's and K10's entry points on a loaded library."""
     p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    handle.rt_engine_front.argtypes = [p, n, n, p, n] + [p] * 9 \
+    handle.rt_engine_front.argtypes = [p, n, n, p, n, i] + [p] * 9 \
         + [i] * 5 + [p, i, p]
     handle.rt_engine_front.restype = i
     handle.rt_tab_leg.argtypes = [p] * 7 + [i] * 7 + [p, i, p]
@@ -187,6 +190,15 @@ def bind_rhs_tail(handle: ctypes.CDLL) -> ctypes.CDLL:
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     handle.rt_rhs_tail.argtypes = [p, i, d, d] + [i] * 9 + [p]
     handle.rt_rhs_tail.restype = i
+    return handle
+
+
+def bind_out_block(handle: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare K11's entry point rt_out_block on a loaded library."""
+    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    handle.rt_out_block.argtypes = [p, i] + [p] * 4 + [d] * 4 + [i] * 13 \
+        + [p]
+    handle.rt_out_block.restype = i
     return handle
 
 

@@ -12,7 +12,8 @@ that a worker process counted (driver.run_batch(devices=...)) here.
 from __future__ import annotations
 
 LAUNCHES = {"engine_front": 0, "tab_leg": 0, "out_leg": 0, "pz_leg": 0,
-            "rk_finish": 0, "rk_stage": 0, "rhs_tail": 0, "affine": 0,
+            "rk_finish": 0, "rk_stage": 0, "rhs_tail": 0, "out_block": 0,
+            "affine": 0,
             "int8_dot": 0, "dd_mul": 0, "oz_pack_w": 0, "oz_fused": 0}
 
 PHASES: dict = {}        # phase -> launches booked to it by mark()

@@ -108,7 +108,8 @@ def smem_bytes(nk: int, npts: int) -> int:
     return 16 * (2 * (half + half // 8 + 1) + 2 * half) + 8 * nk
 
 
-def _check(lnP, n_s, pab_M, pab_v, wp, kbias, fwd, j0, w, wc, tw) -> None:
+def _check(lnP, n_s, pab_M, pab_v, wp, kbias, fwd, j0, w, wc, tw,
+           n_rep: int = 1) -> None:
     if lnP.dim() != 3 or lnP.shape[1] != 3:
         raise ValueError(f"engine_front: lnP must be [B, 3, nk], got "
                          f"{tuple(lnP.shape)}")
@@ -120,9 +121,9 @@ def _check(lnP, n_s, pab_M, pab_v, wp, kbias, fwd, j0, w, wc, tw) -> None:
     if fwd.dim() != 2 or fwd.shape[0] != npts:
         raise ValueError(f"engine_front: dft_fwd_half must be [{npts}, "
                          f"2 half], got {tuple(fwd.shape)}")
-    if n_s.shape != (B,):
-        raise ValueError(f"engine_front: n_s must be [{B}], got "
-                         f"{tuple(n_s.shape)}")
+    if n_rep < 1 or B % n_rep or n_s.shape != (B // n_rep,):
+        raise ValueError(f"engine_front: n_s must be [B / n_rep] = "
+                         f"[{B} / {n_rep}], got {tuple(n_s.shape)}")
     for name, x, shape in (("pab_v", pab_v, (npts,)), ("wp", wp, (npts,)),
                            ("kbias", kbias, (npts,)), ("j0", j0, (npts,)),
                            ("w", w, (npts, 4)),
@@ -172,13 +173,17 @@ def _check_kernel_shape(lnP, pab_M, pab_v, wp, kbias, fwd, j0, w, wc,
 
 
 def engine_front(lnP, n_s, pab_M, pab_v, wp, kbias, fwd, j0, w, wc, tw,
-                 clip: bool = False):
+                 clip: bool = False, n_rep: int = 1):
     """(P_ext [B, 3, np], ci [B, 3, 2 half]): the hand kernel for CUDA
     tensors (which reads pab_M's band j0 [np] (int32), w [np, 4], the
     window wc [half] and the twiddles tw [2np, 2], and of pab_M and
-    dft_fwd_half only their shapes), the plain version for CPU tensors."""
-    _check(lnP, n_s, pab_M, pab_v, wp, kbias, fwd, j0, w, wc, tw)
+    dft_fwd_half only their shapes), the plain version for CPU tensors.
+    n_s [B / n_rep]: lanes b n_rep .. (b + 1) n_rep - 1 take n_s[b] (the
+    output block's lanes, a cosmology's n_rep redshifts in a row)."""
+    _check(lnP, n_s, pab_M, pab_v, wp, kbias, fwd, j0, w, wc, tw, n_rep)
     if lnP.device.type == "cpu":
+        if n_rep > 1:
+            n_s = n_s.repeat_interleave(n_rep)
         return engine_front_plain(lnP, n_s, pab_M, pab_v, wp, kbias, fwd,
                                   clip)
     if lnP.device.type != "cuda":
@@ -196,8 +201,8 @@ def engine_front(lnP, n_s, pab_M, pab_v, wp, kbias, fwd, j0, w, wc, tw,
         stream = torch.cuda.current_stream().cuda_stream
         status = build.lib().rt_engine_front(
             lnP.data_ptr(), lnP.stride(0), lnP.stride(1), n_s.data_ptr(),
-            n_s.stride(0), j0.data_ptr(), w.data_ptr(), pab_v.data_ptr(),
-            wp.data_ptr(), kbias.data_ptr(), wc.data_ptr(), tw.data_ptr(),
+            n_s.stride(0), n_rep, j0.data_ptr(), w.data_ptr(),
+            pab_v.data_ptr(), wp.data_ptr(), kbias.data_ptr(), wc.data_ptr(), tw.data_ptr(),
             P_ext.data_ptr(), ci.data_ptr(), B, nk, npts, int(clip),
             smem_bytes(nk, npts), radices, len(plan), stream)
     build.check(status, "engine_front")

@@ -427,13 +427,14 @@ def _row_name(row: tuple) -> str:
     return f"{row[0]}{row[1]}"
 
 
-def _value_c(op: tuple) -> str:
+def _value_c(op: tuple, leaf=None) -> str:
     """One traced operation of assembly.ar_program as C: one IEEE
     operation (__d*_rn: no contraction), a division by a constant as a
-    product with 1/c (DIVC_)."""
+    product with 1/c (DIVC_); a feature read as leaf(feature) (default:
+    the name of its loaded row)."""
     op, a, b = op
     if op == "f":
-        return _row_name(_feature_row(a))
+        return leaf(a) if leaf else _row_name(_feature_row(a))
     if op == "k":
         return "K_"
     if op in ("add", "sub", "mul", "div"):

@@ -496,7 +496,14 @@ def growth_at(g_lna: torch.Tensor, g_G: torch.Tensor, g_dDda: torch.Tensor,
 def plin_all(cfg: SolverConfig, model: Model, z):
     """P_lin, P_lin_cb, P_lin_nu [B, nk] at redshift z (reference
     :834-930)."""
-    grids = make_grids(cfg)
+    k = torch.as_tensor(make_grids(cfg).k, dtype=F64,
+                        device=model.norm.device)
+    return plin_at(model, z, k)
+
+
+def plin_at(model: Model, z, k: torch.Tensor):
+    """plin_all on the solver grid k [nk] (a tensor on the model's
+    device)."""
     c = model.cosmo
     B = model.batch
     z = lane_values(z, B, model.norm.device)
@@ -505,7 +512,6 @@ def plin_all(cfg: SolverConfig, model: Model, z):
     beta = beta_P_solver(model, a)
     f_nu = _col(model.f_nu)
     F = 1.0 - f_nu + beta
-    k = torch.as_tensor(grids.k, dtype=F64, device=model.norm.device)
     P = (_col(model.norm) * k ** _col(c.n_s) * model.T_solver ** 2
          * F * F * D * D)
     massless = f_nu <= 1e-10

@@ -83,9 +83,20 @@ def compute_mode_coupling_full(cfg: SolverConfig, lnP3: torch.Tensor, n_s,
     """Full FAST-PT evaluation from the current spectra lnP3 [B, 3, nk];
     returns (A_unique [B,14,nk], R [B,3,8,nk], PT [B,9,nk],
     PMR [B,8,nk])."""
-    Jw, J_lo, PZw = fastpt.window(
-        cfg, *fastpt.compute_J_PZ(cfg, lnP3, n_s, with_rsd, ec), with_rsd)
-    return assembly.assemble(Jw[:, :7], PZw, Jw[:, 7:], J_lo, k, with_rsd)
+    return mode_coupling(*fastpt.compute_J_PZ(cfg, lnP3, n_s, with_rsd, ec),
+                         k, with_rsd)
+
+
+def mode_coupling(Jw: torch.Tensor, PZw: torch.Tensor, k: torch.Tensor,
+                  with_rsd: bool):
+    """assembly.assemble on the engine's outputs (fastpt.compute_J_PZ: Jw
+    [B, nfam, 3, 3, nk+1], PZw [B, 7, 3, 3, nk]) cut to the solver window
+    (J_lo: column nk of J[0, 0, 0]; without RSD no Jn0 row is read);
+    returns (A_unique, R, PT, PMR) as compute_mode_coupling_full."""
+    nk = k.shape[0]
+    Jf = Jw[..., :nk]
+    return assembly.assemble(Jf[:, :7], PZw, Jf[:, 7:], Jw[:, 0, 0, 0, nk],
+                             k, with_rsd)
 
 
 def build_oneloop_cache(cfg: SolverConfig, settings: RunSettings,
@@ -355,11 +366,19 @@ def pbis_j(cfg: SolverConfig, ys: torch.Tensor) -> torch.Tensor:
     k = torch.as_tensor(g.k, dtype=ys.dtype, device=ys.device)
     B = ys.shape[0]
     Q = ys[:, NUP + NUI:].reshape(B, NELL, 2, 2, 2, g.nk)
+    return torch.stack(pbis_rows(lambda l, a, b, c: Q[:, l, a, b, c], k),
+                       dim=1)
 
-    p22 = -2.0 * Q[:, 0, 0, 1, 0] + (4.0 / 3.0) * Q[:, 1, 0, 1, 0]
-    p21 = (4.0 / 3.0) * Q[:, 1, 0, 1, 1] + (6.0 / 5.0) * Q[:, 2, 0, 1, 1]
-    p41 = (-2.0 * Q[:, 0, 1, 1, 0] + (4.0 / 3.0) * Q[:, 1, 1, 1, 0]
-           - 2.0 * Q[:, 0, 0, 1, 1] - 2.0 * Q[:, 2, 0, 1, 1])
-    p40 = (4.0 / 3.0) * Q[:, 1, 1, 1, 1] + (6.0 / 5.0) * Q[:, 2, 1, 1, 1]
-    p60 = -2.0 * Q[:, 0, 1, 1, 1] - 2.0 * Q[:, 2, 1, 1, 1]
-    return np.pi * k * torch.stack([p22, p21, p41, p40, p60], dim=1)
+
+def pbis_rows(Q, k) -> list:
+    """pbis_j's 5 rows from the reader Q(l, a, b, c) of Q^(l+1)_abc (state
+    row NUP + NUI + 8 l + 4 a + 2 b + c) and k.  Arithmetic operators
+    only, so that K11 out_block's code can be traced from it."""
+    p22 = -2.0 * Q(0, 0, 1, 0) + (4.0 / 3.0) * Q(1, 0, 1, 0)
+    p21 = (4.0 / 3.0) * Q(1, 0, 1, 1) + (6.0 / 5.0) * Q(2, 0, 1, 1)
+    p41 = (-2.0 * Q(0, 1, 1, 0) + (4.0 / 3.0) * Q(1, 1, 1, 0)
+           - 2.0 * Q(0, 0, 1, 1) - 2.0 * Q(2, 0, 1, 1))
+    p40 = (4.0 / 3.0) * Q(1, 1, 1, 1) + (6.0 / 5.0) * Q(2, 1, 1, 1)
+    p60 = -2.0 * Q(0, 1, 1, 1) - 2.0 * Q(2, 1, 1, 1)
+    pk = np.pi * k
+    return [pk * p for p in (p22, p21, p41, p40, p60)]
