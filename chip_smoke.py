@@ -57,7 +57,8 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
      driver._finalize feeds it (the engine over the B n_z lanes where the
      layout needs it): within 1e-11 of column scale of its plain version,
      NaN and inf in the same places, two calls the same bits, the
-     bit-equal share printed; eager, device and plain ms and its bound
+     bit-equal share printed beside the previous design's; its ptxas line
+     and stack bytes; eager, device and plain ms and its bound
      each; and each path case's finalize launches K11 alone, or K9, K10,
      K1, K2 then K11, and no other kernel;
   4. checks the probe kernels K4 affine, K5 int8_dot and K6 dd_mul
@@ -1496,6 +1497,15 @@ OB_CASES = (
 )
 OB_TIMED = ("full_trg", "oneloop_bias")
 OB_BOUND = 1e-11
+# each case's bit-equal share under the previous design of K11 (a
+# thread a k point running every column; its last run on the H100):
+# printed beside this one's
+OB_PREV_SHARE = dict(
+    full_trg=0.955484576427256, oneloop=1.0, oneloop_bias=1.0,
+    every_switch=1.0, edges=1.0, fill_pt_full_trg=0.9910091593825553,
+    linear=0.9910091593825553, high_accuracy=1.0, v01_compat=1.0, nk48=1.0,
+    production=0.9517836769902885, production_1loop=0.9743740479465223,
+    kmin=0.9999734318127474, **{"edges nz=4": 1.0, "edges nz=0": 1.0})
 # the edge cases' redshifts: a past 1 (z < 0, beta clamped at a = 1),
 # a = 1 (min(1, a 1.001) = 1), a node's a
 OB_EDGE_Z = (3.0, 1.0, 0.0, -0.002)
@@ -1649,6 +1659,13 @@ def ob_cost(args) -> dict:
     return least_time(nbytes, ops, PEAK_FP64)
 
 
+def ptxas_stack(ptxas: str) -> int | None:
+    """The stack frame bytes of a ptxas line (ptxas_of), None if absent."""
+    import re
+    m = re.search(r"(\d+) bytes stack frame", ptxas)
+    return int(m.group(1)) if m else None
+
+
 def ob_edges(rng, m8, cfg, ec) -> dict:
     """K11's arguments at edge cases on 8 lanes of the every-switch
     1-loop layout at OB_EDGE_Z (a at z = 1 and z = 0 on a node of the
@@ -1693,10 +1710,12 @@ def check_out_block(rng, detail: dict) -> dict:
     every layout family, the presets, nk = 48, production's 16 x 33 in
     both modes, kmin != 1e-3) and at edge cases (ob_edges): within
     OB_BOUND of column scale, NaN and inf in the same places, two calls
-    the same bits, the bit-equal share printed; one launch a call.  Each
-    case: eager ms (CUDA events over 20 calls), device ms (20 calls in a
-    CUDA graph x 5 replays), the plain version's eager ms (3 calls: it
-    copies scalars to the card, so no graph), the bound (ob_cost); each
+    the same bits, the bit-equal share printed beside the previous
+    design's (OB_PREV_SHARE); one launch a call; the kernel's ptxas line
+    and stack bytes.  Each case: eager ms (CUDA events over 20 calls),
+    device ms (20 calls in a CUDA graph x 5 replays), the plain version's
+    eager ms (3 calls: it copies scalars to the card, so no graph), the
+    bound (ob_cost); each
     path case's finalize (driver._finalize on the same states) runs 1
     device kernel, or 5 where the layout takes the engine (K9, K10, K1,
     K2 over the B n_z lanes first), and no other: the launch counters over
@@ -1753,7 +1772,8 @@ def check_out_block(rng, detail: dict) -> dict:
                    device_ms=graph_ms(lambda: ob.out_block(*args)),
                    plain_ms=time_ms(lambda: ob.out_block_plain(*args),
                                     iters=3, warmup=1),
-                   **ob.launch_plan(nk, B, S), **ob_cost(args))
+                   **ob.launch_plan(nk, B, S, ob.n_columns(lay)),
+                   **ob_cost(args))
         if path:
             m = args[3]
             fin = lambda: driver._finalize(cfg, settings, m, ys, ec)
@@ -1773,8 +1793,10 @@ def check_out_block(rng, detail: dict) -> dict:
                        finalize_device_kernels=n_dev, finalize_busy_ms=busy)
         rows[name] = row
         cases.append(row)
-        print(f"{what}: {err:.3g} of column scale from plain, {share:.4f} "
-              f"of the finite elements bit-equal; {row['ms']:.4f} ms "
+        print(f"{what}: {err:.3g} of column scale from plain, {share:.6f} "
+              f"of the finite elements bit-equal (the previous design "
+              f"{OB_PREV_SHARE.get(name, float('nan')):.6f}); "
+              f"{row['ms']:.4f} ms "
               f"eager, {row['device_ms']:.5f} ms device (plain "
               f"{row['plain_ms']:.3f} ms); bound {row['bound_ms']:.5f} ms "
               f"by {row['bound_by']}"
@@ -1798,7 +1820,7 @@ def check_out_block(rng, detail: dict) -> dict:
         max_dev_col_scale=max(c["dev_col_scale"] for c in cases),
         min_bit_equal_share=min(c["bit_equal_share"] for c in cases),
         plain_device_ms=None, library_ms=None, oneloop=rows["oneloop_bias"],
-        ptxas=ptxas,
+        ptxas=ptxas, ptxas_stack_bytes=ptxas_stack(ptxas),
         **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                 "bound_by", "bound_bytes", "bound_ops",
                                 "finalize_launches",

@@ -53,7 +53,10 @@ __device__ __forceinline__ double piece(double v, int t) {
 //   weights: 0 < n < nn - 2: _lagrange4's, each factor (num (x - x_l)) /
 //     (x_j - x_l) over l != j in increasing order (thread j & 3 computes
 //     weight j); else linear on nodes n, n + 1 at offset n - i0, as
-//     (1 - t) e_off + t e_off+1 (the plain version's zeros included).
+//     (1 - t) e_off + t e_off+1 (the plain version's zeros included);
+//     weights_at(..., src) reads the 4 weights from threads src .. src + 3,
+//     so that the 4 threads of each group of a warp can weigh their own x
+//     and bracket (K11's warp of beta brackets; weights is src 0).
 // LOOKUP_FIXED: no nodes, i0 = 0 and fixed weights.
 __device__ __forceinline__ Nodes load_nodes(const double* nodes, int nn) {
   Nodes h;
@@ -103,12 +106,14 @@ __device__ __forceinline__ Bracket place(int pos, int nn) {
   return r;
 }
 
-__device__ __forceinline__ void weights(Bracket& r, const double* nodes,
-                                        int nn, double x, bool has) {
+__device__ __forceinline__ void weights_at(Bracket& r, const double* nodes,
+                                           int nn, double x, bool has,
+                                           int src) {
 #if LOOKUP_FIXED
   (void)nodes;
   (void)nn;
   (void)has;
+  (void)src;
 #pragma unroll
   for (int m = 0; m < 4; ++m) r.w[m] = 0.25 * x;
 #else
@@ -134,8 +139,13 @@ __device__ __forceinline__ void weights(Bracket& r, const double* nodes,
                 __dmul_rn(t, j == off + 1 ? 1.0 : 0.0));
   const double w = r.n > 0 && r.n < nn - 2 ? wc : wl;
 #pragma unroll
-  for (int m = 0; m < 4; ++m) r.w[m] = piece(w, m);
+  for (int m = 0; m < 4; ++m) r.w[m] = piece(w, src + m);
 #endif
+}
+
+__device__ __forceinline__ void weights(Bracket& r, const double* nodes,
+                                        int nn, double x, bool has) {
+  weights_at(r, nodes, nn, x, has, 0);
 }
 
 // The 4 rows of a bracket at the thread's k (rows: row 0 of the lane's

@@ -196,7 +196,7 @@ def bind_rhs_tail(handle: ctypes.CDLL) -> ctypes.CDLL:
 def bind_out_block(handle: ctypes.CDLL) -> ctypes.CDLL:
     """Declare K11's entry point rt_out_block on a loaded library."""
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    handle.rt_out_block.argtypes = [p, i] + [p] * 4 + [d] * 4 + [i] * 13 \
+    handle.rt_out_block.argtypes = [p, i] + [p] * 5 + [d] * 4 + [i] * 15 \
         + [p]
     handle.rt_out_block.restype = i
     return handle

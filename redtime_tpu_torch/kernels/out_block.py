@@ -28,7 +28,10 @@ The kernel's code is generated here (out_source, written beside the
 sources by kernels/build.py): the A rows, P_T / P_MR and P_B traced from
 assembly.ar_rows, assembly.pt_pmr_rows and trg.pbis_rows, each traced
 operation one IEEE operation in traced order, and one case a column
-layout (LAYOUTS) that writes the layout's column groups in order.
+layout (LAYOUTS) that names the layout's column groups and their first
+columns.  The launch (launch_plan): a block a (lane, redshift) and a
+range of its k points, the ranges of one pair a cluster where the pairs
+are too few to fill the card, the columns staged in shared memory.
 """
 
 from __future__ import annotations
@@ -53,7 +56,12 @@ F64 = torch.float64
 NUP, NUI, NUQ = rt.NUP, rt.NUI, rt.NUQ
 NU_STATE = rt.NU_STATE
 MAX_Z = 64                 # output redshifts a launch (csrc/out_block.cu)
-KT = 32                    # k points a task: a warp's threads
+KT = 32                    # k points a chunk: a warp's threads
+SMS = 132                  # the H100's SMs: blocks enough to fill them
+WARPS = (8, 12)            # warps a block: two blocks an SM, or one
+S_WARPS = 3                # of them the scalar warps (cluster rank 0)
+MAX_CLUSTER = 8            # blocks a cluster (the portable most)
+TILE_BYTES = 64 * 1024     # a pass's staging tile, at most
 
 
 class Layout(NamedTuple):
@@ -254,8 +262,8 @@ def _program_c(name: str) -> list:
     then o[j] = output j."""
     prog, leaf = programs()[name]
     vals = sorted(set().union(*(rt._deps(prog.ops, o) for o in prog.outs)))
-    inline = "__forceinline__" if name == "pbis_rows" else "__noinline__"
-    lines = [f"__device__ {inline} void {name}(const Ctx& c, double* o) {{"]
+    lines = [f"__device__ __forceinline__ void {name}(const Ctx& c, "
+             f"double* o) {{"]
     lines += [f"  const double v{i} = {rt._value_c(prog.ops[i], leaf)};"
               for i in vals]
     lines += [f"  o[{j}] = v{v};" for j, v in enumerate(prog.outs)]
@@ -277,7 +285,8 @@ def out_source() -> str:
     """The kernel's generated header (out_block_gen.cuh): the traced
     programs (a_rows, pt_pmr_rows, pbis_rows), the layouts' column counts
     (LAYOUT_NCOL) and columns(layout, c), a switch with one case a layout
-    of LAYOUTS that writes its column groups, each at its first column."""
+    of LAYOUTS that names its column groups in c (a Plan), each with its
+    first column."""
     lines = ["// Generated by redtime_tpu_torch/kernels/out_block.py "
              "out_source from", "// assembly.ar_rows, assembly.pt_pmr_rows, "
              "trg.pbis_rows and the layouts; do", "// not edit.",
@@ -287,7 +296,7 @@ def out_source() -> str:
     for name in ("a_rows", "pt_pmr_rows", "pbis_rows"):
         lines += _program_c(name)
     lines += ["__device__ __forceinline__ void columns(int layout, "
-              "const Ctx& c) {", "  switch (layout) {"]
+              "Plan& c) {", "  switch (layout) {"]
     for n, lay in enumerate(LAYOUTS):
         lines.append(f"    case {n}: {{  // {_describe(lay)}: "
                      f"{n_columns(lay)} columns")
@@ -398,52 +407,85 @@ def out_block(lay: Layout, ys, k, model: mdl.Model, zs, a_in: float,
     if B == 0 or S == 0 or nk == 0:
         return table, svs, H
     lib = build.lib()
-    for s0 in range(0, S, MAX_Z):
+    for s0, s1 in z_launches(S):
         launch(lib, lay, ys, k, model, zs, a_in, src, sv, table, svs, H,
-               s0, min(S, s0 + MAX_Z))
+               s0, s1)
         counts.LAUNCHES["out_block"] += 1
     return table, svs, H
 
 
-def launch_plan(nk: int, B: int, S: int) -> dict:
-    """A launch over B lanes and S redshifts: tasks (one warp on KT k
-    points of one lane at one redshift), warps a block (as K8's:
-    rhs_tail.BLOCK_WARPS, the most that leaves rhs_tail.FILL_BLOCKS
-    blocks), blocks."""
-    tasks = B * S * -(-nk // KT)
-    warps = next((w for w in rt.BLOCK_WARPS
-                  if -(-tasks // w) >= rt.FILL_BLOCKS), rt.BLOCK_WARPS[-1])
-    return dict(blocks=-(-tasks // warps), threads=32 * warps, tasks=tasks)
+def z_launches(S: int) -> list:
+    """The launches over S redshifts: (s0, s1), at most MAX_Z each."""
+    return [(s0, min(S, s0 + MAX_Z)) for s0 in range(0, S, MAX_Z)]
+
+
+def launch_plan(nk: int, B: int, S: int, ncol: int) -> dict:
+    """The launch over B lanes and S redshifts of ncol columns at nk
+    points.  Each (lane, redshift) pair is one block where the pairs are
+    at least half the SMS or a pair has at most 2 chunks of KT points: a
+    block's time is its chain of lookups, which a cluster does not
+    shorten and its hand-over between blocks lengthens (on the H100: full
+    TRG 16 x 8 0.00785 ms against 0.00838 in clusters of 2; nk = 48, 2 x
+    8, 0.00616 against 0.00806).  Else a pair is a cluster of `cluster`
+    blocks, the fewest (at most MAX_CLUSTER, at most a chunk a block) that
+    make SMS blocks (the presets' 2 x 2 at nk = 512 0.00745 ms in clusters
+    of 8 against 0.0127 in one block; 8 x 7 with every switch 0.01059 in
+    clusters of 4 against 0.01113).  A block takes `chunks` consecutive
+    chunks (the last block fewer; the cluster count is rounded so that
+    none is left empty) in passes of `pass_chunks` (a staging tile of at
+    most TILE_BYTES, rows of an odd pitch; a lin warp a chunk beside the
+    S_WARPS scalar warps), with 8 warps where the blocks are more than
+    the SMS (two an SM at 128 registers, all resident), else 12 (one an
+    SM, more warps for the units: full TRG 16 x 8 0.00733 ms against
+    0.00774 with 8)."""
+    nkt, pairs = -(-nk // KT), B * S
+    for c in range(1, min(MAX_CLUSTER, nkt) + 1):
+        chunks = -(-nkt // c)
+        cluster = -(-nkt // chunks)
+        if pairs * cluster >= SMS or 2 * pairs >= SMS or nkt <= 2:
+            break
+    pitch = ncol | 1
+    blocks = pairs * cluster
+    warps = WARPS[blocks <= SMS]
+    pass_chunks = max(1, min(chunks, WARPS[0] - S_WARPS,
+                             TILE_BYTES // (KT * pitch * 8)))
+    return dict(blocks=blocks, threads=32 * warps, cluster=cluster,
+                chunks=chunks, pass_chunks=pass_chunks,
+                smem_bytes=pass_chunks * KT * pitch * 8)
 
 
 N_POINTERS = 18 + 2 + 3     # _tensors (engine included), table, sigma_v2, H
 
 
 def launch(lib, lay: Layout, ys, k, model: mdl.Model, zs, a_in: float, src,
-           sv, table, svs, H, s0: int, s1: int) -> None:
+           sv, table, svs, H, s0: int, s1: int, plan=None) -> None:
     """One launch of `lib`'s rt_out_block for the redshifts s0 .. s1 - 1
-    (at most MAX_Z) on the current stream.  Counts nothing.  The per-z
-    values (z, r^3, r^4, computed here as the plain version computes them)
-    and the pointers go by value: nothing is copied to the card."""
+    (at most MAX_Z) on the current stream, under launch_plan's plan (or
+    `plan`: scripts/time_out_block.py times others).  Counts nothing.
+    The per-z values (a = 1 / (1 + z), r^2, r^3, r^4 of r = a / a_in,
+    Python floats as the plain version computes them) and the pointers go
+    by value: nothing is copied to the card."""
     B, S, _, nk = ys.shape
     ins = _tensors(ys, k, model, src if lay.mc else None)
     ptrs = [x.data_ptr() for _, x in ins]
     ptrs += [None] * (20 - len(ptrs)) + [table.data_ptr(), svs.data_ptr(),
                                          H.data_ptr()]
     n = s1 - s0
-    zv = [float(z) for z in zs[s0:s1]]
-    r = [(1.0 / (1.0 + z)) / a_in for z in zv]
+    av = [1.0 / (1.0 + float(z)) for z in zs[s0:s1]]
+    r = [x / a_in for x in av]
     dz = lambda xs: (ctypes.c_double * MAX_Z)(*xs)
     sv_i0, sv_w = (-1, (0.0,) * 4) if sv is None else sv
-    plan = launch_plan(nk, B, n)
+    plan = plan or launch_plan(nk, B, n, n_columns(lay))
     nfam = src[0].shape[1] if lay.mc else 0
     with torch.cuda.device(ys.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.rt_out_block(
-            (ctypes.c_void_p * N_POINTERS)(*ptrs), N_POINTERS, dz(zv),
-            dz([x ** 3 for x in r]), dz([x ** 4 for x in r]),
+            (ctypes.c_void_p * N_POINTERS)(*ptrs), N_POINTERS, dz(av),
+            dz([x * x for x in r]), dz([x ** 3 for x in r]),
+            dz([x ** 4 for x in r]),
             (ctypes.c_double * 4)(*sv_w), float(a_in), H0H, C_RHO_GAM,
             C_NU_HOT, B, S, s0, n, nk, model.beta_a.shape[1],
             model.g_lna.shape[1], nfam, sv_i0, LAYOUTS.index(lay),
-            n_columns(lay), plan["blocks"], plan["threads"], stream)
+            n_columns(lay), plan["cluster"], plan["chunks"],
+            plan["pass_chunks"], plan["threads"], stream)
     build.check(status, "out_block")

@@ -12,8 +12,14 @@
     redshifts) against one call a redshift, within the engine's bound;
   * the generator: one case a layout, its groups in order at their first
     columns, its column count, for every switch setting;
+  * the launch plan: every layout's tile fits the block's shared memory
+    at nk = 48, 128 and the presets' nk, the timed shapes fill the 132
+    SMs, the blocks' passes and chunks cover every k point once, the MAX_Z
+    launches every redshift; models of the kernel's column units (every
+    column of every layout written once) and of its tile store (the
+    table's contiguous doubles, 16-byte pairs from an aligned address);
   * the wrapper's errors; on a card (marked cuda), K11 against its plain
-    version.
+    version, and under other launch plans the same bits.
 
 JAX is imported inside the helpers, so the `cuda` test also runs on a
 machine without it (python -m pytest --noconftest
@@ -261,7 +267,7 @@ def _cases() -> list:
     """Each case of the generated switch: (its comment's column count,
     its group calls (name, [arguments after c]) in order)."""
     body = ob.out_source().split(
-        "void columns(int layout, const Ctx& c) {")[1]
+        "void columns(int layout, Plan& c) {")[1]
     out = []
     for m in re.finditer(r"case (\d+): \{  // [^\n]*: (\d+) columns\n"
                          r"(.*?)\n\s*break;", body, re.S):
@@ -336,6 +342,153 @@ def test_generated_programs_are_the_traces():
         assert len(re.findall(r"o\[\d+\] = ", body)) == len(prog.outs)
 
 
+# --- the launch plan and models of the kernel's index arithmetic
+
+NCOLS = sorted({ob.n_columns(lay) for lay in ob.LAYOUTS})
+PRESET_NK = (TCfg.high_accuracy().nk, TCfg.v01_compat().nk)
+
+
+@pytest.mark.parametrize("nk", (48, 128) + PRESET_NK)
+def test_launch_plan_fits_every_layout(nk):
+    """Every layout's plan at nk, over lane and redshift counts from 1 to
+    a production chunk: the staging tile within TILE_BYTES (and the
+    card's 227 KB), a lin warp a chunk of a pass beside the scalar warps,
+    clusters of at most 8 blocks, none of them empty."""
+    nkt = -(-nk // ob.KT)
+    for ncol in NCOLS:
+        for B, S in ((1, 1), (2, 2), (8, 7), (16, 8), (32, 7), (16, 33)):
+            p = ob.launch_plan(nk, B, S, ncol)
+            assert p["smem_bytes"] == p["pass_chunks"] * ob.KT * (
+                ncol | 1) * 8
+            assert p["smem_bytes"] <= min(ob.TILE_BYTES, 227 * 1024)
+            assert 1 <= p["pass_chunks"] <= p["chunks"]
+            assert p["pass_chunks"] + ob.S_WARPS <= p["threads"] // 32
+            assert p["threads"] in [32 * w for w in ob.WARPS]
+            assert p["threads"] <= 512
+            assert 1 <= p["cluster"] <= ob.MAX_CLUSTER
+            assert (p["cluster"] - 1) * p["chunks"] < nkt <= (
+                p["cluster"] * p["chunks"])
+            assert p["blocks"] == B * S * p["cluster"]
+
+
+@pytest.mark.parametrize("name,nk,B,S,ncol", [
+    ("full_trg", 128, 16, 8, 17), ("oneloop_bias", 128, 32, 7, 32)])
+def test_launch_plan_fills_the_card_at_the_timed_shapes(name, nk, B, S,
+                                                        ncol):
+    """At the timed shapes one block a (lane, redshift) pair: 128 blocks
+    of 12 warps and 224 of 8, all of them resident at once (at 128
+    registers a thread), no cluster.  Full TRG 16 x 8 makes 128 blocks,
+    4 short of the card's 132 SMs, on purpose: splitting its pairs over
+    clusters of 2 to fill every SM measured slower on the H100 (0.00838
+    ms against 0.00785 ms, PERF.md), so the bound is SMS - 4 there."""
+    lay = {"full_trg": ob.layout_of(TCfg(), TSet(one_loop=False)),
+           "oneloop_bias": ob.layout_of(TCfg(print_bias=True),
+                                        TSet(one_loop=True))}[name]
+    assert ob.n_columns(lay) == ncol
+    p = ob.launch_plan(nk, B, S, ncol)
+    assert p["cluster"] == 1 and p["blocks"] == B * S
+    assert ob.SMS - 4 <= p["blocks"] <= 2 * ob.SMS
+    assert p["threads"] * 128 * -(-p["blocks"] // ob.SMS) <= 65536
+
+
+def test_launch_plan_splits_few_pairs_over_clusters():
+    """Pairs fewer than half the SMs, of more than 2 chunks: a cluster of
+    blocks a pair (the every-switch 8 x 7 block in 4, the presets' 2 x 2
+    in 8); nk = 48's 2 chunks stay one block."""
+    assert ob.launch_plan(128, 8, 7, 84)["cluster"] == 4
+    assert ob.launch_plan(512, 2, 2, 17)["cluster"] == 8
+    assert ob.launch_plan(48, 2, 8, 17)["cluster"] == 1
+
+
+@pytest.mark.parametrize("S", [1, 8, 33, 64, 65, 130])
+def test_z_launches_cover_every_redshift(S):
+    spans = ob.z_launches(S)
+    assert all(0 < s1 - s0 <= ob.MAX_Z for s0, s1 in spans)
+    assert [s for s0, s1 in spans for s in range(s0, s1)] == list(range(S))
+    assert len(spans) == -(-S // ob.MAX_Z)
+
+
+@pytest.mark.parametrize("nk", [16, 48, 100, 128, 160, 256, 512, 1024])
+def test_plan_covers_every_k_point_once(nk):
+    """The kernel's blocks (rank r of a pair's cluster: chunks r chunks ..,
+    fewer on the last), passes (pass_chunks at a time) and warps (a chunk
+    of KT points each; points past nk write no row) over one pair."""
+    for ncol in (17, 32, 84):
+        for B, S in ((1, 1), (16, 8), (32, 7)):
+            p = ob.launch_plan(nk, B, S, ncol)
+            nkt = -(-nk // ob.KT)
+            seen = []
+            for rank in range(p["cluster"]):
+                c0 = rank * p["chunks"]
+                nch = min(p["chunks"], nkt - c0)
+                assert nch >= 1
+                for p0 in range(0, nch, p["pass_chunks"]):
+                    npass = min(p["pass_chunks"], nch - p0)
+                    kb = (c0 + p0) * ob.KT
+                    rows = min(npass * ob.KT, nk - kb)
+                    seen += [kb + kl for kl in range(rows)]
+            assert seen == list(range(nk))
+
+
+def _plans() -> list:
+    """Each layout's Plan as the generated switch sets it: group name ->
+    (first column, count), the zero ranges under "zero"."""
+    out = []
+    for ncol, calls in _cases():
+        plan = {"zero": []}
+        for g, args in calls:
+            if g == "zero":
+                plan["zero"].append(tuple(args))
+            else:
+                plan[g] = args[0]
+        out.append((ncol, plan))
+    return out
+
+
+# the column groups each of the kernel's units writes (csrc/out_block.cu
+# lin_unit, run_unit): lin; A; P_T / P_MR; P_B; the copy unit's k, P, I,
+# Q and zero ranges
+UNIT_GROUPS = dict(lin=("lin",), a=("a",), pt=("pt_bias", "pt_sum"),
+                   pb=("pb_bias", "pb_sum"), copy=("k", "p", "i", "q"))
+
+
+def test_units_write_every_column_once():
+    """The generated switch's groups, with the generator's widths
+    (out_block.groups), go to the kernel's units, each named group to a
+    setter g_<name> of csrc/out_block.cu, and cover every column of the
+    layout once; the dynamic units' kinds are A, P_T, P_B where computed,
+    then copy."""
+    cu = (ob.build.CSRC / "out_block.cu").read_text()
+    setters = set(re.findall(r"void g_(\w+)\(Plan& c", cu))
+    owned = {g for names in UNIT_GROUPS.values() for g in names}
+    for lay, (ncol, plan) in zip(ob.LAYOUTS, _plans()):
+        width = {g: n for g, _, n in ob.groups(lay) if g != "zero"}
+        assert set(width) <= owned and set(width) | {"zero"} <= setters
+        written = []
+        for g, n in width.items():
+            written += range(plan[g], plan[g] + n)
+        for col, n in plan["zero"]:
+            written += range(col, col + n)
+        assert sorted(written) == list(range(ncol)), lay
+        assert len(plan["zero"]) <= 2
+        kinds = 1 + ("a" in plan) + any(g in plan for g in UNIT_GROUPS["pt"]) \
+            + any(g in plan for g in UNIT_GROUPS["pb"])
+        assert kinds == 1 + (lay.a and lay.mc) + (
+            lay.rsd != "off" and lay.mc) + (lay.rsd != "off")
+
+
+def test_store_tile_row_index_is_exact():
+    """store_tile's row of element e, (e + 1/2) (1/ncol) in f32 and cut,
+    is e // ncol for every e of a tile of up to 200 KB and every
+    layout's ncol."""
+    e = np.arange(200 * 1024 // 8, dtype=np.int64)
+    for ncol in NCOLS:
+        inv = np.float32(1.0) / np.float32(ncol)
+        row = ((e.astype(np.float32) + np.float32(0.5)) * inv).astype(
+            np.int64)
+        np.testing.assert_array_equal(row, e // ncol)
+
+
 # --- the wrapper
 
 def test_wrapper_validates_and_cpu_takes_plain():
@@ -372,36 +525,47 @@ def test_wrapper_raises_off_the_cpu_without_a_kernel():
         ob.out_block(lay, ys, k, m, Z_OUT, 0.01)
 
 
+CARD_CASES = ((dict(ALL), dict(one_loop=True, z_out="Z_OUT_1L")),
+              ({}, dict(one_loop=False, z_out="Z_OUT")))
+
+
+def _card_args(cfg_kw: dict, set_kw: dict, dev) -> tuple:
+    """out_block's arguments on the card: 4 design lanes prepared on the
+    host, states like evolved ones (lane 3 NaN at the last redshift), the
+    engine over the B n_z lanes where the layout needs it."""
+    import chip_smoke
+
+    cfg = TCfg(**cfg_kw)
+    settings = TSet(**dict(set_kw, z_out=getattr(chip_smoke,
+                                                  set_kw["z_out"])))
+    cs, lins = chip_smoke.design_inputs(4)
+    m = driver._prepare(cfg, ([x.numpy() for x in cs], list(lins), None),
+                        dev, True)
+    ec = fastpt.engine_consts(cfg, dev)
+    S = len(settings.z_out)
+    rng = np.random.default_rng(4)
+    y = trg.initial_state(cfg, settings, m).reshape(4, 1, 41, cfg.nk)
+    ys = y.repeat(1, S, 1, 1)
+    ys[:, :, :3] += 6.0
+    ys[:, :, 3:] = 1e-3 * torch.exp(ys[:, :, :1]) * torch.as_tensor(
+        rng.standard_normal((4, S, 38, cfg.nk)), device=dev)
+    ys[-1, -1] = float("nan")
+    lay = ob.layout_of(cfg, settings)
+    k = driver._headers(cfg, settings, dev)[0]
+    src = (fastpt.compute_J_PZ(
+        cfg, ys[:, :, 0:3].reshape(4 * S, 3, cfg.nk), m.cosmo.n_s,
+        settings.print_rsd, ec, n_rep=S) if lay.mc else None)
+    return (lay, ys, k, m, settings.z_out, settings.a_in, src, None)
+
+
 @pytest.mark.cuda
 def test_cuda_out_block_matches_plain(cuda_device):
     """On the card: K11 against out_block_plain on the same engine
     outputs, 1-loop with every switch on and full TRG, within 1e-11 of
     each column's (sigma_v^2's, H's) scale over a lane, NaN in the same
     places; one launch each."""
-    import chip_smoke
-
-    for cfg, settings in ((TCfg(**ALL), TSet(one_loop=True,
-                                             z_out=chip_smoke.Z_OUT_1L)),
-                          (TCfg(), TSet(one_loop=False,
-                                        z_out=chip_smoke.Z_OUT))):
-        cs, lins = chip_smoke.design_inputs(4)
-        m = driver._prepare(cfg, ([x.numpy() for x in cs], list(lins),
-                                  None), cuda_device, True)
-        ec = fastpt.engine_consts(cfg, cuda_device)
-        S = len(settings.z_out)
-        rng = np.random.default_rng(4)
-        y = trg.initial_state(cfg, settings, m).reshape(4, 1, 41, cfg.nk)
-        ys = y.repeat(1, S, 1, 1)
-        ys[:, :, :3] += 6.0
-        ys[:, :, 3:] = 1e-3 * torch.exp(ys[:, :, :1]) * torch.as_tensor(
-            rng.standard_normal((4, S, 38, cfg.nk)), device=cuda_device)
-        ys[-1, -1] = float("nan")
-        lay = ob.layout_of(cfg, settings)
-        k = driver._headers(cfg, settings, cuda_device)[0]
-        src = (fastpt.compute_J_PZ(
-            cfg, ys[:, :, 0:3].reshape(4 * S, 3, cfg.nk), m.cosmo.n_s,
-            settings.print_rsd, ec, n_rep=S) if lay.mc else None)
-        args = (lay, ys, k, m, settings.z_out, settings.a_in, src, None)
+    for cfg_kw, set_kw in CARD_CASES:
+        args = _card_args(cfg_kw, set_kw, cuda_device)
         before = counts.snapshot()["out_block"]
         got = ob.out_block(*args)
         assert counts.snapshot()["out_block"] == before + 1
@@ -412,3 +576,28 @@ def test_cuda_out_block_matches_plain(cuda_device):
             scale = torch.where(fin, r.abs(), 0.0).amax(dims, keepdim=True)
             d = torch.where(fin, (g - r).abs(), 0.0) / (scale + 1e-300)
             assert float(d.max()) <= 1e-11
+
+
+@pytest.mark.cuda
+def test_cuda_out_block_plans_agree(cuda_device):
+    """On the card: K11 under other launch plans than launch_plan's --
+    clusters of 1, 2 and 4 blocks a (lane, redshift), every chunk in one
+    pass or a chunk a pass, 8 or 16 warps a block -- writes the default
+    plan's bits."""
+    from redtime_tpu_torch.kernels import build
+
+    lib = build.lib()
+    for cfg_kw, set_kw in CARD_CASES:
+        args = _card_args(cfg_kw, set_kw, cuda_device)
+        S = args[1].shape[1]
+        ref = ob.out_block(*args)
+        for cluster, chunks in ((1, 4), (2, 2), (4, 1)):
+            for pass_chunks in range(1, chunks + 1):
+                for threads in (256, 512):
+                    plan = dict(cluster=cluster, chunks=chunks,
+                                pass_chunks=pass_chunks, threads=threads)
+                    got = [torch.full_like(x, -1.0) for x in ref]
+                    ob.launch(lib, *args, *got, 0, S, plan=plan)
+                    for g, r in zip(got, ref):
+                        assert torch.equal(g.view(torch.int64),
+                                           r.view(torch.int64)), plan
