@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
 
-from the root of a checkout, on a machine with a CUDA card and nvcc.  It
+from the root of a checkout, on a machine with a CUDA card, nvcc and g++.
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the CUDA kernels from redtime_tpu_torch/csrc with nvcc
-     (sm_90a) and checks that K1's and K2's SASS holds FP64
+     (sm_90a), and the host IO library (csrc/redtime_io.cpp) with g++,
+     and checks that K1's and K2's SASS holds FP64
      tensor-core instructions (DMMA), K5's int8 mma.sync (IMMA) and K7's
      int8 wgmma (IGMMA), by cuobjdump;
   3. checks each hand kernel against its plain PyTorch version on the card
@@ -138,10 +139,21 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
      against the JAX golden tests/data/torch_port_golden_production.npz
      (gen_torch_port_golden --case production); prints each stage's
      wall, cosmologies/min and attempts per cosmology;
- 12. runs the off-by-default numerics (run_numerics: growth_dense and
+ 12. the host IO runtime (run_io; built with g++ beside the kernels,
+     build_io, its OpenMP runtime started once and checked to write
+     nothing to stderr): every production stack parsed by
+     native.parse_stack, bit-equal to np.loadtxt, and step 5's full-TRG
+     table formatted by native.format_rows, byte-equal to the f-strings,
+     both timed against their plain versions in turns, torch's thread
+     count unchanged;
+ 13. runs the off-by-default numerics (run_numerics: growth_dense and
      quad_impl='gl', 1-loop, 2 lanes, prepare on the card) against
      tests/data/torch_port_golden_numerics.npz (--case numerics);
- 13. prints the kernels' JSON line, the card line and, last, the result.
+ 14. holds the card's engine (K9 -> K10 -> K1 + K2 on a BBKS spectrum)
+     to the port's continuum oracle (quadrature.j_quadrature,
+     pz_quadrature, jreg_ir_counterterm) on the card, at
+     tests/test_quadrature.py's bounds (run_oracle);
+ 15. prints the kernels' JSON line, the card line and, last, the result.
 
 Every path from step 4 on runs with the launch counters set to 0 just
 before it and read just after, and must have launched K1-K3 and K8-K11
@@ -209,6 +221,12 @@ GOLDEN_NUMERICS = os.path.join(HERE, "tests", "data",
                                "torch_port_golden_numerics.npz")
 NUMERICS = dict(growth_dense=True, quad_impl="gl")
 PROBE_KERNELS = ("affine", "int8_dot", "dd_mul", "oz_pack_w", "oz_fused")
+# the oracle phase (run_oracle): tests/test_quadrature.py's points, orders
+# and bounds (fraction of the family's peak, PZ for n < 0 and n >= 0; the
+# Jreg identity relative)
+ORACLE_IDX, ORACLE_JREG_IDX = (24, 48, 72, 96), (48, 64, 80, 96)
+ORACLE_J_BOUND, ORACLE_PZ_BOUNDS, ORACLE_JREG_BOUND = 5e-3, (3e-3, 4e-2), \
+    5e-3
 
 
 def check(ok: bool, what: str) -> None:
@@ -2369,9 +2387,10 @@ def run_path(what: str, cfg, settings, n_design: int, golden: str,
     return out["res"], launches
 
 
-def run_main_path(detail: dict, card: str) -> dict:
+def run_main_path(detail: dict, card: str) -> tuple:
     """Full Time-RG, the bench's headline workload: its PT columns print
-    zero (the reference's output caveat).  Returns the launch counts."""
+    zero (the reference's output caveat).  Returns the launch counts and
+    the default placement's result."""
     from redtime_tpu_torch.config import RunSettings, SolverConfig
 
     res, launches = run_path(
@@ -2380,7 +2399,7 @@ def run_main_path(detail: dict, card: str) -> dict:
         card)
     check(bool(np.all(res.table[..., 13:17].cpu().numpy() == 0.0)),
           "full-TRG PT columns must be zero")
-    return launches
+    return launches, res
 
 
 def run_oneloop(detail: dict, card: str) -> tuple:
@@ -3014,7 +3033,7 @@ def read_outputs(out_dir: str, tag: str, n: int = 2) -> np.ndarray:
         for mn in range(1, n + 1)])
 
 
-def run_production(detail: dict, card: str) -> tuple:
+def run_production(work: str, detail: dict, card: str) -> tuple:
     """The emulator-production chain on the card, through the entry points
     a user calls, held to the JAX golden of its first two models
     (GOLDEN_PROD):
@@ -3042,11 +3061,11 @@ def run_production(detail: dict, card: str) -> tuple:
 
     Prints each stage's wall (orchestration: orchestrate.main's wall less
     the CLI's three --timing stages), cosmologies/min, attempts per
-    cosmology and the launches by phase.  Returns (the batch's launches,
-    the rerun's launches)."""
+    cosmology and the launches by phase.  Its files stay in `work` (the
+    io phase reads them).  Returns (the batch's launches, the rerun's
+    launches)."""
     import io
     import re
-    import tempfile
 
     import torch
 
@@ -3065,110 +3084,109 @@ def run_production(detail: dict, card: str) -> tuple:
           "production: the golden's HACC blocks differ")
     cfg = SolverConfig()
     walls, out_detail = {}, {}
-    with tempfile.TemporaryDirectory() as work:
-        models = os.path.join(work, "models.dat")
-        design.generate_design(models, N_PROD, seed=SEED)
-        check(np.array_equal(np.loadtxt(models, usecols=range(1, 9))[:2],
-                             gold["design"]),
-              "production: design lanes 0-1 differ from the golden's")
-        zfile = os.path.join(work, "z.txt")
-        with open(zfile, "w") as f:
-            f.write(orchestrate.CAMB_Z_LIST + "\n")
-        check(np.array_equal(np.asarray(orchestrate.CAMB_Z_LIST.split(),
-                                        dtype=np.float64), gold["z_out"]),
-              "production: z_out differs from the golden's")
-        out = os.path.join(work, "out")
-        err = io.StringIO()
-        counts.reset()
-        t0 = time.perf_counter()
-        with batch_timers() as timers, contextlib.redirect_stderr(err):
-            rc = orchestrate.main(["--redshift-file", zfile, "--models-file",
-                                   models, "--output-dir", out, "--camb-exec",
-                                   MOCK_CAMB, "--timing"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        log = err.getvalue()
-        sys.stderr.write(log)
-        check(rc == 0, f"production: orchestrate rc {rc}")
-        launches = dict(counts.snapshot(), by_phase=counts.phases())
-        for name in MAIN_KERNELS:
-            check(launches["by_phase"]["solve"][name] > 0,
-                  f"production: kernel {name} was not launched in the solve")
-            check(launches["by_phase"]["prepare"][name] == 0,
-                  f"production: host prepare launched {name} on the card")
-        stages = {k: float(v) for k, v in re.findall(
-            r"# \[timing\] (\S+): ([0-9.]+)s \(", log)}
-        cli_stages = ("load-inputs", "solve-batch", "write-outputs")
-        check(all(s in stages for s in cli_stages),
-              f"production: --timing stages {stages}")
-        walls.update({s: stages[s] for s in cli_stages})
-        walls["orchestration"] = wall - sum(stages[s] for s in cli_stages)
-        per_min = float(re.search(r"\(([0-9.]+) cosmologies/min\)",
-                                  log).group(1))
-        check(len(timers) == 1 and timers[0] is not None,
-              "production: the CLI ran run_batch without its timer")
-        att = timers[0].stats["attempts"]
+    models = os.path.join(work, "models.dat")
+    design.generate_design(models, N_PROD, seed=SEED)
+    check(np.array_equal(np.loadtxt(models, usecols=range(1, 9))[:2],
+                         gold["design"]),
+          "production: design lanes 0-1 differ from the golden's")
+    zfile = os.path.join(work, "z.txt")
+    with open(zfile, "w") as f:
+        f.write(orchestrate.CAMB_Z_LIST + "\n")
+    check(np.array_equal(np.asarray(orchestrate.CAMB_Z_LIST.split(),
+                                    dtype=np.float64), gold["z_out"]),
+          "production: z_out differs from the golden's")
+    out = os.path.join(work, "out")
+    err = io.StringIO()
+    counts.reset()
+    t0 = time.perf_counter()
+    with batch_timers() as timers, contextlib.redirect_stderr(err):
+        rc = orchestrate.main(["--redshift-file", zfile, "--models-file",
+                               models, "--output-dir", out, "--camb-exec",
+                               MOCK_CAMB, "--timing"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log = err.getvalue()
+    sys.stderr.write(log)
+    check(rc == 0, f"production: orchestrate rc {rc}")
+    launches = dict(counts.snapshot(), by_phase=counts.phases())
+    for name in MAIN_KERNELS:
+        check(launches["by_phase"]["solve"][name] > 0,
+              f"production: kernel {name} was not launched in the solve")
+        check(launches["by_phase"]["prepare"][name] == 0,
+              f"production: host prepare launched {name} on the card")
+    stages = {k: float(v) for k, v in re.findall(
+        r"# \[timing\] (\S+): ([0-9.]+)s \(", log)}
+    cli_stages = ("load-inputs", "solve-batch", "write-outputs")
+    check(all(s in stages for s in cli_stages),
+          f"production: --timing stages {stages}")
+    walls.update({s: stages[s] for s in cli_stages})
+    walls["orchestration"] = wall - sum(stages[s] for s in cli_stages)
+    per_min = float(re.search(r"\(([0-9.]+) cosmologies/min\)",
+                              log).group(1))
+    check(len(timers) == 1 and timers[0] is not None,
+          "production: the CLI ran run_batch without its timer")
+    att = timers[0].stats["attempts"]
 
-        paths = [os.path.join(out, f"redTime_M{i:03d}.dat")
-                 for i in range(1, N_PROD + 1)]
-        tables = np.stack([read_redtime_table(p, cfg.nk) for p in paths])
-        check(tables.shape == (N_PROD, 33, cfg.nk, 17)
-              and bool(np.isfinite(tables).all()),
-              f"production: tables {tables.shape} or non-finite")
-        dev_col, dev_lin = table_dev(tables[:2, blocks], gold["table"],
-                                     "production")
-        heads = [read_headers(p) for p in paths[:2]]
-        dev_head = header_dev(dict(
-            H=np.stack([h[0][blocks] for h in heads]),
-            sigma_v2=np.stack([h[1][blocks] for h in heads]),
-            sigmaV2_z0=np.array([h[2] for h in heads])), gold, "",
-            "production")
+    paths = [os.path.join(out, f"redTime_M{i:03d}.dat")
+             for i in range(1, N_PROD + 1)]
+    tables = np.stack([read_redtime_table(p, cfg.nk) for p in paths])
+    check(tables.shape == (N_PROD, 33, cfg.nk, 17)
+          and bool(np.isfinite(tables).all()),
+          f"production: tables {tables.shape} or non-finite")
+    dev_col, dev_lin = table_dev(tables[:2, blocks], gold["table"],
+                                 "production")
+    heads = [read_headers(p) for p in paths[:2]]
+    dev_head = header_dev(dict(
+        H=np.stack([h[0][blocks] for h in heads]),
+        sigma_v2=np.stack([h[1][blocks] for h in heads]),
+        sigmaV2_z0=np.array([h[2] for h in heads])), gold, "",
+        "production")
 
-        t0 = time.perf_counter()
-        for step in steps:
-            check(cli.main(["convert", "--n-models", str(N_PROD), "--step",
-                            str(step), "--nk", str(cfg.nk), "--models-file",
-                            models, "--red-dir", out]) == 0,
-                  f"production: convert --step {step} failed")
-        walls["convert"] = time.perf_counter() - t0
-        conv = [(read_outputs(os.path.join(out, f"STEP{s}"), "k"),
-                 read_outputs(os.path.join(out, f"STEP{s}"), "pk"))
-                for s in steps]
-        dev_conv = max(
-            output_dev(np.stack([c[0] for c in conv]), gold["convert_k"], 2,
-                       "production convert k"),
-            output_dev(np.stack([c[1] for c in conv]), gold["convert_pk"],
-                       2, "production convert pk"))
-        nbody = os.path.join(work, "nbody")
-        os.makedirs(nbody)
-        pm_t, hacc_t = write_nbody_spectra(nbody, N_PROD)
-        full = os.path.join(work, "full")
-        t0 = time.perf_counter()
-        check(cli.main(["convert-full", "--design", models, "--step",
-                        str(PROD_STEP_FULL), "-o", full, "--pt-template",
-                        os.path.join(out, "redTime_M{model:03d}.dat"),
-                        "--pm-template", pm_t, "--hacc-template", hacc_t,
-                        "--nk", str(cfg.nk), "--n-pm", str(N_PM)]) == 0,
-              "production: convert-full failed")
-        walls["convert_full"] = time.perf_counter() - t0
-        check(len(os.listdir(full)) == 3 * N_PROD,
-              f"production: convert-full wrote {len(os.listdir(full))} files")
-        dev_full = max(output_dev(read_outputs(full, tag), gold["full_" + tag],
-                                  1, f"production convert-full {tag}")
-                       for tag in ("k", "pk", "err"))
-        design_rows = read_models_file(models)
-        for path, m in zip(paths, design_rows):
-            res = emulator_check.compare_outputs(path, path, cfg.nk,
-                                                 om_nu=m["om_nu"],
-                                                 om_m=m["om_m"])
-            emulator_check.assert_reference_criteria(res,
-                                                     massive=m["om_nu"] > 0)
-            check(res.max_abs == 0.0, f"production: {path} against itself "
-                                      f"{res.max_abs}")
+    t0 = time.perf_counter()
+    for step in steps:
+        check(cli.main(["convert", "--n-models", str(N_PROD), "--step",
+                        str(step), "--nk", str(cfg.nk), "--models-file",
+                        models, "--red-dir", out]) == 0,
+              f"production: convert --step {step} failed")
+    walls["convert"] = time.perf_counter() - t0
+    conv = [(read_outputs(os.path.join(out, f"STEP{s}"), "k"),
+             read_outputs(os.path.join(out, f"STEP{s}"), "pk"))
+            for s in steps]
+    dev_conv = max(
+        output_dev(np.stack([c[0] for c in conv]), gold["convert_k"], 2,
+                   "production convert k"),
+        output_dev(np.stack([c[1] for c in conv]), gold["convert_pk"],
+                   2, "production convert pk"))
+    nbody = os.path.join(work, "nbody")
+    os.makedirs(nbody)
+    pm_t, hacc_t = write_nbody_spectra(nbody, N_PROD)
+    full = os.path.join(work, "full")
+    t0 = time.perf_counter()
+    check(cli.main(["convert-full", "--design", models, "--step",
+                    str(PROD_STEP_FULL), "-o", full, "--pt-template",
+                    os.path.join(out, "redTime_M{model:03d}.dat"),
+                    "--pm-template", pm_t, "--hacc-template", hacc_t,
+                    "--nk", str(cfg.nk), "--n-pm", str(N_PM)]) == 0,
+          "production: convert-full failed")
+    walls["convert_full"] = time.perf_counter() - t0
+    check(len(os.listdir(full)) == 3 * N_PROD,
+          f"production: convert-full wrote {len(os.listdir(full))} files")
+    dev_full = max(output_dev(read_outputs(full, tag), gold["full_" + tag],
+                              1, f"production convert-full {tag}")
+                   for tag in ("k", "pk", "err"))
+    design_rows = read_models_file(models)
+    for path, m in zip(paths, design_rows):
+        res = emulator_check.compare_outputs(path, path, cfg.nk,
+                                             om_nu=m["om_nu"],
+                                             om_m=m["om_m"])
+        emulator_check.assert_reference_criteria(res,
+                                                 massive=m["om_nu"] > 0)
+        check(res.max_abs == 0.0, f"production: {path} against itself "
+                                  f"{res.max_abs}")
 
-        loaded = [inject.load_injected(
-            cfg, os.path.join(out, f"params_redTime_M{i:03d}.dat"), p)
-            for i, p in zip((1, 2), paths)]
+    loaded = [inject.load_injected(
+        cfg, os.path.join(out, f"params_redTime_M{i:03d}.dat"), p)
+        for i, p in zip((1, 2), paths)]
     norms = np.array([n for *_, n in loaded])
     rel = float(np.max(np.abs(norms / gold["inject_norm"] - 1.0)))
     check(rel <= 1e-10, f"production inject: norm vs golden {rel:.3g}")
@@ -3222,6 +3240,236 @@ def run_production(detail: dict, card: str) -> tuple:
     return launches, inj_launches
 
 
+def quiet(fn, *args):
+    """fn(*args), checked to write nothing to file descriptor 2, where a C
+    runtime warns (e.g. of two OpenMP runtimes in one process); returns
+    its result."""
+    import tempfile
+
+    sys.stderr.flush()
+    saved = os.dup(2)
+    with tempfile.TemporaryFile("w+") as f:
+        os.dup2(f.fileno(), 2)
+        try:
+            out = fn(*args)
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+        f.seek(0)
+        said = f.read()
+    check(said == "", f"{fn.__name__} wrote to stderr: {said!r}")
+    return out
+
+
+def build_io() -> dict:
+    """Builds the host IO library (g++) and starts its OpenMP runtime
+    once (native.io_threads), checked to warn nothing and to leave
+    torch's thread count as it was.  Returns its build seconds and
+    threads."""
+    import torch
+
+    from redtime_tpu_torch.io import native
+
+    t0 = time.perf_counter()
+    path = native.build()
+    build_s = time.perf_counter() - t0
+    before = torch.get_num_threads()
+    threads = quiet(native.io_threads)
+    check(torch.get_num_threads() == before,
+          f"io: torch threads {before} -> {torch.get_num_threads()}")
+    print(f"build: g++ {build_s:.3f} s ({path.name}); parse_stack's OpenMP "
+          f"threads {threads}, torch's {before}")
+    return dict(wall_s=build_s, library=path.name, omp_threads=threads,
+                torch_threads=before)
+
+
+def run_io(work: str, res, detail: dict, card: str) -> None:
+    """The host IO runtime on the card's host, against its plain versions:
+
+      1. every production model's CAMB inputs (its params file's
+         transfer file and 33 beta_P files, written by run_production in
+         `work`) parsed as camb.load_linear_data parses them under the
+         CLI's load-inputs: the transfer file by camb.read_transfer_file
+         (native.parse_table, one thread), then the stack by one
+         native.parse_stack (OpenMP); bit-equal to
+         camb.read_transfer_file_plain (np.loadtxt) file by file; each
+         model timed both ways, in turns (native, plain, plain, native);
+      2. the full-TRG main path's table (res: 16 lanes x 8 redshifts x
+         nk x 17) formatted block by block by writer._format_block
+         (native.format_rows), byte-equal to _format_block_plain
+         (f-strings); the whole table timed both ways, in turns;
+      3. torch's thread count the same before and after, and nothing
+         written to stderr.
+
+    Prints ms a file and us a value for both routes."""
+    import glob
+
+    import torch
+
+    from redtime_tpu_torch.io import camb, native, read_params_file, writer
+
+    threads = torch.get_num_threads()
+    params = sorted(glob.glob(os.path.join(work, "out",
+                                           "params_redTime_M*.dat")))
+    check(len(params) == N_PROD, f"io: {len(params)} params files")
+    stacks = []
+    for path in params:
+        p = read_params_file(path)
+        base = os.path.dirname(path)
+        stacks.append([os.path.join(base, p.transfer_file)]
+                      + p.nu_transfer_files(base))
+
+    def native_inputs(files):
+        return [camb.read_transfer_file(files[0])] \
+            + native.parse_stack(files[1:], 7)
+
+    def plain_inputs(files):
+        return [camb.read_transfer_file_plain(f) for f in files]
+
+    for files in stacks:
+        quiet(native_inputs, files)
+    parse_s = {"native": [], "plain": []}
+    for files in stacks:
+        for route in ("native", "plain", "plain", "native"):
+            t0 = time.perf_counter()
+            if route == "native":
+                nat = native_inputs(files)
+            else:
+                plain = plain_inputs(files)
+            parse_s[route].append(time.perf_counter() - t0)
+        check(all(a.shape == b.shape and a.tobytes() == b.tobytes()
+                  for a, b in zip(nat, plain)),
+              f"io: native parse of {files[0]} differs from np.loadtxt")
+    files_per_model = len(stacks[0])
+    check(all(len(f) == files_per_model for f in stacks),
+          "io: the models' stacks differ in length")
+    n_files = sum(len(f) for f in stacks)
+
+    table = res.table.cpu().numpy()
+    blocks = table.reshape(-1, *table.shape[2:])
+    fmt_s = {"native": [], "plain": []}
+    for route in ("native", "plain", "plain", "native"):
+        fn = writer._format_block if route == "native" \
+            else writer._format_block_plain
+        t0 = time.perf_counter()
+        text = [fn(b) for b in blocks]
+        fmt_s[route].append((time.perf_counter() - t0) / table.size)
+        if route == "native":
+            nat_text = text
+        else:
+            plain_text = text
+    check(nat_text == plain_text,
+          "io: native formatting differs from the f-strings")
+    check(torch.get_num_threads() == threads,
+          f"io: torch threads {threads} -> {torch.get_num_threads()}")
+    med = {f"{k}_ms_per_model": float(np.median(v)) * 1e3
+           for k, v in parse_s.items()}
+    med.update({f"{k}_ms_per_file": med[f"{k}_ms_per_model"]
+                / files_per_model for k in parse_s})
+    med.update({f"{k}_us_per_value": float(np.median(v)) * 1e6
+                for k, v in fmt_s.items()})
+    detail["io"] = dict(med, files=n_files, values=int(table.size),
+                        omp_threads=native.io_threads(),
+                        torch_threads=threads,
+                        files_per_model=files_per_model,
+                        parse_s_per_model=parse_s, format_s_per_value=fmt_s)
+    print(f"io on {card}'s host: {N_PROD} production models' inputs "
+          f"({n_files} files, 7 columns) parsed as the CLI parses them "
+          f"(the transfer file on one thread, the {files_per_model - 1} "
+          f"stack files on {native.io_threads()} OpenMP threads), "
+          f"bit-equal to np.loadtxt: {med['native_ms_per_model']:.4f} ms a "
+          f"model, {med['native_ms_per_file']:.4f} ms a file (plain "
+          f"{med['plain_ms_per_model']:.4f}, "
+          f"{med['plain_ms_per_file']:.4f}); full-TRG table "
+          f"{tuple(table.shape)} formatted byte-equal to the f-strings: "
+          f"{med['native_us_per_value']:.4f} us a value (plain "
+          f"{med['plain_us_per_value']:.4f}); medians of "
+          f"{len(parse_s['native'])} / 2 readings a side (a model / the "
+          f"table), in turns; torch threads {threads} before and after")
+
+
+def oracle_devs(cfg, P_ext, Jw, PZw, device) -> dict:
+    """The engine's windowed outputs (P_ext [npts], Jw [NFAM, nk], PZw [7,
+    nk] of one spectrum row) against the port's continuum oracle on
+    `device`, at tests/test_quadrature.py's points, orders and bounds:
+    name -> deviation over its bound (<= 1 passes)."""
+    from redtime_tpu_torch import fastpt, quadrature
+    from redtime_tpu_torch.grids import make_grids
+
+    g = make_grids(cfg)
+    idx = list(ORACLE_IDX)
+    k = g.k[idx]
+    Pk = P_ext[g.nshift:g.nshift + g.nk][idx]
+    out = {}
+    for fam, alpha, beta, ell in quadrature.UNREG_FAMILIES:
+        jq = quadrature.j_quadrature(cfg, P_ext, k, alpha, beta, ell, 600,
+                                     96, device=device)
+        peak = Jw[fam].abs().max()
+        out[f"J{fam}"] = float((jq - Jw[fam][idx]).abs().max() / peak
+                               / ORACLE_J_BOUND)
+    for fi, n in enumerate(fastpt.Z_N):
+        pq = quadrature.pz_quadrature(cfg, P_ext, k, n, device=device) * Pk
+        bound = ORACLE_PZ_BOUNDS[n >= 0]
+        out[f"PZ{n}"] = float((pq - PZw[fi][idx]).abs().max()
+                              / PZw[fi].abs().max() / bound)
+    jidx = list(ORACLE_JREG_IDX)
+    naive = quadrature.j_quadrature(cfg, P_ext, g.k[jidx], 2, -2, 0, 800,
+                                    1024, device=device)
+    model = quadrature.jreg_ir_counterterm(cfg, P_ext, g.k[jidx],
+                                           device=device)
+    out["Jreg"] = float(((naive - Jw[1][jidx]) / model - 1.0).abs().max()
+                        / ORACLE_JREG_BOUND)
+    return out
+
+
+def run_oracle(detail: dict, card: str) -> None:
+    """The card's engine held to the port's continuum oracle on the card:
+    fastpt.compute_J_PZ (K9 -> K10 -> K1 + K2, with the launch counters
+    set to 0 just before and each checked after) on the BBKS spectrum at
+    SolverConfig() defaults, windowed, against quadrature.j_quadrature,
+    pz_quadrature and jreg_ir_counterterm on the card (oracle_devs):
+    the six unregularised J families within 5e-3 of peak, PZ within
+    3e-3 / 4e-2, the Jreg identity within 5e-3."""
+    import torch
+
+    from redtime_tpu_torch import fastpt
+    from redtime_tpu_torch.config import SolverConfig
+    from redtime_tpu_torch.grids import make_grids
+    from redtime_tpu_torch.kernels import counts
+    from redtime_tpu_torch.quadrature import bbks_lnP
+
+    cfg = SolverConfig()
+    g = make_grids(cfg)
+    ec = fastpt.engine_consts(cfg, "cuda")
+    lnP3 = torch.as_tensor(
+        np.broadcast_to(bbks_lnP(g.k), (1, 3, g.nk)).copy(), device="cuda")
+    n_s = torch.tensor([0.96], dtype=torch.float64, device="cuda")
+    counts.reset()
+    P_ext = fastpt.extend_power(cfg, lnP3, n_s, ec)
+    Jw, _, PZw = fastpt.window(
+        cfg, *fastpt.compute_J_PZ(cfg, lnP3, n_s, True, ec), True)
+    launches = counts.snapshot()
+    for name in ENGINE_KERNELS:
+        check(launches[name] > 0, f"oracle: {name} was not launched")
+    t0 = time.perf_counter()
+    devs = oracle_devs(cfg, P_ext[0, 0], Jw[0, :, 0, 0], PZw[0, :, 0, 0],
+                       "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    worst = max(devs, key=devs.get)
+    check(all(np.isfinite(v) and v <= 1.0 for v in devs.values()),
+          f"oracle: the engine is outside the oracle's bounds {devs}")
+    detail["oracle"] = dict(dev_over_bound=devs, wall_s=wall,
+                            launches={k: launches[k] for k in ENGINE_KERNELS})
+    print(f"oracle on {card}: the card's engine (K9 -> K10 -> K1 + K2) "
+          f"against the continuum quadrature on the card, 6 J families, 7 "
+          f"PZ kernels and the Jreg identity, deviation over bound at most "
+          f"{devs[worst]:.3f} ({worst}); "
+          f"{ {k: round(v, 3) for k, v in devs.items()} }; oracle "
+          f"{wall:.3f} s")
+
+
 def run_numerics(detail: dict, card: str) -> dict:
     """The off-by-default numerics: SolverConfig(growth_dense=True,
     quad_impl='gl'), 1-loop at the 1-loop redshifts, 2 design lanes, with
@@ -3257,6 +3505,8 @@ def run_numerics(detail: dict, card: str) -> dict:
 
 
 def main() -> int:
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3279,6 +3529,7 @@ def main() -> int:
     build_s = time.perf_counter() - t_start
     print(f"build: nvcc {build_s:.3f} s ({lib.name})")
     detail["build"] = dict(build.BUILD_LOG, wall_s=build_s)
+    detail["build_io"] = build_io()
     phase_s = detail["phase_s"] = {}
 
     def timed(name: str, fn, *args):
@@ -3319,7 +3570,8 @@ def main() -> int:
     # each path runs with the counters set to 0 just before it; a
     # kernel's launches are the sum over the paths that ran it
     phases = dict(probes=timed("probes", run_probes, detail))
-    phases.update(timed("main_path", run_main_path, detail, card))
+    launches_main, res_main = timed("main_path", run_main_path, detail, card)
+    phases.update(launches_main)
     launches_1l, res_1l = timed("oneloop", run_oneloop, detail, card)
     phases.update(launches_1l)
     launches_64, res_64 = timed("batch64", run_batch64_paths, detail, card)
@@ -3335,9 +3587,13 @@ def main() -> int:
     phases.update(timed("presets", run_presets, detail, card))
     phases.update(grid_nk48=timed("grid_nk48", run_ragged_grid, detail,
                                   card))
-    phases["production"], phases["inject_rerun"] = timed(
-        "production", run_production, detail, card)
+    with tempfile.TemporaryDirectory() as work:
+        phases["production"], phases["inject_rerun"] = timed(
+            "production", run_production, work, detail, card)
+        timed("io", run_io, work, res_main, detail, card)
+    del res_main
     phases.update(numerics=timed("numerics", run_numerics, detail, card))
+    timed("oracle", run_oracle, detail, card)
     # every engine evaluation of every path ran K9 -> K10 -> K1 + K2
     for path, p in phases.items():
         if path != "probes":

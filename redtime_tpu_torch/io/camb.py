@@ -11,6 +11,12 @@ delta_nu/k^2 at column 5), or 13 columns for modern pip CAMB (reference
     with f_nu, reference :513-630).
 The fields are numpy arrays (one cosmology, or stacked with a leading
 batch dimension); `state.linear_from_numpy` puts them on a device.
+
+The files are read by the native parser (`native.parse_table`, and
+`native.parse_stack` for the beta_P stack), with the JAX package's native
+semantics: '#' comments and lines with no number are skipped, columns
+past 7 (13) ignored, a shorter numeric row rejected.
+`read_transfer_file_plain` is the numpy version the tests hold it to.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 
+from redtime_tpu_torch.io import native
 from redtime_tpu_torch.io.params import ParamsFile
 
 # column indices (reference AU_cosmological_parameters.h:76-80)
@@ -27,9 +34,28 @@ I_K, I_DC, I_DB, I_DNU = 0, 1, 2, 5
 MAX_BETA_ROWS = 30000  # reference :548
 
 
+def _ncols(modern: bool) -> int:
+    return 13 if modern else 7
+
+
+def _checked(path, data: np.ndarray, ncols: int) -> np.ndarray:
+    if data.shape[0] == 0:
+        raise ValueError(f"{path}: no parseable {ncols}-column rows "
+                         "(corrupt or wrong-format transfer file)")
+    return data
+
+
 def read_transfer_file(path: str, modern: bool = False) -> np.ndarray:
     """Read a CAMB transfer file -> array [n_rows, n_cols] (float64)."""
-    ncols = 13 if modern else 7
+    ncols = _ncols(modern)
+    return _checked(path, native.parse_table(path, ncols), ncols)
+
+
+def read_transfer_file_plain(path: str, modern: bool = False) -> np.ndarray:
+    """read_transfer_file by np.loadtxt: the plain version of the native
+    parser on well-formed files (no text-only lines, a fixed column
+    count)."""
+    ncols = _ncols(modern)
     data = np.loadtxt(path, ndmin=2)
     if data.shape[0] == 0 or data.shape[1] < ncols:
         raise ValueError(f"{path}: no parseable {ncols}-column rows "
@@ -66,13 +92,16 @@ def load_linear_data(transfer_file: str,
             f"beta_P transfer stack needs >= 4 redshift nodes for cubic "
             f"interpolation in a; got {len(nu_files)} files.  Pass an empty "
             f"stack for massless-neutrino runs instead.")
-    first = read_transfer_file(nu_files[0], modern)[:MAX_BETA_ROWS]
+    ncols = _ncols(modern)
+    tables = [_checked(path, d, ncols) for path, d in
+              zip(nu_files, native.parse_stack(list(nu_files), ncols))]
+    first = tables[0][:MAX_BETA_ROWS]
     beta_k = first[:, I_K].copy()
     nkb = len(beta_k)
     beta_raw = np.empty((len(nu_files), nkb))
     beta_raw[0] = first[:, I_DNU] / first[:, I_DC]
     for i, path in enumerate(nu_files[1:], start=1):
-        d = read_transfer_file(path, modern)[:nkb]
+        d = tables[i][:nkb]
         if d.shape[0] != nkb:
             raise ValueError(
                 f"{path}: {d.shape[0]} rows, expected {nkb} "

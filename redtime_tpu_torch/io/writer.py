@@ -14,6 +14,8 @@ from typing import IO
 
 import numpy as np
 
+from redtime_tpu_torch.io import native
+
 WIDTH = 20  # reference redTime.cc:64
 
 
@@ -26,7 +28,14 @@ def _w(x: float) -> str:
 
 
 def _format_block(block: np.ndarray) -> str:
-    """One redshift block of data rows."""
+    """One redshift block of data rows, through the native formatter
+    (native.format_rows): the bytes of _format_block_plain."""
+    return native.format_rows(block, WIDTH, 12)
+
+
+def _format_block_plain(block: np.ndarray) -> str:
+    """_format_block by Python f-strings, one value at a time: the plain
+    version the tests hold the native formatter to."""
     return "".join("".join(_w(x) for x in row) + "\n" for row in block)
 
 
