@@ -46,7 +46,7 @@ from redtime_tpu_torch.io.camb import LinearData
 from redtime_tpu_torch.io.params import ParamsFile
 from redtime_tpu_torch.kernels import counts
 from redtime_tpu_torch.kernels import out_block as ob
-from redtime_tpu_torch.profiling import StageTimer, sync
+from redtime_tpu_torch.profiling import StageTimer, span, sync
 from redtime_tpu_torch.state import (cosmo_from_numpy, linear_from_numpy,
                                      model_from_numpy)
 
@@ -174,8 +174,11 @@ def _solve(cfg: SolverConfig, settings: RunSettings, model: mdl.Model,
            ec) -> tuple:
     """evolve + _finalize: (RunResult, each lane's controller attempts
     [B])."""
-    ys, attempts = trg.evolve(cfg, settings, model, ec, return_stats=True)
-    return _finalize(cfg, settings, model, ys, ec), attempts
+    with span("driver.solve"):
+        with span("trg.evolve"):
+            ys, attempts = trg.evolve(cfg, settings, model, ec,
+                                      return_stats=True)
+        return _finalize(cfg, settings, model, ys, ec), attempts
 
 
 def _finalize(cfg: SolverConfig, settings: RunSettings, model: mdl.Model,
@@ -189,13 +192,14 @@ def _finalize(cfg: SolverConfig, settings: RunSettings, model: mdl.Model,
     lay = ob.layout_of(cfg, settings)
     k, eta, a, z, eta_fin = _headers(cfg, settings, ys.device)
     src = None
-    if lay.mc:
-        src = fastpt.compute_J_PZ(
-            cfg, ys[:, :, 0:3].reshape(B * S, 3, nk), model.cosmo.n_s,
-            settings.print_rsd, ec, n_rep=S)
-    table, svs, Hs = ob.out_block(
-        lay, ys, k, model, tuple(float(x) for x in settings.z_out),
-        settings.a_in, src, ob.sv_weights(make_grids(cfg).k, cfg.kmin))
+    with span("driver.finalize"):
+        if lay.mc:
+            src = fastpt.compute_J_PZ(
+                cfg, ys[:, :, 0:3].reshape(B * S, 3, nk), model.cosmo.n_s,
+                settings.print_rsd, ec, n_rep=S)
+        table, svs, Hs = ob.out_block(
+            lay, ys, k, model, tuple(float(x) for x in settings.z_out),
+            settings.a_in, src, ob.sv_weights(make_grids(cfg).k, cfg.kmin))
     return RunResult(
         k=k.expand(B, -1), table=table, eta=eta.expand(B, -1),
         a=a.expand(B, -1), z=z.expand(B, -1), H=Hs, sigma_v2=svs,
@@ -245,10 +249,11 @@ def _prepare(cfg: SolverConfig, part, device, on_host: bool) -> mdl.Model:
     """_prepare_chunk of part on `device`, or, on_host, on the host CPU
     on one torch thread (prepare is some 700,000 small ops, which torch's
     thread pool slows down there) and then copied to `device`."""
-    if on_host:
-        with _torch_threads(1):
-            return _on_device(_prepare_chunk(cfg, part, "cpu"), device)
-    return _prepare_chunk(cfg, part, device)
+    with span("driver.prepare"):
+        if on_host:
+            with _torch_threads(1):
+                return _on_device(_prepare_chunk(cfg, part, "cpu"), device)
+        return _prepare_chunk(cfg, part, device)
 
 
 def _on_device(m: mdl.Model, device: torch.device) -> mdl.Model:
@@ -257,7 +262,8 @@ def _on_device(m: mdl.Model, device: torch.device) -> mdl.Model:
     if device.type != "cuda":
         return m
     to = lambda x: x.pin_memory().to(device, non_blocking=True)
-    return mdl.Model(CosmoParams(*map(to, m.cosmo)), *map(to, m[1:]))
+    with span("driver.prepare.copy"):
+        return mdl.Model(CosmoParams(*map(to, m.cosmo)), *map(to, m[1:]))
 
 
 @contextlib.contextmanager

@@ -44,6 +44,7 @@ from redtime_tpu_torch.kernels.engine_front import (
 from redtime_tpu_torch.kernels.out_leg import out_leg, padded
 from redtime_tpu_torch.kernels.pz_leg import pz_leg
 from redtime_tpu_torch.kernels.tab_leg import tab_leg
+from redtime_tpu_torch.profiling import span
 
 # transform-family tables (reference redTime.cc:731-738)
 ELL_N = (0, 0, 1, 2, 2, 3, 4)
@@ -437,8 +438,9 @@ def compute_J_PZ(cfg: SolverConfig, lnP3: torch.Tensor, n_s: torch.Tensor,
     columns 0..nk-1 and J at the PMR low-k point in column nk (reference
     reads redTime.cc:813-1279 [nshift+i], :1252 nloMR); nfam is NFAM (J,
     then the RSD Jn0 transforms) with RSD, NFAM_J without."""
-    P_ext, ci = engine_front(cfg, lnP3, n_s, ec, clip, n_rep)
-    return _legs(cfg, P_ext, ci, with_rsd, ec)
+    with span("fastpt.engine"):
+        P_ext, ci = engine_front(cfg, lnP3, n_s, ec, clip, n_rep)
+        return _legs(cfg, P_ext, ci, with_rsd, ec)
 
 
 def window(cfg: SolverConfig, Jw: torch.Tensor, PZw: torch.Tensor,

@@ -27,6 +27,7 @@ from redtime_tpu_torch.grids import make_grids
 from redtime_tpu_torch.io.camb import LinearData
 from redtime_tpu_torch.ode import (DOP853, DOPRI5, integrate_dense,
                                    integrate_interval, lane_values)
+from redtime_tpu_torch.profiling import span
 from redtime_tpu_torch.quadrature import qag_gk61
 
 F64 = torch.float64
@@ -406,7 +407,8 @@ def prepare_model(cfg: SolverConfig, c: CosmoParams, lin: LinearData,
     B = lin.t_lnk.shape[0]
     t = lambda x: torch.as_tensor(x, dtype=F64, device=dev)
 
-    lna_nodes, G, dDda = build_growth_tables(cfg, c, lin)
+    with span("model.growth"):
+        lna_nodes, G, dDda = build_growth_tables(cfg, c, lin)
     W = t(growth_k_reduction(cfg))                 # [nk, n_lnk+1]
     G_red = G @ W.T                                # [B, n_lna+1, nk]
     dDda_red = dDda @ W.T
@@ -426,16 +428,19 @@ def prepare_model(cfg: SolverConfig, c: CosmoParams, lin: LinearData,
     dDda_red = dDda_red / s[:, None]
     Dnorm = Dnorm / s
 
-    kq = t(np.clip(grids.k, cfg.beta_k_min, cfg.beta_k_max))
-    beta_solver = _beta_reduce_k(lin, kq)         # [B, nz, nk]
-    T_solver = transfer_at(c, lin, t(grids.lnk))
+    with span("model.beta_transfer"):
+        kq = t(np.clip(grids.k, cfg.beta_k_min, cfg.beta_k_max))
+        beta_solver = _beta_reduce_k(lin, kq)     # [B, nz, nk]
+        T_solver = transfer_at(c, lin, t(grids.lnk))
 
     override = None if norm_override is None else lane_values(
         norm_override, B, dev).clone()
     if cfg.quad_impl == "qag":
-        norm = sigma8_normalization_qag(cfg, c, lin) if override is None \
-            else override
-        sv2 = sigma_v2_z0_qag(cfg, c, lin, norm)
+        with span("model.sigma8"):
+            norm = sigma8_normalization_qag(cfg, c, lin) if override is \
+                None else override
+        with span("model.sigma_v"):
+            sv2 = sigma_v2_z0_qag(cfg, c, lin, norm)
     else:
         # beta_P(a=1, k) at the quadrature nodes, in the two k mappings
         k_q = np.exp(quad_nodes(cfg)[0])

@@ -30,6 +30,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from redtime_tpu_torch import profiling
 from redtime_tpu_torch.kernels.rk_finish import (REJECT_ABOVE,
                                                  AttemptConsts,
                                                  attempt_consts, rk_finish,
@@ -39,6 +40,14 @@ from redtime_tpu_torch.kernels.rk_finish import (REJECT_ABOVE,
 # waits for the device; attempts on finished lanes are no-ops, so the
 # value changes the run time and never the result.  Not tuned.
 CHECK_EVERY = 4
+
+
+def _any_running(active: torch.Tensor) -> bool:
+    """The host's check: waits for the device, then whether any lane of
+    `active` still runs."""
+    with profiling.span("ode.check"):
+        return bool(active.any())
+
 
 class Tableau(NamedTuple):
     c: np.ndarray      # [s]    stage times
@@ -179,7 +188,8 @@ def integrate_interval(rhs: Callable, t0, t1, y0: torch.Tensor, h0,
     loop `while ((t1 - t)*h > 0) apply(...)` per lane (redTime.cc:
     1614-1630) and the JAX package's vmapped `integrate_interval`.
     Returns (y(t1), h_suggest [B]) and, with return_stats, the per-lane
-    attempt counts n [B] (accepted + rejected).
+    attempt counts n [B] (accepted + rejected) and the rounds of
+    CHECK_EVERY attempts launched.
 
     A lane still short of t1 at max_steps (or stalled with h -> 0) is
     POISONED with NaN, so batch fault isolation (driver.finite_report)
@@ -188,6 +198,17 @@ def integrate_interval(rhs: Callable, t0, t1, y0: torch.Tensor, h0,
     The host checks whether any lane is still running once every
     CHECK_EVERY attempts; attempts on lanes that have finished are
     no-ops, so the result is the same as checking after every attempt."""
+    with profiling.span("ode.interval"):
+        y, h, n, rounds = _interval(rhs, t0, t1, y0, h0, eps_abs, eps_rel,
+                                    tab, max_steps)
+    if return_stats:
+        return y, h, n, rounds
+    return y, h
+
+
+def _interval(rhs: Callable, t0, t1, y0: torch.Tensor, h0, eps_abs: float,
+              eps_rel: float, tab: Tableau, max_steps: int):
+    """integrate_interval's loop: (y(t1), h_suggest, n, rounds)."""
     shape = y0.shape
     B, dev = shape[0], y0.device
     y = y0.reshape(B, -1).contiguous()
@@ -205,16 +226,16 @@ def integrate_interval(rhs: Callable, t0, t1, y0: torch.Tensor, h0,
         return (t < t1v) & (n < max_steps)
 
     active = running()
-    while bool(active.any()):
+    rounds = 0
+    while _any_running(active):
+        rounds += 1
         for _ in range(CHECK_EVERY):
-            y, t, h, n, *_ = attempt(flat_rhs, t, h, y, t1v, n, active,
-                                     consts)
-            active = running()
+            with profiling.span("ode.attempt"):
+                y, t, h, n, *_ = attempt(flat_rhs, t, h, y, t1v, n, active,
+                                         consts)
+                active = running()
     y = torch.where((t >= t1v)[:, None], y, torch.full_like(y, np.nan))
-    y = y.reshape(shape)
-    if return_stats:
-        return y, h, n
-    return y, h
+    return y.reshape(shape), h, n, rounds
 
 
 def _rejected(r: torch.Tensor) -> torch.Tensor:
@@ -260,7 +281,7 @@ def integrate_nodes(rhs: Callable, t0, nodes, y0: torch.Tensor, h0,
         return (seg < m) & (n < max_steps)
 
     active = running()
-    while bool(active.any()):
+    while _any_running(active):
         for _ in range(CHECK_EVERY):
             at = torch.clamp(seg, max=m - 1)
             t1 = nodes[at]
@@ -335,7 +356,7 @@ def integrate_dense(rhs: Callable, t0, t1, y0: torch.Tensor, h0,
         return (t < t1v) & (n < max_steps)
 
     active = running()
-    while bool(active.any()):
+    while _any_running(active):
         for _ in range(CHECK_EVERY):
             ks, h_try = _clipped_stages(flat_rhs, t, h, y, t1v, consts)
             y_out, t_out, h, n, r, _ = rk_finish(y, ks, t, h, t1v, n, active,

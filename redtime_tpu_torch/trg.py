@@ -21,7 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from redtime_tpu_torch import assembly, fastpt
+from redtime_tpu_torch import assembly, fastpt, profiling
 from redtime_tpu_torch import background as bg
 from redtime_tpu_torch import model as mdl
 from redtime_tpu_torch.config import RunSettings, SolverConfig
@@ -30,8 +30,9 @@ from redtime_tpu_torch.kernels import rhs_tail as rt
 from redtime_tpu_torch.kernels.rhs_tail import (ABC_IDX, BEF_IDX, NU_STATE,
                                                 NUI, NUP, NUQ)
 from redtime_tpu_torch.kernels.rk_finish import attempt_consts
-from redtime_tpu_torch.ode import (DOP853, DOPRI5, RKF45, attempt,
-                                   integrate_interval, lane_values)
+from redtime_tpu_torch.ode import (CHECK_EVERY, DOP853, DOPRI5, RKF45,
+                                   attempt, integrate_interval, lane_values)
+from redtime_tpu_torch.profiling import span
 
 NELL = 3
 
@@ -197,8 +198,10 @@ def make_rhs(cfg: SolverConfig, settings: RunSettings, model: mdl.Model,
     prologue = rhs_prologue(cfg, settings, model, ec, cache)
 
     def rhs(eta, yflat):
-        return rt.rhs_tail(*prologue(eta, yflat)).reshape(yflat.shape[0],
-                                                          -1)
+        with span("trg.rhs"):
+            args = prologue(eta, yflat)
+            with span("rhs_tail"):
+                return rt.rhs_tail(*args).reshape(yflat.shape[0], -1)
 
     return rhs
 
@@ -244,12 +247,18 @@ def evolve(cfg: SolverConfig, settings: RunSettings, model: mdl.Model,
     t0s = np.concatenate([[0.0], etasteps[:-1]])
     outs = []
     attempts = torch.zeros(y.shape[0], dtype=torch.int64, device=y.device)
+    ns, rounds = [], 0
     for t0, t1 in zip(t0s, etasteps):
-        y, h, n = integrate_interval(rhs, float(t0), float(t1), y, h,
-                                     cfg.eabs_P, cfg.erel_P,
-                                     eta_tableau(cfg), return_stats=True)
+        y, h, n, r = integrate_interval(rhs, float(t0), float(t1), y, h,
+                                        cfg.eabs_P, cfg.erel_P,
+                                        eta_tableau(cfg), return_stats=True)
         attempts = attempts + n
         outs.append(y)
+        ns.append(n)
+        rounds += r
+    if profiling.counting():
+        profiling.count_lockstep(rounds * CHECK_EVERY, rounds + len(ns),
+                                 ns)
     ys = torch.stack(outs, dim=1).reshape(y.shape[0], len(etasteps),
                                           NU_STATE, nk)
     return (ys, attempts) if return_stats else ys

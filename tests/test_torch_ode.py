@@ -82,7 +82,7 @@ def test_integrate_interval_matches_vmapped_jax(name, itol):
 
     yj, hj, nj = jax.jit(jax.vmap(one))(jnp.asarray(RATES), jnp.asarray(y0),
                                         jnp.asarray(t1), jnp.asarray(h0))
-    yt, ht, nt = tode.integrate_interval(
+    yt, ht, nt, _ = tode.integrate_interval(
         _rhs_torch(RATES), 0.0, torch.as_tensor(t1), torch.tensor(y0),
         torch.as_tensor(h0), eabs, erel, tab_t, return_stats=True)
     np.testing.assert_array_equal(nt.numpy(), np.asarray(nj))
@@ -99,7 +99,7 @@ def test_truncated_lane_is_poisoned(max_steps):
     max_steps is a multiple of the host-check interval ode.CHECK_EVERY."""
     t1 = torch.tensor([0.01, 50.0, 0.02], dtype=torch.float64)
     rates = RATES[:3]
-    y, _, n = tode.integrate_interval(
+    y, _, n, _ = tode.integrate_interval(
         _rhs_torch(rates), 0.0, t1, torch.ones((3, 3), dtype=torch.float64),
         1e-3, 1e-12, 1e-10, tode.RKF45, max_steps=max_steps,
         return_stats=True)
