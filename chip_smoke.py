@@ -29,7 +29,11 @@ from the root of a checkout, on a machine with a CUDA card, nvcc and g++.
      outputs bit for bit, reached included; then K1, K2 and K3 at the
      shapes of
      the presets' phase (nk, np = 512, 2048 and 256, 2048; 2 lanes),
-     checked and timed with their bounds (preset_rows); K8 rhs_tail on
+     checked and timed with their bounds (preset_rows); K1 at the
+     benchmark's solve cells' shapes (512 lanes at nk=128, 64 at nk=512),
+     checked and timed with its bound, its share of it and the schedule
+     its launch took, from out_leg.SCHEDULE_LAUNCHES (k1_cell_rows; the
+     main path's 16-lane row carries its schedule too); K8 rhs_tail on
      the inputs trg.rhs_prologue builds from design models and generated
      states, at every (nk, lanes) the main paths give it (RT_SHAPES) in
      full TRG with and without RSD, 1-loop and linear, with a NaN lane
@@ -806,6 +810,7 @@ def leg_rows(rng, cfg, B: int, detail: dict, tag: str = "") -> list:
         name="out_leg", route="cuda",
         source="redtime_tpu_torch/csrc/out_leg.cu",
         replaces="redtime_tpu/fastpt.py:1228",
+        schedule=k1_schedule(lambda: k1.out_leg(tab, ec.G)),
         max_abs_err=float(err.max()), **t_k1,
         **least_time(8.0 * (tab.numel() + nfam * K * O + J.numel()),
                 2.0 * nfam * 9 * B * K * O, PEAK_FP64_TC)))
@@ -1958,6 +1963,78 @@ def check_leg_shapes(rng, detail: dict) -> None:
           f" within their bounds (worst |delta|/bound {worst}) and "
           "bit-equal over two calls")
     detail["leg_shape_cases"] = cases
+
+
+def k1_schedule(fn) -> str:
+    """The name of the schedule that K1's launch in fn() took, read from
+    out_leg.SCHEDULE_LAUNCHES; checks that fn() launched K1 once."""
+    from redtime_tpu_torch.kernels import out_leg as k1
+
+    before = dict(k1.SCHEDULE_LAUNCHES)
+    fn()
+    took = [s for s, n in k1.SCHEDULE_LAUNCHES.items()
+            if n != before.get(s, 0)]
+    check(len(took) == 1 and k1.SCHEDULE_LAUNCHES[took[0]]
+          == before.get(took[0], 0) + 1, f"out_leg: launches {took}")
+    return k1.NAMES[took[0]]
+
+
+# K1 at the benchmark's solve cells' shapes: cell -> (SolverConfig
+# preset, or None for the defaults; lanes)
+K1_CELLS = {"trg128.solve.w512": (None, 512),
+            "trg512.solve.w64": ("high_accuracy", 64)}
+
+
+def k1_cell_rows(rng, detail: dict) -> dict:
+    """K1 at the solve cells' shapes (512 lanes on SolverConfig()'s grid,
+    64 on high_accuracy()'s: nk=512, np=2048), on their engine constants:
+    within the dot product's forward-error bound of its plain version,
+    the same bits over two calls, timed (eager, device, plain) with its
+    bound, its share of it and the schedule its launch took.  Returns
+    {cell: row}."""
+    import torch
+
+    from redtime_tpu_torch import fastpt
+    from redtime_tpu_torch.config import SolverConfig
+    from redtime_tpu_torch.kernels import out_leg as k1
+
+    out = {}
+    for cell, (preset, B) in K1_CELLS.items():
+        cfg = getattr(SolverConfig, preset)() if preset else SolverConfig()
+        ec = fastpt.engine_consts(cfg, torch.device("cuda"))
+        K, nfam, O = 2 * cfg.npts, fastpt.NFAM, cfg.nk + 1
+        tab = torch.as_tensor(rng.standard_normal((B, 2, nfam, 3, K)),
+                              device="cuda")
+        J, J_ref = k1.out_leg(tab, ec.G), k1.out_leg_plain(tab, ec.G)
+        prod = tab[:, 0, :, :, None, :] * tab[:, 1, :, None, :, :] / K
+        bound = 2 * K * EPS * torch.matmul(
+            prod.abs().reshape(B, nfam, 9, K), ec.G.abs()).reshape(J.shape)
+        del prod
+        ratio = float(((J - J_ref).abs() / bound).max())
+        check(ratio <= 1.0, f"out_leg at {cell}: |delta|/bound {ratio:.3g}")
+        check(bool(torch.equal(J, k1.out_leg(tab, ec.G))),
+              f"out_leg at {cell}: two calls differ")
+        del J, J_ref, bound
+        t, runs = measure(lambda: k1.out_leg(tab, ec.G),
+                          lambda: k1.out_leg_plain(tab, ec.G))
+        cost = least_time(8.0 * (tab.numel() + nfam * K * O
+                                 + B * nfam * 9 * O),
+                          2.0 * nfam * 9 * B * K * O, PEAK_FP64_TC)
+        out[cell] = dict(t, **cost, B=B, nfam=nfam, K=K, O=O,
+                         share=cost["bound_ms"] / t["device_ms"],
+                         schedule=k1_schedule(lambda: k1.out_leg(tab,
+                                                                 ec.G)),
+                         err_over_bound=ratio, readings=runs)
+        r = out[cell]
+        print(f"out_leg at {cell}'s shape (B={B}, K={K}, O={O}): "
+              f"{r['ms']:.4f} ms eager, {r['device_ms']:.4f} ms device "
+              f"(plain {r['plain_ms']:.4f} / {r['plain_device_ms']:.4f}); "
+              f"bound {r['bound_ms']:.5f} by {r['bound_by']}, "
+              f"{100 * r['share']:.1f}% of it; schedule {r['schedule']}")
+        del tab
+        torch.cuda.empty_cache()
+    detail["out_leg_cells"] = out
+    return out
 
 
 def check_probe_kernels(rng, detail: dict) -> list:
@@ -3553,9 +3630,15 @@ def main() -> int:
           detail)
     presets = timed("preset_rows", preset_rows, np.random.default_rng(1357),
                     detail)
+    cells = timed("k1_cells", k1_cell_rows, np.random.default_rng(9753),
+                  detail)
     for r in rows:
         if r["name"] in presets:
             r["preset_shapes"] = presets[r["name"]]
+        if r["name"] == "out_leg" and "cell_shapes" not in r:
+            r["cell_shapes"] = {c: {k: v for k, v in row.items()
+                                    if k != "readings"}
+                                for c, row in cells.items()}
     rows += timed("probe_kernels", check_probe_kernels,
                   np.random.default_rng(4321), detail)
     for r in rows:

@@ -131,6 +131,14 @@ def build(defines: tuple = (), only: tuple = ()) -> Path:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device: int) -> int:
+    """The streaming multiprocessors of CUDA device `device` (the launch
+    plans of K1 and K10 read it)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
@@ -138,7 +146,7 @@ def lib() -> ctypes.CDLL:
         handle = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
         handle.rt_out_leg.argtypes = [p, p, p, i, i, i, i, ctypes.c_longlong,
-                                       i, p]
+                                       i, i, p]
         handle.rt_out_leg.restype = i
         handle.rt_pz_leg.argtypes = [p, p, p, p, i, i, i, i, p]
         handle.rt_pz_leg.restype = i

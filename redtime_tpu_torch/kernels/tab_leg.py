@@ -19,7 +19,6 @@ dft_bwd_half).
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
@@ -172,11 +171,6 @@ def _check_kernel_shape(ci, bwd, tw) -> None:
         raise ValueError("tab_leg: tw must be 16-byte aligned")
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(device: int) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def tab_leg(ci, ga_re, ga_im, gb_re, gb_im, bwd, tw,
             nfam: int) -> torch.Tensor:
     """tab [B, 2, nfam, 3, 2np]: the hand kernel for CUDA tensors (which
@@ -190,7 +184,7 @@ def tab_leg(ci, ga_re, ga_im, gb_re, gb_im, bwd, tw,
     _check_kernel_shape(ci, bwd, tw)
     B, half, N = ci.shape[0], ga_re.shape[1], bwd.shape[1]
     RB, S, threads = launch_plan(B, nfam, 2 * half,
-                                 _sms(ci.device.index or 0))
+                                 build.sm_count(ci.device.index or 0))
     plan = fourier.fft_plan(2 * half // S)
     if 3 * B * -(-2 * nfam // RB) * S >= 2 ** 31 or ci.numel() >= 2 ** 31:
         raise ValueError(f"tab_leg: B={B}, nfam={nfam} too large for the "

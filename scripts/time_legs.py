@@ -8,7 +8,8 @@ redtime_tpu_torch, builds its kernels and times K1 and K2 at nk=128,
 np=512, 16 lanes (SolverConfig() defaults, the shapes chip_smoke.py times
 them at) on inputs from the same seeded numpy generator, with this
 checkout's chip_smoke.graph_ms (20 calls in a CUDA graph, replayed 5
-times), five readings each, alternating.  Prints one JSON line per
+times), five readings each, alternating, and gives the sha256 of each
+one's output, so that the checkouts' bits can be compared.  Prints one JSON line per
 (round, root) and writes them all, with the card's name and power limit,
 to PATH (default chiprun_out/time_legs.json).  Imports nothing of JAX.
 """
@@ -16,6 +17,7 @@ to PATH (default chiprun_out/time_legs.json).  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -62,11 +64,13 @@ def time_one(root: str) -> dict:
     fns = dict(out_leg=lambda: k1.out_leg(tab, ec.G),
                pz_leg=lambda: k2.pz_leg(ec.toeplitz_sl, P_e, ec.pz_kfac_sl,
                                         cfg.nshift))
+    sha = {name: hashlib.sha256(fn().cpu().numpy().tobytes()).hexdigest()
+           for name, fn in fns.items()}
     out = {name: [] for name in fns}
     for _ in range(READINGS):
         for name, fn in fns.items():
             out[name].append(smoke.graph_ms(fn))
-    return dict(root=root, device_ms=out,
+    return dict(root=root, device_ms=out, sha256=sha,
                 median_ms={k: float(np.median(v)) for k, v in out.items()})
 
 

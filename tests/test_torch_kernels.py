@@ -601,9 +601,18 @@ def test_probes_entry_point_fails_without_a_card():
 
 
 # (B, nfam, 2np, O): ragged and full chunks, 1-loop's 7 families and
-# full TRG's 14, the default, v0.1 and HIGH_ACCURACY output grids
-K1_SHAPES = [(B, nfam, K, O) for B in (1, 3, 16, 33) for nfam in (7, 14)
-             for K in (1024, 4096) for O in (129, 257, 513)]
+# full TRG's 14, the default, v0.1 and HIGH_ACCURACY output grids.  Those
+# of up to 16 lanes (the main path's chunk) and the narrow side of the
+# measured crossing on two grids take the narrow schedule; the solve
+# cells' shapes (512 lanes at nk=128, 64 at nk=512), the crossing's wide
+# side and a ragged shape take a wide one.
+K1_ALL = [(B, nfam, K, O) for B in (1, 3, 16, 33) for nfam in (7, 14)
+          for K in (1024, 4096) for O in (129, 257, 513)]
+K1_NARROW = ([s for s in K1_ALL if s[0] <= 16]
+             + [(48, 14, 1024, 129), (32, 14, 4096, 513)])
+K1_WIDE = [(512, 14, 1024, 129), (64, 14, 4096, 513), (64, 14, 1024, 129),
+           (24, 14, 4096, 513), (300, 14, 2048, 257)]
+K1_SHAPES = K1_ALL + K1_NARROW[-2:] + K1_WIDE
 # (B, nk, np): the default, v0.1 and HIGH_ACCURACY grids
 K2_SHAPES = [(B, nk, npts) for B in (1, 3, 16, 33)
              for nk, npts in ((128, 512), (256, 2048), (512, 2048))]
@@ -630,6 +639,25 @@ def _k2_bound(T, P, kfac, nshift):
     dot = torch.einsum("nim,bam->bnai", T.abs(), P.abs())
     return (2 * npts * EPS * dot[:, :, :, None, :]
             * (kfac * P[:, None, None, :, nshift:nshift + nk]).abs())
+
+
+@pytest.mark.parametrize("n_sm", [132, 114])
+def test_out_leg_schedule_rule(n_sm):
+    """K1's schedule rule, from the shape and the SM count alone.  On the
+    132 SMs its costs were fitted on: the narrow schedule at every shape of
+    K1_NARROW (the main path's 16-lane chunk among them), so those
+    launches run the parent's code, and a wide one at
+    K1_WIDE, the two sides of the measured crossing on two grids among
+    them.  On 114 SMs: narrow up to 16 lanes, wide at the solve cells'
+    shapes."""
+    narrow, wide = K1_NARROW, K1_WIDE
+    if n_sm != 132:
+        narrow, wide = [s for s in K1_NARROW if s[0] <= 16], K1_WIDE[:2]
+    for B, nfam, K, O in narrow:
+        assert k1.schedule(B, nfam, O, n_sm) == k1.NARROW, (B, nfam, K, O)
+    for B, nfam, K, O in wide:
+        sched = k1.schedule(B, nfam, O, n_sm)
+        assert sched in k1.SCHEDULES and sched != k1.NARROW, (B, O)
 
 
 @pytest.mark.cuda
@@ -664,17 +692,28 @@ def test_cuda_kernels_match_plain(cuda_device):
 def test_cuda_out_leg_shapes(cuda_device):
     """On the card: K1 against its plain version at every shape the port
     uses (K1_SHAPES, G padded as engine_consts pads it), bit-equal over
-    two calls; the wrapper raises on a K the kernel does not take."""
+    two calls, in the schedule out_leg.schedule picks (the narrow one at
+    K1_NARROW, a wide one at K1_WIDE; each call counted by
+    SCHEDULE_LAUNCHES) and in every other schedule the kernel is built
+    with; the wrapper raises on a K the kernel does not take."""
     rng = np.random.default_rng(11)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     for B, nfam, K, O in K1_SHAPES:
         tab = torch.as_tensor(rng.standard_normal((B, 2, nfam, 3, K)),
                               device=cuda_device)
         G = k1.padded(torch.as_tensor(rng.standard_normal((nfam, K, O)),
                                       device=cuda_device))
+        sched = k1.schedule(B, nfam, O, n_sm)
+        before = k1.SCHEDULE_LAUNCHES.get(sched, 0)
+        J_ref, bound = k1.out_leg_plain(tab, G), _k1_bound(tab, G)
         J = k1.out_leg(tab, G)
-        err = (J - k1.out_leg_plain(tab, G)).abs()
-        assert bool((err <= _k1_bound(tab, G)).all()), (B, nfam, K, O)
+        assert bool(((J - J_ref).abs() <= bound).all()), (B, nfam, K, O)
         assert torch.equal(J, k1.out_leg(tab, G)), (B, nfam, K, O)
+        assert k1.SCHEDULE_LAUNCHES[sched] == before + 2, (B, nfam, K, O)
+        for other in k1.SCHEDULES:
+            J = k1._launch(tab, G, other)
+            assert bool(((J - J_ref).abs() <= bound).all()), (other, B, O)
+            assert torch.equal(J, k1._launch(tab, G, other)), (other, B, O)
     with pytest.raises(ValueError, match="even K"):
         k1.out_leg(tab[..., :767].contiguous(), G[:, :767])
 
